@@ -1,0 +1,204 @@
+"""The port's import boundary and its kernel wrapper's contract on the CPU.
+
+`ellspmv_tpu_torch` must import neither jax, ml_dtypes nor the JAX package,
+and importing it must build nothing. The wrapper runs the plain version for
+CPU tensors only and refuses what the kernel does not take; the kernel itself
+is checked on the card (the ``cuda`` test below, and ``chip_smoke.py``).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ellspmv_tpu_torch.formats.ell import ell_from_coo
+from ellspmv_tpu_torch.models.generators import banded_random, poisson2d
+from ellspmv_tpu_torch.ops import _build, ell_cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Imports every module of the port (and chip_smoke) in a fresh interpreter,
+# with subprocesses forbidden, runs the CPU path once, and reports what was
+# imported and whether anything was built.
+_CHILD = r"""
+import importlib, json, pkgutil, subprocess, sys
+
+def _no_subprocess(*a, **k):
+    raise AssertionError("a subprocess was started: %r" % (a,))
+
+subprocess.run = subprocess.Popen = _no_subprocess
+import ellspmv_tpu_torch
+names = ["ellspmv_tpu_torch", "chip_smoke"] + [
+    m.name for m in pkgutil.walk_packages(ellspmv_tpu_torch.__path__,
+                                          "ellspmv_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+
+import torch
+from ellspmv_tpu_torch.formats.ell import ell_from_coo
+from ellspmv_tpu_torch.models.generators import poisson2d
+from ellspmv_tpu_torch.ops import _build, ell_cuda
+ell = ell_from_coo(poisson2d(4))
+ell_cuda.ell_spmv(ell, torch.ones(16, dtype=torch.float64))
+ell_cuda.fma_probe(*ell_cuda.probe_inputs("cpu"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
+                                    "ellspmv_tpu"))
+print(json.dumps({"modules": names, "bad": bad,
+                  "loaded": _build.load.cache_info().currsize,
+                  "launches": ell_cuda.launches,
+                  "probe_launches": ell_cuda.probe_launches,
+                  "probed": len(ell_cuda.FMA_PROBE_RESULTS)}))
+"""
+
+
+@pytest.fixture(scope="module")
+def child():
+    """One fresh interpreter on a PATH without nvcc and a CUDA_HOME that does
+    not exist, as on a machine without the CUDA toolkit."""
+    env = dict(os.environ, CUDA_HOME=os.path.join(REPO, "no-such-cuda"),
+               PATH=os.path.dirname(sys.executable))
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax(child):
+    assert child["bad"] == []
+    expected = {"ellspmv_tpu_torch.cli.common", "ellspmv_tpu_torch.cli.ellspmv",
+                "ellspmv_tpu_torch.ops.ell_cuda", "ellspmv_tpu_torch.ops._build",
+                "ellspmv_tpu_torch.bench.harness",
+                "ellspmv_tpu_torch.ops.dispatch",
+                "ellspmv_tpu_torch.io.mtx", "ellspmv_tpu_torch.formats.ell",
+                "ellspmv_tpu_torch.models.generators", "chip_smoke"}
+    assert expected <= set(child["modules"])
+
+
+def test_import_without_nvcc_builds_nothing(child):
+    assert child["loaded"] == 0
+    assert child["launches"] == 0
+    # the fp64 path probes only a card; the CPU runs the plain versions
+    assert child["probe_launches"] == 0 and child["probed"] == 0
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_path_tracks_sources():
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libellspmv_tpu_torch_")
+    assert [p.name for p in _build.sources()] == ["ell_spmv.cu",
+                                                  "fma_probe.cu"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def _small(dtype=torch.float64):
+    ell = ell_from_coo(banded_random(40, 5, 6, seed=2), value_dtype=dtype,
+                       separate_diagonal=True)
+    x = torch.from_numpy(np.random.RandomState(0).rand(40)).to(dtype)
+    return ell, x
+
+
+def test_cpu_tensors_take_the_plain_version():
+    ell, x = _small()
+    before = ell_cuda.launches
+    got = ell_cuda.ell_spmv(ell, x)
+    assert torch.equal(got, ell_cuda.ell_spmv_torch(ell, x))
+    assert ell_cuda.launches == before
+
+
+@pytest.mark.parametrize("case", ["x_dtype", "x_shape", "y_shape",
+                                  "noncontiguous", "mixed_device",
+                                  "meta_device", "index_dtype"])
+def test_wrapper_refuses(case):
+    ell, x = _small()
+    y = None
+    err = ValueError
+    if case == "x_dtype":
+        x, err = x.float(), TypeError
+    elif case == "x_shape":
+        x = torch.ones(41, dtype=torch.float64)
+    elif case == "y_shape":
+        y = torch.ones(39, dtype=torch.float64)
+    elif case == "noncontiguous":
+        x = torch.ones(80, dtype=torch.float64)[::2]
+    elif case == "mixed_device":
+        x = x.to("meta")
+    elif case == "meta_device":
+        ell, x = ell.to("meta"), x.to("meta")
+    elif case == "index_dtype":
+        ell.colidx, err = ell.colidx.to(torch.int16), TypeError
+    with pytest.raises(err):
+        ell_cuda.ell_spmv(ell, x, y)
+
+
+def test_fma_probe_cpu_takes_the_plain_version():
+    a, b = ell_cuda.probe_inputs("cpu")
+    before = ell_cuda.probe_launches
+    got = ell_cuda.fma_probe(a, b)
+    assert torch.equal(got, ell_cuda.fma_probe_torch(a, b))
+    assert got.shape == (8, 128) and bool((got != 0).any())
+    assert ell_cuda.probe_launches == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "noncontiguous",
+                                  "meta_device"])
+def test_fma_probe_refuses(case):
+    a, b = ell_cuda.probe_inputs("cpu")
+    err = ValueError
+    if case == "dtype":
+        b, err = b.double(), TypeError
+    elif case == "shape":
+        b = b[:4].contiguous()
+    elif case == "noncontiguous":
+        a, b = a.t(), b.t()
+    elif case == "meta_device":
+        a, b = a.to("meta"), b.to("meta")
+    with pytest.raises(err):
+        ell_cuda.fma_probe(a, b)
+
+
+@pytest.mark.cuda
+def test_fma_probe_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    a, b = ell_cuda.probe_inputs("cuda")
+    before = ell_cuda.probe_launches
+    got = ell_cuda.fma_probe(a, b)
+    assert ell_cuda.probe_launches == before + 1
+    assert torch.equal(got.cpu(), ell_cuda.fma_probe_torch(a.cpu(), b.cpu()))
+    ell_cuda.FMA_PROBE_RESULTS.clear()
+    assert ell_cuda.fma_contraction_available(a.device)
+    assert ell_cuda.probe_launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+def test_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    ell = ell_from_coo(poisson2d(64), value_dtype=dtype,
+                       separate_diagonal=True, device="cuda")
+    x = torch.from_numpy(np.random.RandomState(0).rand(4096)).cuda().to(dtype)
+    y = torch.from_numpy(np.random.RandomState(1).randn(4096)).cuda().to(dtype)
+    before = ell_cuda.launches
+    got = ell_cuda.ell_spmv(ell, x, y)
+    torch.cuda.synchronize()
+    assert ell_cuda.launches == before + 1
+    want = ell_cuda.ell_spmv_torch(ell, x, y)
+    tol = {torch.float64: 1e-13, torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    scale = float(want.double().abs().max())
+    torch.testing.assert_close(got.double(), want.double(), rtol=tol[dtype],
+                               atol=tol[dtype] * scale)
