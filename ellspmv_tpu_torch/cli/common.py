@@ -1,5 +1,6 @@
 """The `ellspmv` program on PyTorch: the counterpart of
-``ellspmv_tpu.cli.common`` for the ELLPACK path.
+``ellspmv_tpu.cli.common`` for the ELLPACK and DIA formats, the auto
+chooser's DIA/ELL branch and both timing protocols.
 
 Flag-compatible with the JAX package's parser, which follows the
 reference's (parse_program_options, ellspmv.c:465-611): ``--opt=v`` and
@@ -88,11 +89,13 @@ def print_help(program: str, f=None):
     f.write("  --precision=DTYPE         float64 (default), float32 or bfloat16\n")
     f.write("  --index-width=N           32 or 64 (default: auto; IDXTYPEWIDTH analogue)\n")
     f.write("  --backend=B               auto (default) or pallas: the hand-written\n")
-    f.write("                            ELLPACK kernel\n")
-    f.write("  --format=F                ell (default)\n\n")
+    f.write("                            kernel of the format\n")
+    f.write("  --protocol=P              per_iter (default) or chained timing\n")
+    f.write("  --format=F                ell (default), auto (DIA or ELL, whichever\n")
+    f.write("                            moves fewer bytes) or dia (stencil diagonals)\n\n")
     f.write(" Not yet ported (accepted, then refused with exit code 1):\n")
-    f.write("  --format other than ell, --protocol=chained, --devices=N>1,\n")
-    f.write("  --reorder=rcm, --papi-event-*, --trace=DIR, --backend=xla\n\n")
+    f.write("  --format=sell|hybrid|stream, --devices=N>1, --reorder=rcm,\n")
+    f.write("  --papi-event-*, --trace=DIR, --backend=xla\n\n")
     f.write("  -h, --help                display this help and exit\n")
     f.write("  --version                 display version information and exit\n")
 
@@ -220,10 +223,8 @@ def parse_args(argv: list[str], program: str) -> Options:
 
 def unported_option(opts: Options) -> str | None:
     """The first given option that this port does not have yet, or None."""
-    if opts.format not in (None, "ell"):
+    if opts.format in ("sell", "hybrid", "stream"):
         return f"--format={opts.format}"
-    if opts.protocol != "per_iter":
-        return f"--protocol={opts.protocol}"
     if opts.devices > 1:
         return f"--devices={opts.devices}"
     if opts.reorder != "none":
@@ -239,14 +240,43 @@ def unported_option(opts: Options) -> str | None:
 
 def kernel_name(opts: Options, mat) -> str:
     """Kernel label in the reference's naming (gemv/gemvsd/gemv16,
-    README:133)."""
+    README:133), and gemv_dia for DIA as in the JAX program."""
+    from ellspmv_tpu_torch.formats.dia import DiaMatrix
+    if isinstance(mat, DiaMatrix):
+        return "gemv_dia"
     if opts.separate_diagonal and mat.rowsize == 16:
         return "gemv16"
     return "gemvsd" if opts.separate_diagonal else "gemv"
 
 
+def _convert(coo, opts: Options, index_dtype, device):
+    """The matrix in the format `opts` asks for, on `device`, with the name
+    and the tail of the verbose conversion line (ellspmv_tpu.cli.common
+    ._convert)."""
+    if opts.format == "auto":
+        from ellspmv_tpu_torch.formats.auto import auto_from_coo
+        mat = auto_from_coo(coo, separate_diagonal=opts.separate_diagonal,
+                            sort_rows=opts.sort_rows,
+                            value_dtype=opts.precision,
+                            index_dtype=index_dtype, device=device)
+        return (mat, f"auto_from_coo [{mat._auto_choice}]",
+                f", {mat._auto_reason}")
+    if opts.format == "dia":
+        from ellspmv_tpu_torch.formats.dia import dia_from_coo
+        mat = dia_from_coo(coo, value_dtype=opts.precision, device=device)
+        if mat is None:
+            raise CliError("--format=dia: matrix has too many distinct "
+                           "diagonals for DIA")
+        return mat, "dia_from_coo", f", {mat.num_diags} diagonals"
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    mat = ell_from_coo(coo, separate_diagonal=opts.separate_diagonal,
+                       sort_rows=opts.sort_rows, value_dtype=opts.precision,
+                       index_dtype=index_dtype, device=device)
+    return mat, "ell_from_coo", f", {mat.rowsize} nonzeros per row"
+
+
 def run(argv: list[str], program: str) -> int:
-    """The program's main body for --format=ell."""
+    """The program's main body."""
     try:
         opts = parse_args(argv, program)
     except (CliError, ValueError) as e:
@@ -262,7 +292,6 @@ def run(argv: list[str], program: str) -> int:
 
     from ellspmv_tpu_torch.bench.harness import benchmark_spmv
     from ellspmv_tpu_torch.config import value_dtype
-    from ellspmv_tpu_torch.formats.ell import ell_from_coo
     from ellspmv_tpu_torch.io.mtx import read_matrix, read_vector, write_vector
 
     if opts.device == "cuda" and not torch.cuda.is_available():
@@ -272,6 +301,12 @@ def run(argv: list[str], program: str) -> int:
     device = torch.device(opts.device)
     log = sys.stderr
     index_dtype = f"int{opts.index_width}" if opts.index_width else None
+    if opts.separate_diagonal and opts.format == "dia" and opts.verbose:
+        log.write(f"{program}: note: --format=dia stores the diagonal "
+                  "inline; --separate-diagonal ignored\n")
+    if opts.format == "auto" and opts.verbose and not opts.sort_rows:
+        log.write(f"{program}: note: --format=auto implies sorted rows "
+                  "(column locality drives the format choice)\n")
 
     # Phase 2: read the matrix (timed, like ellspmv.c:1264-1377)
     t0 = time.perf_counter()
@@ -291,23 +326,23 @@ def run(argv: list[str], program: str) -> int:
                   f"MB/s)\n")
 
     # Phase 3: convert (timed, like ellspmv.c:1379-1486). The time includes
-    # the copy to the device and the slot-major transpose there.
+    # the copy to the device (and, for ELL, the slot-major transpose there).
     t0 = time.perf_counter()
     try:
-        mat = ell_from_coo(coo, separate_diagonal=opts.separate_diagonal,
-                           sort_rows=opts.sort_rows,
-                           value_dtype=opts.precision,
-                           index_dtype=index_dtype, device=device)
+        mat, convert_name, per_row = _convert(coo, opts, index_dtype, device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     except (MemoryError, torch.cuda.OutOfMemoryError) as e:
         sys.stderr.write(f"{program}: conversion failed: {e}\n")
         return 1
+    except (CliError, NotImplementedError) as e:
+        sys.stderr.write(f"{program}: {e}\n")
+        return 1
     t_conv = time.perf_counter() - t0
     if opts.verbose:
-        log.write(f"ell_from_coo: {t_conv:.6f} seconds, "
-                  f"{mat.num_rows:,} rows, {mat.num_nonzeros:,} nonzeros, "
-                  f"{mat.rowsize} nonzeros per row\n")
+        log.write(f"{convert_name}: {t_conv:.6f} seconds, "
+                  f"{mat.num_rows:,} rows, {mat.num_nonzeros:,} nonzeros"
+                  f"{per_row}\n")
         name = (torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "host CPU")
         log.write(f"device: {device} ({name})\n")
@@ -340,11 +375,12 @@ def run(argv: list[str], program: str) -> int:
     if y is not None:
         y = torch.from_numpy(y).to(device).to(dtype)
 
-    # Phase 5: benchmark (warmup + timed loop, ellspmv.c:1745-1876).
-    # --backend=auto and --backend=pallas both run the hand-written kernel.
+    # Phase 5: benchmark (warmup + timed loop, ellspmv.c:1745-1876, or the
+    # chained slope). --backend=auto and --backend=pallas both run the
+    # hand-written kernel.
     try:
         res = benchmark_spmv(None, mat, x, y, repeat=opts.repeat,
-                             warmup=opts.warmup)
+                             warmup=opts.warmup, protocol=opts.protocol)
     except Exception as e:
         sys.stderr.write(f"{program}: benchmark failed: {e}\n")
         return 1

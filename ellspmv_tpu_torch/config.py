@@ -1,4 +1,4 @@
-"""Index-width selection and value types.
+"""Index-width selection, value types and the cards' memory peaks.
 
 The reference selects its index type at compile time via ``IDXTYPEWIDTH``
 (ellspmv.c:112-130). Here, as in ``ellspmv_tpu.config``, it is a run-time
@@ -7,6 +7,8 @@ demand it or when asked for.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -51,6 +53,31 @@ def select_index_dtype(num_rows: int, num_columns: int, num_nonzeros: int,
     if max(num_rows, num_columns, num_nonzeros) > _INT32_MAX:
         return np.dtype(np.int64)
     return default_index_dtype()
+
+
+# Device-memory peak bandwidth in bytes/s of each card, keyed by
+# torch.cuda.get_device_name, the denominator of the roofline shares in
+# bench/ (the counterpart of ellspmv_tpu.config.HBM_PEAK_BYTES_PER_S).
+# Vendor data-sheet peaks, not measured rates.
+HBM_PEAK_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,   # H100 SXM5
+    "NVIDIA H100 PCIe": 2.0e12,         # H100 PCIe, 80 GB HBM2e
+    "NVIDIA H100 NVL": 3.9e12,          # H100 NVL, 94 GB HBM3
+}
+
+
+def hbm_peak_bytes_per_s(device="cuda") -> float | None:
+    """The data-sheet device-memory peak of the card `device` names, or
+    None for a card not in the table and for the CPU, which has no device
+    memory. The ``HBM_PEAK_GBPS`` environment variable overrides it, so a
+    roofline can be pinned on any hardware."""
+    env = os.environ.get("HBM_PEAK_GBPS")
+    if env:
+        return float(env) * 1e9
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return HBM_PEAK_BYTES_PER_S.get(torch.cuda.get_device_name(device))
 
 
 def value_dtype(name: str | torch.dtype) -> torch.dtype:

@@ -42,31 +42,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "spmv_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-template <typename V> struct Accum { using type = V; };
-template <> struct Accum<__nv_bfloat16> { using type = float; };
-
-__device__ __forceinline__ double widen(double v) { return v; }
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ double mad(double a, double b, double c) {
-  return fma(a, b, c);
-}
-__device__ __forceinline__ float mad(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-
-__device__ __forceinline__ void store(double* p, double v) { *p = v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+using spmv::Accum;
+using spmv::kThreads;
+using spmv::mad;
+using spmv::store;
+using spmv::widen;
 
 template <typename V, typename I>
 __global__ void __launch_bounds__(kThreads)
@@ -102,10 +86,7 @@ int launch(const void* colidx, const void* values, const void* diag,
            const void* x, const void* y_in, void* y_out, int64_t num_rows,
            int64_t padded_rows, int64_t rowsize, int64_t num_columns,
            void* stream) {
-  // At least one block, so that every call launches: an empty matrix still
-  // goes through the kernel and its launch check.
-  const int64_t blocks =
-      num_rows > 0 ? (num_rows + kThreads - 1) / kThreads : 1;
+  const int64_t blocks = spmv::row_blocks(num_rows);
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   ell_spmv_kernel<V, I>
       <<<static_cast<unsigned>(blocks), kThreads, 0,

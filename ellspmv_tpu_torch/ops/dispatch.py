@@ -3,16 +3,19 @@
 
 from __future__ import annotations
 
+from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import EllMatrix
-from ellspmv_tpu_torch.ops import ell_cuda
+from ellspmv_tpu_torch.ops import dia_cuda, ell_cuda
 
 
 def spmv(matrix, x, y=None):
     """y := A*x + y on the device of `matrix` and `x`, through the
-    hand-written kernel."""
-    if not isinstance(matrix, EllMatrix):
-        raise NotImplementedError(
-            f"spmv: {type(matrix).__name__} is not yet ported; only "
-            "EllMatrix is (see ROADMAP.md, Queue 1 items 4-8: DIA, CSR, "
-            "SELL and hybrid, stream)")
-    return ell_cuda.ell_spmv(matrix, x, y)
+    hand-written kernel of the matrix's format."""
+    if isinstance(matrix, DiaMatrix):
+        return dia_cuda.dia_spmv(matrix, x, y)
+    if isinstance(matrix, EllMatrix):
+        return ell_cuda.ell_spmv(matrix, x, y)
+    raise NotImplementedError(
+        f"spmv: {type(matrix).__name__} is not yet ported; only EllMatrix "
+        "and DiaMatrix are (see ROADMAP.md, Queue 1 items 5-8: CSR, SELL "
+        "and hybrid, stream)")

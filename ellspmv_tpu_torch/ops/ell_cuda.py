@@ -11,7 +11,6 @@ it runs the plain version. Nothing falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -50,6 +49,23 @@ def ell_spmv_torch(ell: EllMatrix, x: torch.Tensor,
     return out.to(dtype)
 
 
+def check_tensors(kernel: str, device: torch.device, named: list):
+    """Raise unless each (name, tensor, shape, dtype) of `named` lies on
+    `device` with that shape and type and is contiguous."""
+    for name, t, want_shape, want_dtype in named:
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the "
+                             f"matrix on {device}")
+        if tuple(t.shape) != want_shape:
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)},"
+                             f" expected {want_shape}")
+        if t.dtype != want_dtype:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, expected "
+                            f"{want_dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
 def _check(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
     dtype, device = ell.values.dtype, ell.values.device
     if dtype not in _VALUE_TAGS:
@@ -65,18 +81,7 @@ def _check(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
         named.append(("diag", ell.diag, (ell.padded_rows,), dtype))
     if y is not None:
         named.append(("y", y, (ell.num_rows,), dtype))
-    for name, t, want_shape, want_dtype in named:
-        if t.device != device:
-            raise ValueError(f"ell_spmv: {name} is on {t.device}, the "
-                             f"matrix on {device}")
-        if tuple(t.shape) != want_shape:
-            raise ValueError(f"ell_spmv: {name} has shape {tuple(t.shape)},"
-                             f" expected {want_shape}")
-        if t.dtype != want_dtype:
-            raise TypeError(f"ell_spmv: {name} is {t.dtype}, expected "
-                            f"{want_dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"ell_spmv: {name} is not contiguous")
+    check_tensors("ell_spmv", device, named)
     if ell.num_rows > ell.padded_rows:
         raise ValueError("ell_spmv: num_rows exceeds the padded row count")
 
@@ -84,19 +89,6 @@ def _check(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
 _SPMV_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 4 \
     + (ctypes.c_void_p,)
 _PROBE_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_void_p)
-
-
-@functools.cache
-def _entry(symbol: str, argtypes: tuple):
-    """The library's C entry point `symbol` and its error-string function;
-    builds and loads the library on first use."""
-    lib = _build.load()
-    fn = getattr(lib, symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    lib.ell_spmv_error_string.argtypes = [ctypes.c_int]
-    lib.ell_spmv_error_string.restype = ctypes.c_char_p
-    return fn, lib.ell_spmv_error_string
 
 
 def ell_spmv(ell: EllMatrix, x: torch.Tensor,
@@ -117,8 +109,9 @@ def ell_spmv(ell: EllMatrix, x: torch.Tensor,
         raise RuntimeError(
             f"ell_spmv: the fused multiply-add on {x.device} does not round "
             "once (fma_probe disagrees with the exact residual)")
-    fn, error_string = _entry(f"ell_spmv_{_VALUE_TAGS[ell.values.dtype]}_"
-                              f"{_INDEX_TAGS[ell.colidx.dtype]}", _SPMV_ARGS)
+    fn, error_string = _build.entry(
+        f"ell_spmv_{_VALUE_TAGS[ell.values.dtype]}_"
+        f"{_INDEX_TAGS[ell.colidx.dtype]}", _SPMV_ARGS)
     out = torch.empty(ell.num_rows, dtype=ell.values.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(ell.colidx.data_ptr(), ell.values.data_ptr(),
@@ -166,7 +159,7 @@ def fma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return fma_probe_torch(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"fma_probe: no kernel for tensors on {a.device}")
-    fn, error_string = _entry("fma_probe_f32", _PROBE_ARGS)
+    fn, error_string = _build.entry("fma_probe_f32", _PROBE_ARGS)
     out = torch.empty_like(a)
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
              torch.cuda.current_stream(a.device).cuda_stream)

@@ -4,6 +4,9 @@ refusal of every option not yet ported."""
 
 import gzip
 import io
+import itertools
+import json
+import time
 
 import numpy as np
 import pytest
@@ -13,7 +16,7 @@ from ellspmv_tpu.bench.harness import SpmvMetrics as JaxSpmvMetrics
 from ellspmv_tpu.cli import ellspmv as jax_ellspmv
 from ellspmv_tpu.formats.ell import ell_from_coo as jax_ell_from_coo
 from ellspmv_tpu.io.mtx import read_vector, write_matrix, write_vector
-from ellspmv_tpu.models.generators import fem_mesh_2d
+from ellspmv_tpu.models.generators import fem_mesh_2d, poisson2d
 from ellspmv_tpu.ops.reference import coo_spmv_numpy
 from ellspmv_tpu_torch.bench.harness import SpmvMetrics, benchmark_spmv
 from ellspmv_tpu_torch.cli import ellspmv
@@ -103,10 +106,10 @@ def test_verbose_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,shown", [
-    (["--format=dia"], "--format=dia"),
-    (["--format=auto"], "--format=auto"),
+    (["--format=sell"], "--format=sell"),
+    (["--format=hybrid"], "--format=hybrid"),
     (["--format=stream"], "--format=stream"),
-    (["--protocol=chained"], "--protocol=chained"),
+    (["--devices=2", "--protocol=chained"], "--devices=2"),
     (["--devices=4"], "--devices=4"),
     (["--reorder=rcm"], "--reorder=rcm"),
     (["--papi-event-summary"], "--papi-event-summary"),
@@ -216,3 +219,179 @@ def test_slice_fem_mesh_through_both_programs(tmp_path, capsys):
     assert len(y_p) == coo.num_rows
     assert_fp64_close(y_p, y_j)
     assert_fp64_close(y_p, coo_spmv_numpy(coo, np.ones(coo.num_columns)))
+
+
+@pytest.fixture
+def stencil(tmp_path):
+    """A 16-row 5-point stencil file: DIA takes it, and so does the
+    chooser."""
+    path = str(tmp_path / "poisson.mtx")
+    write_matrix(path, poisson2d(4))
+    return path
+
+
+@pytest.mark.parametrize("flags", [
+    ["--format=dia"],
+    ["--format=auto"],
+    ["--format=dia", "--repeat=3", "--warmup=1"],
+    ["--format=dia", "--precision=float32"],
+    ["--format=auto", "--separate-diagonal"],
+    ["--format=auto", "-v"],
+])
+def test_dia_and_auto_stdout_identical_to_jax(flags, stencil, capsys):
+    rc_j, out_j, err_j = run(jax_ellspmv.main, flags + [stencil], capsys)
+    rc_p, out_p, err_p = port(flags + [stencil], capsys)
+    assert rc_j == rc_p == 0, (err_j, err_p)
+    assert out_p == out_j
+    coo = poisson2d(4)
+    calls = 4 if "--repeat=3" in flags else 1
+    assert_fp64_close(read_vector(io.BytesIO(out_p.encode())),
+                      calls * coo_spmv_numpy(coo, np.ones(16)))
+
+
+def test_format_dia_on_test_mtx(capsys):
+    # the rectangular 4 x 5 example has 6 diagonals
+    rc, out, err = port(["--format=dia", "-v", TEST_MTX], capsys)
+    assert rc == 0, err
+    assert out == run(jax_ellspmv.main, ["--format=dia", TEST_MTX],
+                      capsys)[1]
+    np.testing.assert_array_equal(read_vector(io.BytesIO(out.encode())),
+                                  [3, 1, 3, 6])
+    assert "dia_from_coo:" in err and ", 6 diagonals" in err
+    assert err.count("gemv_dia:") == 1
+
+
+def test_format_dia_refuses_too_many_diagonals(tmp_path, capsys):
+    path = str(tmp_path / "wide.mtx")
+    write_matrix(path, random_coo(np.random.RandomState(0), 60, 60, 600))
+    rc_j, out_j, err_j = run(jax_ellspmv.main, ["--format=dia", path],
+                             capsys)
+    rc_p, out_p, err_p = port(["--format=dia", path], capsys)
+    assert rc_j == rc_p == 1 and out_p == out_j == ""
+    assert err_p == err_j == ("ellspmv: --format=dia: matrix has too many "
+                              "distinct diagonals for DIA\n")
+
+
+def test_auto_verbose_lines(stencil, capsys):
+    rc, out, err = port(["-q", "-v", "--format=auto", stencil], capsys)
+    assert rc == 0 and out == ""
+    assert "note: --format=auto implies sorted rows" in err
+    assert "auto_from_coo [dia]:" in err and "5 dense diagonals" in err
+    assert err.count("gemv_dia:") == 1
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    """A host clock that advances one second per reading, so that both
+    programs' chained protocols see a zero slope and take the same loop
+    lengths (2 + 4096 iterations), whatever the machine's speed."""
+    ticks = itertools.count()
+    monkeypatch.setattr(time, "perf_counter", lambda: float(next(ticks)))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--format=dia"],
+    ["--format=auto", "-v"],
+    ["--sort-rows"],
+])
+def test_chained_stdout_identical_to_jax(flags, stencil, clock, capsys):
+    argv = ["--protocol=chained"] + flags + [stencil]
+    rc_j, out_j, err_j = run(jax_ellspmv.main, argv, capsys)
+    rc_p, out_p, err_p = port(argv, capsys)
+    assert rc_j == rc_p == 0, (err_j, err_p)
+    assert out_p == out_j
+    if "-v" in flags:
+        assert ("seconds/iteration (slope over a 4096-iteration chained "
+                "span;") in err_p
+        assert err_p.count("gemv_dia:") == 1
+
+
+def _counting(spmv_fn, seconds_per_call, monkeypatch):
+    """`spmv_fn` with a host clock that reads `seconds_per_call` times the
+    calls made so far: the chained slope then reads exactly that."""
+    calls = [0]
+
+    def counted(m, xv, yv):
+        calls[0] += 1
+        return spmv_fn(m, xv, yv)
+    monkeypatch.setattr(time, "perf_counter",
+                        lambda: calls[0] * seconds_per_call)
+    return counted
+
+
+@pytest.mark.parametrize("fmt", ["dia", "ell"])
+def test_chained_y_is_the_numpy_recurrence(fmt, monkeypatch):
+    from ellspmv_tpu_torch.formats.dia import dia_from_coo
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    coo = poisson2d(6)
+    pcoo = CooMatrix(coo.num_rows, coo.num_columns, coo.rowidx, coo.colidx,
+                     coo.values)
+    mat = dia_from_coo(pcoo) if fmt == "dia" else ell_from_coo(pcoo)
+    x0 = np.random.RandomState(1).rand(36)
+    y0 = np.random.RandomState(2).randn(36)
+    res = benchmark_spmv(_counting(spmv, 1.0, monkeypatch), mat,
+                         torch.from_numpy(x0), torch.from_numpy(y0),
+                         repeat=3, warmup=1, protocol="chained")
+    # a one-second slope needs no rescale: loops of lo = 1 and lo + hi
+    # = 1 + 8 iterations, the y of the last long one
+    assert res.protocol == "chained" and res.span_iters == 8
+    assert res.times == [1.0, 1.0, 1.0]
+    assert len(res.iteration_lines()) == 1
+    xk, yk = x0, y0
+    for _ in range(1 + 8):
+        yk = coo_spmv_numpy(coo, xk, yk)
+        xk = 1e-6 * yk
+    assert_fp64_close(res.y.numpy(), yk)
+    assert res.y.dtype == torch.float64
+
+
+def test_chained_rescales_towards_a_long_span(monkeypatch):
+    ell = ell_from_coo(CooMatrix(4, 4, np.arange(4, dtype=np.int32),
+                                 np.arange(4, dtype=np.int32), np.ones(4)),
+                       value_dtype="float32")
+    res = benchmark_spmv(
+        _counting(lambda m, xv, yv: yv + xv, 1e-6, monkeypatch), ell,
+        torch.ones(4, dtype=torch.float64), repeat=2, warmup=0,
+        protocol="chained")
+    # 1 us per iteration: the span grows to 0.3 s, capped at 4096
+    assert res.span_iters == 4096
+    assert res.times[0] == pytest.approx(1e-6)
+    # the carry is in the values' type
+    assert res.y.dtype == torch.float32
+    # y_1 = x0, then y <- y + x with x <- 1e-6*y, in float32
+    want = np.float32(1)
+    for _ in range(4097):
+        want = want + want * np.float32(1e-6)
+    assert res.y[0].item() == pytest.approx(float(want), rel=1e-6)
+    with pytest.raises(ValueError, match="square"):
+        benchmark_spmv(None, ell_from_coo(random_coo(
+            np.random.RandomState(0), 5, 4, 8)), torch.ones(4),
+            protocol="chained")
+    with pytest.raises(ValueError, match="unknown protocol"):
+        benchmark_spmv(None, ell, torch.ones(4, dtype=torch.float32),
+                       protocol="other")
+
+
+def test_headline_on_the_cpu(monkeypatch, capsys):
+    from ellspmv_tpu_torch.bench import headline
+    monkeypatch.setenv("BENCH_ROWS", "4096")
+    assert headline.main(["--device=cpu"]) == 0
+    out = capsys.readouterr()
+    lines = out.out.strip().splitlines()
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+    assert sorted(got) == ["metric", "unit", "value", "vs_baseline"]
+    assert got["metric"] == "spmv_fp64_effective_bandwidth"
+    assert got["unit"] == "GB/s" and got["value"] > 0
+    assert got["vs_baseline"] == round(got["value"] / 148.0, 3)
+    assert "format=dia" in out.err and "4096 rows" in out.err
+    assert "no device-memory peak known for cpu" in out.err
+
+
+def test_headline_needs_a_card_or_the_cpu(monkeypatch, capsys):
+    from ellspmv_tpu_torch.bench import headline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert headline.main([]) == 1
+    assert "no CUDA device is available" in capsys.readouterr().err
+    assert headline.main(["--device=tpu"]) == 1
+    assert headline.main(["--bogus"]) == 1

@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from ellspmv_tpu_torch.formats.coo import CooMatrix
+from ellspmv_tpu_torch.formats.dia import dia_from_coo
 from ellspmv_tpu_torch.formats.ell import ell_from_coo
 from ellspmv_tpu_torch.models.generators import banded_random, poisson2d
-from ellspmv_tpu_torch.ops import _build, ell_cuda
+from ellspmv_tpu_torch.ops import _build, dia_cuda, ell_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,18 +41,23 @@ for name in names:
     importlib.import_module(name)
 
 import torch
+from ellspmv_tpu_torch.formats.auto import auto_from_coo
 from ellspmv_tpu_torch.formats.ell import ell_from_coo
 from ellspmv_tpu_torch.models.generators import poisson2d
-from ellspmv_tpu_torch.ops import _build, ell_cuda
+from ellspmv_tpu_torch.ops import _build, dia_cuda, ell_cuda
 ell = ell_from_coo(poisson2d(4))
 ell_cuda.ell_spmv(ell, torch.ones(16, dtype=torch.float64))
 ell_cuda.fma_probe(*ell_cuda.probe_inputs("cpu"))
+dia = auto_from_coo(poisson2d(4), value_dtype="float64")
+dia_cuda.dia_spmv(dia, torch.ones(16, dtype=torch.float64))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
                                     "ellspmv_tpu"))
 print(json.dumps({"modules": names, "bad": bad,
                   "loaded": _build.load.cache_info().currsize,
                   "launches": ell_cuda.launches,
+                  "dia_launches": dia_cuda.launches,
+                  "chosen": dia._auto_choice,
                   "probe_launches": ell_cuda.probe_launches,
                   "probed": len(ell_cuda.FMA_PROBE_RESULTS)}))
 """
@@ -75,13 +82,19 @@ def test_port_imports_no_jax(child):
                 "ellspmv_tpu_torch.bench.harness",
                 "ellspmv_tpu_torch.ops.dispatch",
                 "ellspmv_tpu_torch.io.mtx", "ellspmv_tpu_torch.formats.ell",
-                "ellspmv_tpu_torch.models.generators", "chip_smoke"}
+                "ellspmv_tpu_torch.models.generators", "chip_smoke",
+                "ellspmv_tpu_torch.config", "ellspmv_tpu_torch.formats.dia",
+                "ellspmv_tpu_torch.formats.auto",
+                "ellspmv_tpu_torch.ops.dia_cuda",
+                "ellspmv_tpu_torch.bench.traffic",
+                "ellspmv_tpu_torch.bench.headline"}
     assert expected <= set(child["modules"])
 
 
 def test_import_without_nvcc_builds_nothing(child):
     assert child["loaded"] == 0
     assert child["launches"] == 0
+    assert child["chosen"] == "dia" and child["dia_launches"] == 0
     # the fp64 path probes only a card; the CPU runs the plain versions
     assert child["probe_launches"] == 0 and child["probed"] == 0
 
@@ -94,11 +107,68 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+# Stands in for nvcc: records its arguments and the times it ran, writes
+# its -o file, takes 0.3 s per compile, and fails on a source named in
+# $FAKE_NVCC_FAIL.
+_FAKE_NVCC = r"""#!{python}
+import json, os, sys, time
+t0 = time.time()
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+if "-c" in args:
+    time.sleep(0.3)
+    if os.environ.get("FAKE_NVCC_FAIL", "!") in args[-1]:
+        sys.stderr.write("error: fake failure\n")
+        sys.exit(2)
+    sys.stderr.write("ptxas info    : Used 32 registers\n")
+with open(out, "w") as f:
+    f.write("built")
+with open(os.environ["FAKE_NVCC_LOG"], "a") as f:
+    f.write(json.dumps({{"args": args, "t0": t0, "t1": time.time()}}) + "\n")
+"""
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_build_compiles_each_source_in_parallel(fail, monkeypatch,
+                                                tmp_path):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    log = tmp_path / "calls.jsonl"
+    monkeypatch.setenv("FAKE_NVCC_LOG", str(log))
+    if fail:
+        monkeypatch.setenv("FAKE_NVCC_FAIL", "dia_spmv.cu")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if fail:
+        with pytest.raises(RuntimeError, match="fake failure"):
+            _build.build()
+        assert list((tmp_path / "build").iterdir()) == []
+        return
+    out = _build.build()
+    calls = [json.loads(line) for line in log.read_text().splitlines()]
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(c["args"][-1] for c in compiles) == \
+        [str(p) for p in _build.sources()]
+    assert all("-c" in c["args"] and "sm_90a" in " ".join(c["args"])
+               for c in compiles)
+    # all started before the first one ended, and linked after the last
+    assert max(c["t0"] for c in compiles) < min(c["t1"] for c in compiles)
+    assert "-shared" in link["args"]
+    assert link["t0"] >= max(c["t1"] for c in compiles)
+    assert out == _build.library_path() and out.read_text() == "built"
+    assert sorted(p.name for p in out.parent.iterdir()) == \
+        sorted([out.name, out.with_suffix(".log").name])
+    assert out.with_suffix(".log").read_text().count("registers") == 3
+    assert _build.build() == out and len(log.read_text().splitlines()) == 4
+
+
 def test_library_path_tracks_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libellspmv_tpu_torch_")
-    assert [p.name for p in _build.sources()] == ["ell_spmv.cu",
+    assert [p.name for p in _build.sources()] == ["dia_spmv.cu",
+                                                  "ell_spmv.cu",
                                                   "fma_probe.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -198,6 +268,37 @@ def test_kernel_matches_plain_on_card(dtype):
     torch.cuda.synchronize()
     assert ell_cuda.launches == before + 1
     want = ell_cuda.ell_spmv_torch(ell, x, y)
+    tol = {torch.float64: 1e-13, torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    scale = float(want.double().abs().max())
+    torch.testing.assert_close(got.double(), want.double(), rtol=tol[dtype],
+                               atol=tol[dtype] * scale)
+
+
+def banded_dia(n: int, offsets: list[int]) -> CooMatrix:
+    """An n x n matrix with the given diagonals and random values."""
+    rows = np.concatenate([np.arange(max(0, -o), min(n, n - o))
+                           for o in offsets])
+    cols = np.concatenate([np.arange(max(0, -o), min(n, n - o)) + o
+                           for o in offsets])
+    return CooMatrix(n, n, rows.astype(np.int32), cols.astype(np.int32),
+                     np.random.RandomState(4).randn(len(rows)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+def test_dia_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    coo = banded_dia(700, [-300, -129, -7, 0, 5, 127, 128, 301])
+    dia = dia_from_coo(coo, value_dtype=dtype, device="cuda")
+    x = torch.from_numpy(np.random.RandomState(0).rand(700)).cuda().to(dtype)
+    y = torch.from_numpy(np.random.RandomState(1).randn(700)).cuda().to(dtype)
+    before = dia_cuda.launches
+    got = dia_cuda.dia_spmv(dia, x, y)
+    torch.cuda.synchronize()
+    assert dia_cuda.launches == before + 1
+    want = dia_cuda.dia_spmv_torch(dia, x, y)
     tol = {torch.float64: 1e-13, torch.float32: 1e-5, torch.bfloat16: 1e-2}
     scale = float(want.double().abs().max())
     torch.testing.assert_close(got.double(), want.double(), rtol=tol[dtype],
