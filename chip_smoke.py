@@ -17,36 +17,49 @@ Phases, each of which exits non-zero on failure:
    banded_random(20000, 9, 64); the DIA kernel for {fp64, f32, bf16} x
    {y, no y} on poisson2d(64), a 700-row matrix with offsets beyond 128
    and a rectangular DIA matrix; the FMA probe on its (8, 128) inputs,
-   exactly;
+   exactly; the fp64 dot kernel at n in {1, 1023, 1024, 1025, 5000,
+   262,144, 2,073,600}, within 1e-14 of sum |x*y| of `math.fsum` and
+   2e-14 of its plain version, and bit-equal from launch to launch;
 4. the ``ellspmv`` program: exact stdout on examples/test.mtx, then on a
    fem_mesh_2d(512) file (262,144 rows) ``-v --sort-rows``,
-   ``--format=dia`` and ``--format=auto -v`` (which must choose DIA), their
-   y held against the NumPy oracle, and ``--format=auto --protocol=chained
-   -v``, its y held against the same recurrence run with the plain DIA
-   version on the card;
+   ``--format=dia``, ``--format=auto -v`` (which must choose DIA) and
+   ``--reorder=rcm -v``, their y held against the NumPy oracle, and
+   ``--format=auto --protocol=chained -v``, its y held against the same
+   recurrence run with the plain DIA version on the card; then the
+   ``cgsolve`` program on the same file (``-v``, ``--reorder=rcm -v``, each
+   x held by its true residual ||b - A*x|| <= 10*tol*||b|| from the oracle,
+   and ``--tol=1e-14 --maxiter=2 -q``, which must exit 2);
 5. full size, fem_mesh_2d(1440) (2,073,600 rows, about 32.3M nonzeros, the
    class of the reference's Lynx68 matrix): the ELL main path (ell_from_coo,
-   benchmark_spmv per_iter, repeat 10, warmup 2) and the headline path
+   benchmark_spmv per_iter, repeat 10, warmup 2), the headline path
    (auto_from_coo, which must choose DIA, benchmark_spmv chained), each in
-   fp64 and f32, with the kernels' launch counts set to 0 before each path
-   and read after it, 1000 sampled rows held against the oracle; then the
-   headline program (``python -m ellspmv_tpu_torch.bench.headline``) once,
-   its JSON line echoed;
+   fp64 and f32, 1000 sampled rows held against the oracle, and the solver
+   path (``cgsolve.solve``, b = ones: fp64 at tol 1e-8, f32 at tol 1e-4,
+   x held by its true residual over all rows; the fp64 solve again with the
+   plain versions on the card, whose iterations and x it must match, and
+   once under ``torch.profiler``, whose device times split an iteration
+   into K1, the dot kernel and the rest against the host clock), with the
+   kernels' launch counts set to 0 before each path and read after it;
+   then the headline program (``python -m ellspmv_tpu_torch.bench.headline``)
+   once, its JSON line echoed;
 6. timing: each kernel beside its plain version at the main paths' shapes,
-   in turns (plain, kernel, kernel, plain), and beside one cuSPARSE call
-   (``torch.sparse_csr_tensor(...) @ x``) on the same matrix as a
-   yardstick; the ELL and DIA kernels held against their plain versions on
-   every row at full size.
+   in turns (plain, kernel, kernel, plain), and beside one library call as
+   a yardstick (cuSPARSE, ``torch.sparse_csr_tensor(...) @ x``, for the
+   SpMV kernels; ``torch.dot`` for the dot kernel); the ELL and DIA
+   kernels held against their plain versions on every row at full size;
+   the dot kernel also per eager call, its launch path included.
 
 The line before the last is a JSON summary of the kernels (time, plain
-time, bound, cuSPARSE time, launches on the main paths); the last line is
+time, bound, library time, launches on the main paths); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside the
 repository, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -69,7 +82,19 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                   "ellspmv_tpu/ops/ell_pallas.py:159"),
     "dia_spmv": ("ellspmv_tpu_torch/csrc/dia_spmv.cu",
                  "ellspmv_tpu/ops/dia_pallas.py:41"),
+    "dot": ("ellspmv_tpu_torch/csrc/dot.cu",
+            "ellspmv_tpu/ops/dd_reduce.py:30"),
 }
+# The dot kernel against math.fsum, of sum |x*y|: its tree of fp64 sums
+# errs by about log2(n) ulps of that sum at most; twice that against the
+# plain version, which errs as much again.
+DOT_TOLERANCE = 1e-14
+DOT_SIZES = (1, 1023, 1024, 1025, 5000, 262_144, 2_073_600)
+# CG at full size: (tol, maxiter) per precision.
+CG_SETTINGS = {"float64": (1e-8, 1000), "float32": (1e-4, 1000)}
+# x of the fp64 solve with the kernels against the one with the plain
+# versions, relative to max |x|.
+CG_X_TOLERANCE = 1e-10
 # NVIDIA H100 SXM data sheet, dense, outside the tensor cores: the
 # operations bound of the kernels (their bytes bound is far larger).
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
@@ -292,13 +317,55 @@ def phase_probe_vs_plain():
           "the probe's launch count did not move")
 
 
-def _run_cli(args, label):
-    cmd = [sys.executable, "-m", "ellspmv_tpu_torch.cli.ellspmv", *args]
+def phase_dot_vs_plain():
+    """The dot kernel against math.fsum and its plain version on the card,
+    on x.y and x.x; two launches on the same inputs must be bit-equal."""
+    import torch
+
+    from ellspmv_tpu_torch.ops import dot_cuda
+    before = dot_cuda.launches
+    cases = 0
+    for n in DOT_SIZES:
+        rng = np.random.RandomState(n)
+        x64, y64 = rng.randn(n), rng.randn(n)
+        x, y = torch.from_numpy(x64).cuda(), torch.from_numpy(y64).cuda()
+        for label, a, b, a64, b64 in (("x.y", x, y, x64, y64),
+                                      ("x.x", x, x, x64, x64)):
+            got, again = dot_cuda.vdot(a, b), dot_cuda.vdot(a, b)
+            plain = dot_cuda.vdot_torch(a, b)
+            torch.cuda.synchronize()
+            prods = a64 * b64
+            scale = float(np.sum(np.abs(prods)))
+            err = abs(float(got) - math.fsum(prods)) / scale
+            err_plain = abs(float(got) - float(plain)) / scale
+            log(f"  dot n={n:<9,} {label}: |kernel - fsum| {err:.3e}, "
+                f"|kernel - plain| {err_plain:.3e} of sum|x*y| (tol "
+                f"{DOT_TOLERANCE:g}, {2 * DOT_TOLERANCE:g}); repeat "
+                f"{'bit-equal' if torch.equal(got, again) else 'DIFFERS'}")
+            check(got.shape == () and got.dtype == torch.float64,
+                  f"dot n={n}: the result is not a 0-d fp64 tensor")
+            check(torch.equal(got, again),
+                  f"dot n={n} {label}: two launches differ")
+            check(err <= DOT_TOLERANCE and err_plain <= 2 * DOT_TOLERANCE,
+                  f"dot n={n} {label}: the kernel disagrees: {err:.3e} of "
+                  f"fsum, {err_plain:.3e} of the plain version")
+            cases += 1
+    launched = dot_cuda.launches - before
+    log(f"dot kernel vs fsum and plain: {cases} cases agree; {launched} "
+        "kernel launches")
+    check(launched == 2 * cases, "the dot kernel's launch count did not "
+                                 "move by two per case")
+
+
+def _run_cli(args, label, program="ellspmv", expect=0):
+    cmd = [sys.executable, "-m", f"ellspmv_tpu_torch.cli.{program}", *args]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=900)
-    check(proc.returncode == 0, f"ellspmv {label} failed: {proc.stderr}")
-    log(f"cli: ellspmv {label}: exit 0 in "
+    check(proc.returncode == expect,
+          f"{program} {label} exited {proc.returncode}, not {expect}: "
+          f"{proc.stderr}")
+    log(f"cli: {program} {label}: exit {expect} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in proc.stderr.splitlines():
         log(f"  {line}")
@@ -335,7 +402,7 @@ def phase_cli(mesh_n: int = 512, device: str = "cuda"):
             f"{coo.num_nonzeros:,} nonzeros) in "
             f"{time.perf_counter() - t0:.1f} s")
         for flags in (["-v", "--sort-rows"], ["--format=dia"],
-                      ["--format=auto", "-v"]):
+                      ["--format=auto", "-v"], ["--reorder=rcm", "-v"]):
             proc = _run_cli([dev, *flags, path], " ".join(flags))
             y = read_vector(io.BytesIO(proc.stdout.encode()))
             # stdout carries 15 significant digits (ellspmv.c:1907)
@@ -349,6 +416,10 @@ def phase_cli(mesh_n: int = 512, device: str = "cuda"):
             if "--format=auto" in flags:
                 check("auto_from_coo [dia]" in proc.stderr,
                       "--format=auto did not choose DIA on fem_mesh_2d")
+            if "--reorder=rcm" in flags:
+                check("reorder_rcm:" in proc.stderr,
+                      "--reorder=rcm -v printed no reorder_rcm line")
+        phase_cgsolve_program(path, coo, dev)
         flags = ["--format=auto", "--protocol=chained", "-v"]
         proc = _run_cli([dev, *flags, path], " ".join(flags))
     span = re.search(r"over a (\d+)-iteration chained span", proc.stderr)
@@ -372,6 +443,38 @@ def phase_cli(mesh_n: int = 512, device: str = "cuda"):
         f"(tol {CHAINED_TOLERANCE:g})")
     check(err <= CHAINED_TOLERANCE, "the chained y disagrees with the plain "
                                     f"recurrence: {err:.3e}")
+
+
+def true_residual(coo, x, b) -> float:
+    """||b - A*x|| / ||b|| with A*x from the NumPy oracle."""
+    from ellspmv_tpu_torch.ops.reference import coo_spmv_numpy
+    return float(np.linalg.norm(b - coo_spmv_numpy(coo, x))
+                 / np.linalg.norm(b))
+
+
+def phase_cgsolve_program(path, coo, dev):
+    """`cgsolve` on the fem_mesh_2d file: x held by its true residual, and
+    the exit code 2 of a solve that cannot converge."""
+    import io
+
+    from ellspmv_tpu_torch.io.mtx import read_vector
+    b = np.ones(coo.num_rows)
+    tol = 1e-8
+    for flags in (["-v"], ["--reorder=rcm", "-v"]):
+        proc = _run_cli([dev, *flags, path], " ".join(flags), "cgsolve")
+        check(re.search(r"^cg: \d+ iterations, residual \S+, \S+ seconds$",
+                        proc.stderr, re.M) is not None,
+              f"cgsolve {' '.join(flags)} printed no cg: line")
+        x = read_vector(io.BytesIO(proc.stdout.encode()))
+        rel = true_residual(coo, x, b)
+        log(f"cli: cgsolve {' '.join(flags)}: x of {len(x):,} rows, true "
+            f"residual {rel:.3e} of ||b|| (tol {10 * tol:g})")
+        check(len(x) == coo.num_rows and rel <= 10 * tol,
+              f"cgsolve {' '.join(flags)}: true residual {rel:.3e}")
+    flags = ["--tol=1e-14", "--maxiter=2", "-q"]
+    proc = _run_cli([dev, *flags, path], " ".join(flags), "cgsolve",
+                    expect=2)
+    check(proc.stdout == "", "cgsolve -q printed x")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -407,15 +510,16 @@ def sampled_oracle(coo, x64, sample):
 def _reset_counts():
     """Counts to 0, and a first fp64 call that probes the card again, as
     in a fresh process."""
-    from ellspmv_tpu_torch.ops import dia_cuda, ell_cuda
+    from ellspmv_tpu_torch.ops import dia_cuda, dot_cuda, ell_cuda
     ell_cuda.FMA_PROBE_RESULTS.clear()
     ell_cuda.launches = ell_cuda.probe_launches = dia_cuda.launches = 0
+    dot_cuda.launches = 0
 
 
 def _counts():
-    from ellspmv_tpu_torch.ops import dia_cuda, ell_cuda
+    from ellspmv_tpu_torch.ops import dia_cuda, dot_cuda, ell_cuda
     return {"ell_spmv": ell_cuda.launches, "dia_spmv": dia_cuda.launches,
-            "fma_probe": ell_cuda.probe_launches}
+            "fma_probe": ell_cuda.probe_launches, "dot": dot_cuda.launches}
 
 
 def phase_ell_path(coo, x64, sample, device="cuda"):
@@ -531,6 +635,152 @@ def phase_headline_path(coo, x64, sample, device="cuda"):
     return runs, counts
 
 
+def phase_cg_path(coo, peak_bw, device="cuda"):
+    """The solver path (`cgsolve`'s body, `cli.cgsolve.solve`) at full size,
+    b = ones, fp64 and f32, each x held by its true residual over all rows;
+    then the fp64 solve with the plain versions on the card, which must
+    take the same iterations (within 1) to the same x."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ellspmv_tpu_torch.cli.cgsolve import solve
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.models.solvers import cg
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    from ellspmv_tpu_torch.ops.dot_cuda import vdot_torch
+    from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
+
+    n = coo.num_rows
+    b = np.ones(n)
+    counts = {}
+    for prec, (tol, maxiter) in CG_SETTINGS.items():
+        _reset_counts()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        x, res, seconds = solve(coo, b, tol=tol, maxiter=maxiter,
+                                precision=prec, device=device)
+        wall = time.perf_counter() - t0
+        grew = _counts()
+        rel = true_residual(coo, x, b)
+        per_iter = seconds / max(res.iterations, 1)
+        log(f"  CG {prec}: {res.iterations} iterations, residual_norm "
+            f"{res.residual_norm:.3e}, true residual {rel:.3e} of ||b|| "
+            f"(tol {10 * tol:g}); {seconds:.6f} s in CG, "
+            f"{per_iter * 1e3:.4f} ms per iteration; solve() {wall:.1f} s "
+            f"with set-up; peak device memory "
+            f"{torch.cuda.max_memory_allocated():,} bytes ({held:,} held "
+            f"before); launches {grew}")
+        check(rel <= 10 * tol and bool(np.isfinite(x).all()),
+              f"CG {prec}: true residual {rel:.3e} above {10 * tol:g}")
+        check(res.residual_norm <= 10 * tol * np.linalg.norm(b),
+              f"CG {prec}: cgsolve would exit 2 (residual_norm "
+              f"{res.residual_norm:.3e})")
+        k = res.iterations
+        if prec == "float64":
+            check(grew["dot"] == 2 + 2 * k and grew["ell_spmv"] == 1 + k
+                  and grew["fma_probe"] == 1,
+                  f"CG fp64: launches {grew}, expected {2 + 2 * k} dot, "
+                  f"{1 + k} ell_spmv and 1 fma_probe")
+        else:
+            check(grew["dot"] == 0 and grew["ell_spmv"] == 1 + k,
+                  f"CG f32: launches {grew}")
+        if prec == "float64":
+            x64, k64 = x, k
+        counts[prec] = grew
+    # the fp64 solve again on one ELL: with the kernels, timed alone and
+    # then under the profiler, and with the plain versions
+    tol, maxiter = CG_SETTINGS["float64"]
+    ell = ell_from_coo(coo, sort_rows=True, value_dtype="float64",
+                       device=device)
+    bt = torch.ones(n, dtype=torch.float64, device=device)
+
+    def timed(matvec, vdot=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cg(matvec, bt, tol=tol, maxiter=maxiter, vdot=vdot)
+        return res, time.perf_counter() - t0    # cg ends in a host read
+
+    mine, seconds = timed(lambda v: spmv(ell, v))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled, _ = timed(lambda v: spmv(ell, v))
+    before = _counts()
+    plain, plain_seconds = timed(lambda v: ell_spmv_torch(ell, v),
+                                 vdot_torch)
+    check(_counts() == before, "the plain solve launched a kernel")
+    x_plain = plain.x.cpu().numpy()
+    dx = float(np.max(np.abs(x64 - x_plain)) / np.max(np.abs(x_plain)))
+    k = mine.iterations
+    log(f"  CG float64 on one ELL: {k} iterations with the kernels in "
+        f"{seconds:.6f} s ({seconds / k * 1e3:.4f} ms per iteration), "
+        f"{profiled.iterations} under the profiler; {plain.iterations} with "
+        f"the plain versions in {plain_seconds:.6f} s "
+        f"({plain_seconds / plain.iterations * 1e3:.4f} ms per iteration); "
+        f"max |x - x_plain| {dx:.3e} of max |x| (tol {CG_X_TOLERANCE:g})")
+    check(abs(plain.iterations - k) <= 1 and profiled.iterations == k
+          and k == k64,
+          "CG: the iterations of the kernels' and the plain versions' "
+          "solves differ by more than 1")
+    check(dx <= CG_X_TOLERANCE, f"CG: x differs from the plain solve's by "
+                                f"{dx:.3e}")
+    cg_iteration_breakdown(prof, ell, k, seconds, peak_bw)
+    return counts
+
+
+def device_times_us(prof) -> dict:
+    """Device time (us) and count of each kernel or copy the profiler saw
+    on the card."""
+    from torch.autograd import DeviceType
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        out[ev.key] = (ev.count, float(us))
+    return out
+
+
+def cg_iteration_breakdown(prof, ell, iterations, seconds, peak_bw):
+    """One fp64 CG iteration at full size: the host clock's seconds per
+    iteration against the device time the profiler saw, split into K1, K6
+    and the rest (vector updates, scalar ops, the copy of the convergence
+    test), and against the bytes bound. Both include the set-up before the
+    loop (one K1, two K6), spread over the iterations."""
+    from ellspmv_tpu_torch.bench.traffic import cg_iteration_bytes
+    times = device_times_us(prof)
+    groups = {"K1": 0.0, "K6": 0.0, "rest": 0.0}
+    for key, (_, us) in times.items():
+        group = ("K1" if "ell_spmv_kernel" in key else
+                 "K6" if "dot_partial_kernel" in key
+                 or "dot_final_kernel" in key else "rest")
+        groups[group] += us
+    per_iter_ms = seconds / iterations * 1e3
+    nbytes = cg_iteration_bytes(ell)
+    bound_ms = nbytes / peak_bw * 1e3
+    device_ms = sum(groups.values()) / iterations / 1e3
+    if device_ms == 0:
+        log("  CG float64 iteration: the profiler saw no device time; the "
+            "kernels' share is not measured")
+        return
+    split = {g: us / iterations / 1e3 for g, us in groups.items()}
+    k6_calls = sum(c for key, (c, _) in times.items()
+                   if "dot_partial_kernel" in key)
+    log(f"  CG float64 iteration: {per_iter_ms:.4f} ms on the host clock; "
+        f"device {device_ms:.4f} ms ({100 * device_ms / per_iter_ms:.1f}%: "
+        f"K1 {split['K1']:.4f}, K6 {split['K6']:.4f} "
+        f"({groups['K6'] / max(k6_calls, 1):.2f} us per dot), the rest "
+        f"{split['rest']:.4f}); host and idle {per_iter_ms - device_ms:.4f} "
+        f"ms ({100 * (1 - device_ms / per_iter_ms):.1f}%); bytes bound "
+        f"{bound_ms:.4f} ms ({nbytes:,} bytes), "
+        f"{100 * bound_ms / per_iter_ms:.1f}% of the iteration")
+    for key, (count, us) in sorted(times.items(), key=lambda t: -t[1][1]):
+        log(f"    device: {us / count:9.2f} us x {count:4d}  {key[:90]}")
+
+
 def phase_headline_program(device="cuda", rows=None):
     env = dict(os.environ)
     if rows is not None:
@@ -576,15 +826,17 @@ def _bound(nbytes: int, flops: int, prec: str, peak_bw: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _turns(label, kernel, plain, library=None):
+def _turns(label, kernel, plain, library=None, library_name="cuSPARSE",
+           timer=None):
     """Kernel and plain version in turns (plain, kernel, kernel, plain), the
-    library call once beside them."""
-    p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
-                      time_ms(plain))
-    lib = time_ms(library) if library is not None else None
+    library call once beside them, each timed by `timer` (`time_ms`)."""
+    timer = timer or time_ms
+    p1, k1, k2, p2 = (timer(plain), timer(kernel), timer(kernel),
+                      timer(plain))
+    lib = timer(library) if library is not None else None
     log(f"  {label} timing: kernel {k1:.4f} / {k2:.4f} ms, plain "
         f"{p1:.4f} / {p2:.4f} ms"
-        + ("" if lib is None else f", cuSPARSE {lib:.4f} ms"))
+        + ("" if lib is None else f", {library_name} {lib:.4f} ms"))
     return (k1 + k2) / 2, (p1 + p2) / 2, lib
 
 
@@ -648,8 +900,64 @@ def phase_timing(coo, ell_runs, dia_runs, peak_bw):
     out["fma_probe", "float32"] = dict(ms=k_ms, plain_ms=p_ms,
                                        library_ms=None, max_abs_err=err,
                                        bound_ms=bound_ms, bound_by=bound_by)
+    out["dot", "float64"] = time_dot(coo.num_rows, peak_bw)
     torch.cuda.synchronize()
     return out
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time per call of `fn`, with the host's launch path taken out:
+    `iters` calls captured in one CUDA graph, replayed between CUDA
+    events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, 5) / iters
+
+
+def time_dot(n, peak_bw):
+    """The dot kernel at the CG path's length beside its plain version and
+    torch.dot, each call on the next of four input pairs (133 MB together,
+    so that no call finds its inputs in the 50 MB L2, as in CG), per call
+    on the device (a CUDA graph) and, for the kernel, also eagerly."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.traffic import dot_bytes
+    from ellspmv_tpu_torch.ops import dot_cuda
+    rng = np.random.RandomState(5)
+    pairs = [(torch.from_numpy(rng.randn(n)).cuda(),
+              torch.from_numpy(rng.randn(n)).cuda()) for _ in range(4)]
+
+    def cycling(fn):
+        turn = itertools.count()
+        return lambda: fn(*pairs[next(turn) % len(pairs)])
+
+    eager_ms = time_ms(cycling(dot_cuda.vdot))
+    k_ms, p_ms, lib_ms = _turns(
+        f"dot n={n:,} (CUDA graph, per call)", cycling(dot_cuda.vdot),
+        cycling(dot_cuda.vdot_torch), cycling(torch.dot), "torch.dot",
+        timer=graph_ms)
+    x, y = pairs[0]
+    got, want = dot_cuda.vdot(x, y), dot_cuda.vdot_torch(x, y)
+    err = float((got - want).abs())
+    lib_err = float((torch.dot(x, y) - want).abs())
+    nbytes = dot_bytes(n)
+    bound_ms, bound_by = _bound(nbytes, 2 * n, "float64", peak_bw)
+    log(f"  dot: kernel {k_ms:.4f} ms on the device ({eager_ms:.4f} ms per "
+        f"eager call, launch path included) vs plain {p_ms:.4f} ms vs "
+        f"torch.dot {lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes:,} "
+        f"bytes, {bound_by}), {100 * bound_ms / k_ms:.1f}% of it; "
+        f"|kernel - plain| {err:.3e}, |torch.dot - plain| {lib_err:.3e}")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, max_abs_err=err,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def main() -> int:
@@ -669,7 +977,8 @@ def main() -> int:
     phase_kernel_vs_plain()
     phase_dia_vs_plain()
     phase_probe_vs_plain()
-    log("phase 4: the ellspmv program")
+    phase_dot_vs_plain()
+    log("phase 4: the ellspmv and cgsolve programs")
     phase_cli()
     log("phase 5: full size")
     t0 = time.perf_counter()
@@ -685,18 +994,23 @@ def main() -> int:
     dia_runs, dia_counts = phase_headline_path(coo, x64, sample)
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated():,} "
         "bytes")
+    cg_counts = phase_cg_path(coo, peak_bw)
+    log(f"solver path: launches {cg_counts}")
     phase_headline_program()
     log("phase 6: timing")
     timing = phase_timing(coo, ell_runs, dia_runs, peak_bw)
-    launches = {"ell_spmv": ell_counts["ell_spmv"],
+    launches = {"ell_spmv": ell_counts["ell_spmv"]
+                + sum(c["ell_spmv"] for c in cg_counts.values()),
                 "dia_spmv": dia_counts["dia_spmv"],
                 "fma_probe": ell_counts["fma_probe"]
-                + dia_counts["fma_probe"]}
+                + dia_counts["fma_probe"]
+                + sum(c["fma_probe"] for c in cg_counts.values()),
+                "dot": cg_counts["float64"]["dot"]}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths was not launched: {launches}")
     kernels = []
     for name, key in (("ell_spmv", "float64"), ("fma_probe", "float32"),
-                      ("dia_spmv", "float64")):
+                      ("dia_spmv", "float64"), ("dot", "float64")):
         source, replaces = KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

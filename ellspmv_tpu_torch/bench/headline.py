@@ -57,9 +57,8 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
-    if device_name == "cuda" and not torch.cuda.is_available():
-        print("headline: --device=cuda: no CUDA device is available (use "
-              "--device=cpu to run on the CPU)", file=sys.stderr)
+    from ellspmv_tpu_torch.cli.common import card_missing
+    if card_missing("headline", device_name):
         return 1
     device = torch.device(device_name)
 

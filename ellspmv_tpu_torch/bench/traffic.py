@@ -13,7 +13,10 @@ must move, so that every report can also carry the physical share (at most
   (``rowsize * padded_rows`` each), x once, the split diagonal when there
   is one, y when given, and the output;
 - K2 (``csrc/dia_spmv.cu``): the diagonals' values (``num_diags *
-  num_rows``), x once, y when given, and the output.
+  num_rows``), x once, y when given, and the output;
+- K6 (``csrc/dot.cu``): both vectors once (the 8-byte result is left out);
+- one CG iteration (``models/solvers.cg``): K1 without y, two K6 dots and
+  three vector updates, each reading two vectors and writing one.
 
 x is counted once: the kernels rely on L1/L2 for its re-reads.
 """
@@ -42,3 +45,16 @@ def estimate_actual_bytes(matrix, with_y: bool = True) -> int:
             "(see ROADMAP.md)")
     n, m = matrix.num_rows, matrix.num_columns
     return total + m * sv + (2 if with_y else 1) * n * sv
+
+
+def dot_bytes(n: int, value_bytes: int = 8) -> int:
+    """Bytes one dot product of two n-vectors reads."""
+    return 2 * n * value_bytes
+
+
+def cg_iteration_bytes(ell: EllMatrix) -> int:
+    """Bytes one CG iteration on `ell` moves: the matvec (K1, no y), the
+    dots p·Ap and r·r, and the updates of x, r and p."""
+    n, sv = ell.num_rows, ell.values.element_size()
+    return (estimate_actual_bytes(ell, with_y=False) + 2 * dot_bytes(n, sv)
+            + 3 * 3 * n * sv)

@@ -1,6 +1,6 @@
 """The `ellspmv` program on PyTorch: the counterpart of
 ``ellspmv_tpu.cli.common`` for the ELLPACK and DIA formats, the auto
-chooser's DIA/ELL branch and both timing protocols.
+chooser's DIA/ELL branch, both timing protocols and ``--reorder=rcm``.
 
 Flag-compatible with the JAX package's parser, which follows the
 reference's (parse_program_options, ellspmv.c:465-611): ``--opt=v`` and
@@ -92,9 +92,11 @@ def print_help(program: str, f=None):
     f.write("                            kernel of the format\n")
     f.write("  --protocol=P              per_iter (default) or chained timing\n")
     f.write("  --format=F                ell (default), auto (DIA or ELL, whichever\n")
-    f.write("                            moves fewer bytes) or dia (stencil diagonals)\n\n")
+    f.write("                            moves fewer bytes) or dia (stencil diagonals)\n")
+    f.write("  --reorder=R               none (default) or rcm: reverse Cuthill-McKee\n")
+    f.write("                            inside; x, y and the output keep their order\n\n")
     f.write(" Not yet ported (accepted, then refused with exit code 1):\n")
-    f.write("  --format=sell|hybrid|stream, --devices=N>1, --reorder=rcm,\n")
+    f.write("  --format=sell|hybrid|stream, --devices=N>1,\n")
     f.write("  --papi-event-*, --trace=DIR, --backend=xla\n\n")
     f.write("  -h, --help                display this help and exit\n")
     f.write("  --version                 display version information and exit\n")
@@ -221,14 +223,23 @@ def parse_args(argv: list[str], program: str) -> Options:
     return opts
 
 
+def card_missing(program: str, device: str) -> bool:
+    """Whether `device` is cuda and no card is present; if so, say so on
+    stderr. The programs then exit 1: none moves to the CPU by itself."""
+    import torch
+    if device == "cuda" and not torch.cuda.is_available():
+        sys.stderr.write(f"{program}: --device=cuda: no CUDA device is "
+                         "available (use --device=cpu to run on the CPU)\n")
+        return True
+    return False
+
+
 def unported_option(opts: Options) -> str | None:
     """The first given option that this port does not have yet, or None."""
     if opts.format in ("sell", "hybrid", "stream"):
         return f"--format={opts.format}"
     if opts.devices > 1:
         return f"--devices={opts.devices}"
-    if opts.reorder != "none":
-        return f"--reorder={opts.reorder}"
     if opts.papi_flags:
         return opts.papi_flags[0]
     if opts.trace_dir is not None:
@@ -294,9 +305,7 @@ def run(argv: list[str], program: str) -> int:
     from ellspmv_tpu_torch.config import value_dtype
     from ellspmv_tpu_torch.io.mtx import read_matrix, read_vector, write_vector
 
-    if opts.device == "cuda" and not torch.cuda.is_available():
-        sys.stderr.write(f"{program}: --device=cuda: no CUDA device is "
-                         "available (use --device=cpu to run on the CPU)\n")
+    if card_missing(program, opts.device):
         return 1
     device = torch.device(opts.device)
     log = sys.stderr
@@ -324,6 +333,22 @@ def run(argv: list[str], program: str) -> int:
             mb = 0.0
         log.write(f"mtxfile_read: {t_read:.6f} seconds ({mb / t_read:.1f} "
                   f"MB/s)\n")
+
+    # Optional internal reordering (output-equivalent: x and y are permuted
+    # at the edges). Square matrices only.
+    reorder_map = None
+    if opts.reorder == "rcm":
+        if coo.num_rows != coo.num_columns:
+            sys.stderr.write(f"{program}: --reorder=rcm needs a square "
+                             "matrix\n")
+            return 1
+        from ellspmv_tpu_torch.models.reorder import reorder_rcm
+        t0 = time.perf_counter()
+        reorder_map = reorder_rcm(coo)
+        coo = reorder_map.coo
+        if opts.verbose:
+            log.write(f"reorder_rcm: {time.perf_counter() - t0:.6f} "
+                      "seconds\n")
 
     # Phase 3: convert (timed, like ellspmv.c:1379-1486). The time includes
     # the copy to the device (and, for ELL, the slot-major transpose there).
@@ -370,6 +395,10 @@ def run(argv: list[str], program: str) -> int:
     except Exception as e:
         sys.stderr.write(f"{program}: {e}\n")
         return 1
+    if reorder_map is not None:
+        x = reorder_map.permute_x(x)
+        if y is not None:
+            y = reorder_map.permute_x(y)   # same row permutation
     dtype = value_dtype(opts.precision)
     x = torch.from_numpy(x).to(device).to(dtype)
     if y is not None:
@@ -392,7 +421,10 @@ def run(argv: list[str], program: str) -> int:
     # Phase 6: write y to stdout (ellspmv.c:1898-1912)
     if not opts.quiet:
         t0 = time.perf_counter()
-        write_vector(sys.stdout, res.y.double().cpu().numpy())
+        y_out = res.y.double().cpu().numpy()
+        if reorder_map is not None:
+            y_out = reorder_map.unpermute_y(y_out)
+        write_vector(sys.stdout, y_out)
         if opts.verbose:
             log.write(f"mtxfile_write: {time.perf_counter() - t0:.6f} "
                       "seconds\n")

@@ -111,7 +111,7 @@ def test_verbose_lines(capsys):
     (["--format=stream"], "--format=stream"),
     (["--devices=2", "--protocol=chained"], "--devices=2"),
     (["--devices=4"], "--devices=4"),
-    (["--reorder=rcm"], "--reorder=rcm"),
+    (["--reorder=rcm", "--devices=2"], "--devices=2"),
     (["--papi-event-summary"], "--papi-event-summary"),
     (["--papi-event-per-thread"], "--papi-event-per-thread"),
     (["--papi-event-file=m.metrics"], "--papi-event-file"),

@@ -44,12 +44,15 @@ import torch
 from ellspmv_tpu_torch.formats.auto import auto_from_coo
 from ellspmv_tpu_torch.formats.ell import ell_from_coo
 from ellspmv_tpu_torch.models.generators import poisson2d
-from ellspmv_tpu_torch.ops import _build, dia_cuda, ell_cuda
+from ellspmv_tpu_torch.models.solvers import cg
+from ellspmv_tpu_torch.ops import _build, dia_cuda, dot_cuda, ell_cuda
 ell = ell_from_coo(poisson2d(4))
 ell_cuda.ell_spmv(ell, torch.ones(16, dtype=torch.float64))
 ell_cuda.fma_probe(*ell_cuda.probe_inputs("cpu"))
 dia = auto_from_coo(poisson2d(4), value_dtype="float64")
 dia_cuda.dia_spmv(dia, torch.ones(16, dtype=torch.float64))
+solved = cg(lambda v: ell_cuda.ell_spmv(ell, v),
+            torch.ones(16, dtype=torch.float64))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
                                     "ellspmv_tpu"))
@@ -57,6 +60,8 @@ print(json.dumps({"modules": names, "bad": bad,
                   "loaded": _build.load.cache_info().currsize,
                   "launches": ell_cuda.launches,
                   "dia_launches": dia_cuda.launches,
+                  "dot_launches": dot_cuda.launches,
+                  "cg_iterations": solved.iterations,
                   "chosen": dia._auto_choice,
                   "probe_launches": ell_cuda.probe_launches,
                   "probed": len(ell_cuda.FMA_PROBE_RESULTS)}))
@@ -87,7 +92,11 @@ def test_port_imports_no_jax(child):
                 "ellspmv_tpu_torch.formats.auto",
                 "ellspmv_tpu_torch.ops.dia_cuda",
                 "ellspmv_tpu_torch.bench.traffic",
-                "ellspmv_tpu_torch.bench.headline"}
+                "ellspmv_tpu_torch.bench.headline",
+                "ellspmv_tpu_torch.models.reorder",
+                "ellspmv_tpu_torch.models.solvers",
+                "ellspmv_tpu_torch.ops.dot_cuda",
+                "ellspmv_tpu_torch.cli.cgsolve"}
     assert expected <= set(child["modules"])
 
 
@@ -95,6 +104,8 @@ def test_import_without_nvcc_builds_nothing(child):
     assert child["loaded"] == 0
     assert child["launches"] == 0
     assert child["chosen"] == "dia" and child["dia_launches"] == 0
+    # a CG solve on the CPU takes the plain dot product
+    assert child["cg_iterations"] > 0 and child["dot_launches"] == 0
     # the fp64 path probes only a card; the CPU runs the plain versions
     assert child["probe_launches"] == 0 and child["probed"] == 0
 
@@ -159,15 +170,17 @@ def test_build_compiles_each_source_in_parallel(fail, monkeypatch,
     assert out == _build.library_path() and out.read_text() == "built"
     assert sorted(p.name for p in out.parent.iterdir()) == \
         sorted([out.name, out.with_suffix(".log").name])
-    assert out.with_suffix(".log").read_text().count("registers") == 3
-    assert _build.build() == out and len(log.read_text().splitlines()) == 4
+    assert out.with_suffix(".log").read_text().count("registers") == \
+        len(_build.sources())
+    assert _build.build() == out
+    assert len(log.read_text().splitlines()) == len(_build.sources()) + 1
 
 
 def test_library_path_tracks_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libellspmv_tpu_torch_")
-    assert [p.name for p in _build.sources()] == ["dia_spmv.cu",
+    assert [p.name for p in _build.sources()] == ["dia_spmv.cu", "dot.cu",
                                                   "ell_spmv.cu",
                                                   "fma_probe.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
