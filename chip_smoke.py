@@ -19,7 +19,11 @@ Phases, each of which exits non-zero on failure:
    and a rectangular DIA matrix; the FMA probe on its (8, 128) inputs,
    exactly; the fp64 dot kernel at n in {1, 1023, 1024, 1025, 5000,
    262,144, 2,073,600}, within 1e-14 of sum |x*y| of `math.fsum` and
-   2e-14 of its plain version, and bit-equal from launch to launch;
+   2e-14 of its plain version, and bit-equal from launch to launch; the
+   stream format's segmented-sum kernel (K3) and gather (K4/K5), bit-equal
+   to their plain versions in fp64 and f32, on sum plans with one level,
+   several levels, folded buckets, column chunks and empty rows (every
+   level's sums and gather, and the final gather);
 4. the ``ellspmv`` program: exact stdout on examples/test.mtx, then on a
    fem_mesh_2d(512) file (262,144 rows) ``-v --sort-rows``,
    ``--format=dia``, ``--format=auto -v`` (which must choose DIA) and
@@ -28,7 +32,10 @@ Phases, each of which exits non-zero on failure:
    recurrence run with the plain DIA version on the card; then the
    ``cgsolve`` program on the same file (``-v``, ``--reorder=rcm -v``, each
    x held by its true residual ||b - A*x|| <= 10*tol*||b|| from the oracle,
-   and ``--tol=1e-14 --maxiter=2 -q``, which must exit 2);
+   and ``--tol=1e-14 --maxiter=2 -q``, which must exit 2); then
+   ``ellspmv --format=stream -v`` and ``--format=auto -v`` (which must
+   choose the stream format) on a power_law(100,000, 8) file, their y held
+   against the oracle;
 5. full size, fem_mesh_2d(1440) (2,073,600 rows, about 32.3M nonzeros, the
    class of the reference's Lynx68 matrix): the ELL main path (ell_from_coo,
    benchmark_spmv per_iter, repeat 10, warmup 2), the headline path
@@ -41,13 +48,24 @@ Phases, each of which exits non-zero on failure:
    into K1, the dot kernel and the rest against the host clock), with the
    kernels' launch counts set to 0 before each path and read after it;
    then the headline program (``python -m ellspmv_tpu_torch.bench.headline``)
-   once, its JSON line echoed;
+   once, its JSON line echoed; then the stream path at config3's full width,
+   power_law(1,000,000, 8) (7,049,701 nonzeros, the webbase-1M class):
+   ``stream_from_coo``'s host seconds and plan, ``benchmark_spmv`` per_iter
+   and chained in fp64 and f32, every row held against the oracle, and the
+   launch counts of K1, the gather, K3 and the probe;
 6. timing: each kernel beside its plain version at the main paths' shapes,
    in turns (plain, kernel, kernel, plain), and beside one library call as
    a yardstick (cuSPARSE, ``torch.sparse_csr_tensor(...) @ x``, for the
    SpMV kernels; ``torch.dot`` for the dot kernel); the ELL and DIA
    kernels held against their plain versions on every row at full size;
-   the dot kernel also per eager call, its launch path included.
+   the dot kernel also per eager call, its launch path included; at
+   config3's shapes K3 per level (yardstick: ``index_add_`` by a
+   precomputed position -> output map), the gather per level and final
+   (yardstick: ``torch.index_select`` on a zero-prepended payload), K1 at
+   the product shape, and the whole ``stream_spmv`` (yardstick: cuSPARSE on
+   the same matrix), each held against its plain version on every output,
+   and one ``stream_spmv`` split by ``torch.profiler`` into its kernels
+   against the host clock.
 
 The line before the last is a JSON summary of the kernels (time, plain
 time, bound, library time, launches on the main paths); the last line is
@@ -84,7 +102,14 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                  "ellspmv_tpu/ops/dia_pallas.py:41"),
     "dot": ("ellspmv_tpu_torch/csrc/dot.cu",
             "ellspmv_tpu/ops/dd_reduce.py:30"),
+    "stream_sum": ("ellspmv_tpu_torch/csrc/stream_sum.cu",
+                   "ellspmv_tpu/ops/stream_sum.py:65"),
+    "permute": ("ellspmv_tpu_torch/csrc/permute.cu",
+                "ellspmv_tpu/ops/permute.py:531"),
 }
+# config3 of the suite (ellspmv_tpu/bench/suite.py), BASELINE.json
+# configs[3]: the stream path's full width.
+CONFIG3 = (1_000_000, 8)
 # The dot kernel against math.fsum, of sum |x*y|: its tree of fp64 sums
 # errs by about log2(n) ulps of that sum at most; twice that against the
 # plain version, which errs as much again.
@@ -510,16 +535,19 @@ def sampled_oracle(coo, x64, sample):
 def _reset_counts():
     """Counts to 0, and a first fp64 call that probes the card again, as
     in a fresh process."""
-    from ellspmv_tpu_torch.ops import dia_cuda, dot_cuda, ell_cuda
+    from ellspmv_tpu_torch.ops import (dia_cuda, dot_cuda, ell_cuda, permute,
+                                       stream_sum)
     ell_cuda.FMA_PROBE_RESULTS.clear()
     ell_cuda.launches = ell_cuda.probe_launches = dia_cuda.launches = 0
-    dot_cuda.launches = 0
+    dot_cuda.launches = permute.launches = stream_sum.launches = 0
 
 
 def _counts():
-    from ellspmv_tpu_torch.ops import dia_cuda, dot_cuda, ell_cuda
+    from ellspmv_tpu_torch.ops import (dia_cuda, dot_cuda, ell_cuda, permute,
+                                       stream_sum)
     return {"ell_spmv": ell_cuda.launches, "dia_spmv": dia_cuda.launches,
-            "fma_probe": ell_cuda.probe_launches, "dot": dot_cuda.launches}
+            "fma_probe": ell_cuda.probe_launches, "dot": dot_cuda.launches,
+            "permute": permute.launches, "stream_sum": stream_sum.launches}
 
 
 def phase_ell_path(coo, x64, sample, device="cuda"):
@@ -959,12 +987,454 @@ def time_dot(n, peak_bw):
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, max_abs_err=err,
                 bound_ms=bound_ms, bound_by=bound_by)
 
+# ---------------------------------------------------------------------------
+# The stream path: K1 over the products, the gather (K4/K5) and K3
+# ---------------------------------------------------------------------------
+
+def _stream_test_plans():
+    """Sum plans of every shape phase 3 holds the stream kernels on: name
+    -> (dest, rows, cap, chunk_starts)."""
+    rng = np.random.RandomState(22)
+    pad = lambda d: np.pad(d, (0, -len(d) % 1024), constant_values=-1)
+    one = rng.randint(0, 3000, 20000).astype(np.int64)
+    one[rng.rand(20000) < 0.05] = -1
+    hubs = rng.permutation(np.concatenate(
+        [np.full(20000, 7), np.full(1500, 200),
+         rng.randint(0, 5000, 30000)]).astype(np.int64))
+    folded = rng.permutation(np.concatenate(
+        [np.arange(40000), np.repeat(rng.choice(40000, 30, replace=False),
+                                     9)]).astype(np.int64))
+    chunked = pad(rng.permutation(np.concatenate(
+        [np.full(900, 7), np.full(800, 200),
+         rng.randint(0, 2500, 25000)]).astype(np.int64)))
+    empty = rng.randint(0, 2000, 9000).astype(np.int64) * 7
+    return {
+        "one level": (pad(one), 3000, 128, None),
+        "several levels (rows over cap)": (pad(hubs), 5000, 128, None),
+        "four levels (cap 16)": (pad(hubs), 5000, 16, None),
+        "folded buckets": (pad(folded), 40000, 128, None),
+        "column chunks (3)": (chunked, 2500, 128,
+                              [0, 9000, 17000, len(chunked)]),
+        "empty rows": (pad(empty), 14000, 128, None),
+    }
+
+
+def phase_stream_vs_plain(device="cuda"):
+    """K3 and the gather against their plain versions on the card, bit for
+    bit, in fp64 and f32: every level's sums and gather, and the final
+    gather, of sum plans with one level, several levels, folded buckets,
+    column chunks and empty rows."""
+    import torch
+
+    from ellspmv_tpu_torch.ops import permute, stream_sum
+    before = (permute.launches, stream_sum.launches)
+    sums = gathers = 0
+    for name, (dest, n, cap, starts) in _stream_test_plans().items():
+        plan = stream_sum.build_stream_sum(dest, n, cap=cap,
+                                           chunk_starts=starts).to(device)
+        rng = np.random.RandomState(23)
+        for dtype in (torch.float64, torch.float32):
+            maps = [(f"level {i + 1}", lv.src, lv.in_len)
+                    for i, lv in enumerate(plan.levels)]
+            maps.append(("final", plan.final_src,
+                         sum(lv.out_len - lv.multi_len
+                             for lv in plan.levels)))
+            for label, src, n_in in maps:
+                v = torch.from_numpy(rng.randn(n_in)).to(device, dtype)
+                got = permute.apply_permute(src, v)
+                want = permute.apply_permute_torch(src, v)
+                _sync(device)
+                check(torch.equal(got, want), f"gather {name} {label} "
+                                              f"{dtype}: kernel != plain")
+                gathers += 1
+            for i, lv in enumerate(plan.levels):
+                s = torch.from_numpy(rng.randn(lv.in_rows * 128)).to(
+                    device, dtype)
+                got = stream_sum.stream_sum(lv.table, s)
+                want = stream_sum.stream_sum_torch(lv.table, s)
+                _sync(device)
+                check(got.shape == (lv.out_len,) and torch.equal(got, want),
+                      f"stream_sum {name} level {i + 1} {dtype}: kernel != "
+                      f"plain")
+                sums += 1
+        log(f"  stream plan {name:31s}: {len(plan.levels)} levels, "
+            f"buckets {[len(lv.buckets) for lv in plan.levels]}, folded "
+            f"{sum(b.sub > 1 for lv in plan.levels for b in lv.buckets)}, "
+            f"chunks {max(len(plan.chunk_bases) - 1, 0)}, subtiles "
+            f"{[lv.table.num_subtiles for lv in plan.levels]}: gathers and "
+            "sums bit-equal to plain (fp64, f32)")
+    grew = (permute.launches - before[0], stream_sum.launches - before[1])
+    log(f"stream kernels vs plain: {gathers} gathers and {sums} level sums "
+        f"bit-equal; {grew[0]} gather and {grew[1]} stream_sum launches")
+    if device == "cuda":
+        check(grew == (gathers, sums), "the stream kernels' launch counts "
+                                       "did not move by one per case")
+
+
+def phase_stream_cli(device="cuda"):
+    """`ellspmv --format=stream -v` and `--format=auto -v` on a
+    power_law(100,000, 8) file: y against the oracle, and auto must choose
+    the stream format."""
+    import io
+
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.io.mtx import read_vector, write_matrix
+    from ellspmv_tpu_torch.models.generators import power_law
+    from ellspmv_tpu_torch.ops.reference import coo_spmv_numpy
+    coo = power_law(100_000, 8)
+    ones = np.ones(coo.num_columns)
+    want = coo_spmv_numpy(coo, ones)
+    scale = coo_spmv_numpy(CooMatrix(coo.num_rows, coo.num_columns,
+                                     coo.rowidx, coo.colidx,
+                                     np.abs(coo.values)), ones)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "power_law_100000.mtx")
+        write_matrix(path, coo)
+        log(f"cli: wrote {path} ({coo.num_rows:,} rows, "
+            f"{coo.num_nonzeros:,} nonzeros)")
+        for flags in (["--format=stream", "-v"], ["--format=auto", "-v"]):
+            proc = _run_cli([f"--device={device}", *flags, path],
+                            " ".join(flags))
+            y = read_vector(io.BytesIO(proc.stdout.encode()))
+            err = float(np.max(np.abs(y - want) / np.maximum(scale, 1e-300)))
+            log(f"cli: {' '.join(flags)} on power_law(100000, 8): y of "
+                f"{len(y):,} rows, max err {err:.3e} of sum|a*x| against the "
+                "oracle (printed with %.15g)")
+            check(len(y) == coo.num_rows and err <= TOLERANCE["float64"],
+                  f"ellspmv {' '.join(flags)}: y disagrees with the oracle: "
+                  f"{err:.3e}")
+            check("gemv_stream:" in proc.stderr,
+                  f"ellspmv {' '.join(flags)} did not run the stream format")
+            if "--format=auto" in flags:
+                check("auto_from_coo [stream]" in proc.stderr,
+                      "--format=auto did not choose the stream format on "
+                      "power_law")
+
+
+def stream_plan_lines(sm):
+    """The sum plan of `sm`, one line per level (the table of ROADMAP's
+    item 8)."""
+    plan = sm.ddsum
+    lines = []
+    for i, lv in enumerate(plan.levels):
+        t = lv.table
+        lines.append(
+            f"    level {i + 1}: {lv.in_len:,} inputs, "
+            f"{lv.in_rows * 128:,} positions, {lv.out_len:,} outputs "
+            f"({lv.multi_len:,} to the next level), {len(lv.buckets)} "
+            f"buckets, {sum(b.T for b in lv.buckets)} grid steps, max S "
+            f"{max(b.S for b in lv.buckets)}, {t.num_subtiles:,} subtiles, "
+            f"{int(t.run_start.shape[0]):,} runs (at most {t.max_slots} per "
+            f"subtile), {int(t.run_count.sum()):,} live elements")
+    lines.append(f"    final gather: {plan.num_rows:,} rows; chunks "
+                 f"{max(len(plan.chunk_bases) - 1, 0)}")
+    return lines
+
+
+def phase_stream_path(coo, x64, want, scale, device="cuda"):
+    """The stream path at config3's full width: stream_from_coo, then
+    benchmark_spmv per_iter and chained, fp64 and f32, every row held
+    against the oracle, with the launch counts of the path."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.harness import benchmark_spmv
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.formats.stream import stream_from_coo
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    n = coo.num_rows
+    runs, counts = {}, {}
+    for prec in ("float64", "float32"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        sm = stream_from_coo(coo, value_dtype=prec, device=device)
+        _sync(device)
+        host_s = time.perf_counter() - t0
+        x = torch.from_numpy(x64).to(device).to(value_dtype(prec))
+        log(f"  stream {prec}: stream_from_coo to {device} in {host_s:.2f} s "
+            f"(host build and copy), prod_len {sm.prod_len:,}, "
+            f"{len(sm.ddsum.levels)} sum levels")
+        for line in stream_plan_lines(sm):
+            log(line)
+        per_call = {"ell_spmv": 1, "permute": len(sm.ddsum.levels) + 1,
+                    "stream_sum": len(sm.ddsum.levels)}
+        calls = 2 + WARMUP + REPEAT
+        res = benchmark_spmv(None, sm, x, None, repeat=REPEAT, warmup=WARMUP)
+        grew = _counts()
+        for line in res.iteration_lines():
+            log(f"  stream {prec} gemv_stream: {line}")
+        log(f"  stream {prec} best: {res.best:.6f} s, {res.gnz_per_s():.3f} "
+            f"Gnz/s, physical {res.actual_gb_per_s():.1f} GB/s "
+            f"({res.actual_bytes:,} bytes per multiply); launches {grew}")
+        for k, c in per_call.items():
+            check(device != "cuda" or grew[k] == c * calls,
+                  f"stream {prec}: {grew[k]} {k} launches, expected "
+                  f"{c * calls}")
+        iters = WARMUP + REPEAT          # calls that accumulate into y
+        got = res.y.double().cpu().numpy()
+        err = float(np.max(np.abs(got - iters * want)
+                           / np.maximum(iters * scale, 1e-300)))
+        _all_rows_check(f"stream {prec} per_iter", res.y, n, got, err,
+                        TOLERANCE[prec])
+        res = benchmark_spmv(None, sm, x, None, repeat=REPEAT, warmup=WARMUP,
+                             protocol="chained")
+        for line in res.iteration_lines():
+            log(f"  stream {prec} gemv_stream (chained): {line}")
+        check(res.y.shape == (n,) and bool(torch.isfinite(res.y).all()),
+              f"stream {prec}: the chained y is not a finite vector")
+        got = spmv(sm, x).double().cpu().numpy()
+        err = float(np.max(np.abs(got - want) / np.maximum(scale, 1e-300)))
+        _all_rows_check(f"stream {prec} one multiply after the chained run",
+                        res.y, n, got, err, TOLERANCE[prec])
+        counts[prec] = _counts()
+        log(f"  stream {prec}: launches on the path {counts[prec]}")
+        check(device != "cuda" or all(counts[prec][k] > 0 for k in per_call),
+              f"the stream path did not launch K1, the gather and K3: "
+              f"{counts[prec]}")
+        if prec == "float64" and device == "cuda":
+            check(counts[prec]["fma_probe"] == 1,
+                  f"the fp64 stream path probed {counts[prec]['fma_probe']} "
+                  "times, not once")
+        runs[prec] = (sm, x)
+    return runs, counts
+
+
+def _sync(device):
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _all_rows_check(label, y, n, got, err, tol):
+    import torch
+    log(f"  {label}: y finite={bool(np.isfinite(got).all())}, all {n:,} rows "
+        f"vs oracle: max err {err:.3e} of sum|a*x| (tol {tol:g})")
+    check(y.shape == (n,) and bool(torch.isfinite(y).all()),
+          f"{label}: y is not a finite vector of {n} rows")
+    check(err <= tol, f"{label}: rows disagree with the oracle: {err:.3e}")
+
+
+def stream_spmv_plain(sm, x):
+    """`stream_spmv` with every kernel replaced by its plain version."""
+    import torch
+
+    from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
+    from ellspmv_tpu_torch.ops.permute import apply_permute_torch
+    from ellspmv_tpu_torch.ops.stream_sum import stream_sum_torch
+    v = ell_spmv_torch(sm.prod, x)
+    parts = []
+    for lv in sm.ddsum.levels:
+        out = stream_sum_torch(lv.table, apply_permute_torch(lv.src, v))
+        parts.append(out[lv.multi_len:])
+        v = out[:lv.multi_len]
+    return apply_permute_torch(sm.ddsum.final_src, torch.cat(parts))
+
+
+def _sum_output_map(table, n_positions):
+    """Each stream position's output under `table` (the position -> output
+    map of the index_add_ yardstick), num_subtiles*1024 where no run reads
+    it."""
+    import torch
+    ptr = table.slot_ptr.cpu().numpy().astype(np.int64)
+    start = table.run_start.cpu().numpy().astype(np.int64)
+    count = table.run_count.cpu().numpy().astype(np.int64)
+    subtile = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
+    lane = np.arange(int(count.sum())) - np.repeat(np.cumsum(count) - count,
+                                                    count)
+    out = np.full(n_positions, (len(ptr) - 1) * 1024, np.int64)
+    out[np.repeat(start, count) + lane] = (np.repeat(subtile, count) * 1024
+                                           + lane)
+    return torch.from_numpy(out).to(table.slot_ptr.device)
+
+
+def phase_stream_timing(coo, runs, peak_bw):
+    """At config3's shapes: K3 per level, the gather per level and final, K1
+    at the product shape and the whole stream_spmv, each in turns with its
+    plain version and beside one PyTorch call, each held against its plain
+    version on every output; then one stream_spmv split by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ellspmv_tpu_torch.bench.traffic import (estimate_actual_bytes,
+                                                 gather_bytes, sum_bytes)
+    from ellspmv_tpu_torch.ops import ell_cuda, permute, stream_sum
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    out = {}
+    for prec, (sm, x) in runs.items():
+        sv = x.element_size()
+        plan = sm.ddsum
+        totals = {"stream_sum": dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                     max_abs_err=0.0, bound_ms=0.0,
+                                     nbytes=0, flops=0),
+                  "permute": dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                  max_abs_err=0.0, bound_ms=0.0, nbytes=0,
+                                  flops=0)}
+
+        def add(name, k_ms, p_ms, lib_ms, err, nbytes, flops):
+            t = totals[name]
+            t["ms"] += k_ms
+            t["plain_ms"] += p_ms
+            t["library_ms"] += lib_ms
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            t["nbytes"] += nbytes
+            t["flops"] += flops
+
+        def time_gather(label, src, v):
+            padded = torch.cat([v.new_zeros(1), v])
+            shifted = src.long() + 1
+            k_ms, p_ms, lib_ms = _turns(
+                f"gather {label} {prec} (CUDA graph, per call)",
+                lambda: permute.apply_permute(src, v),
+                lambda: permute.apply_permute_torch(src, v),
+                lambda: torch.index_select(padded, 0, shifted),
+                "torch.index_select", timer=graph_ms)
+            eager_ms = time_ms(lambda: permute.apply_permute(src, v))
+            got = permute.apply_permute(src, v)
+            want = permute.apply_permute_torch(src, v)
+            check(torch.equal(got, want), f"gather {label} {prec}: kernel "
+                                          "!= plain at config3")
+            nbytes = gather_bytes(src, sv)
+            bound_ms, _ = _bound(nbytes, 0, prec, peak_bw)
+            log(f"  gather {label} {prec}: kernel {k_ms:.4f} ms on the device "
+                f"({eager_ms:.4f} ms per eager call) vs plain {p_ms:.4f} vs "
+                f"index_select {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                f"({nbytes:,} bytes), {100 * bound_ms / k_ms:.1f}% of it; "
+                "bit-equal to plain")
+            add("permute", k_ms, p_ms, lib_ms, 0.0, nbytes, 0)
+            return got
+
+        v = ell_cuda.ell_spmv(sm.prod, x)
+        parts = []
+        for i, lv in enumerate(plan.levels):
+            s = time_gather(f"level {i + 1}", lv.src, v)
+            table = lv.table
+            out_map = _sum_output_map(table, s.shape[0])
+            U = table.num_subtiles
+            k_ms, p_ms, lib_ms = _turns(
+                f"stream_sum level {i + 1} {prec} (CUDA graph, per call)",
+                lambda: stream_sum.stream_sum(table, s),
+                lambda: stream_sum.stream_sum_torch(table, s),
+                lambda: s.new_zeros(U * 1024 + 1).index_add_(0, out_map, s),
+                "index_add_", timer=graph_ms)
+            eager_ms = time_ms(lambda: stream_sum.stream_sum(table, s))
+            got = stream_sum.stream_sum(table, s)
+            want = stream_sum.stream_sum_torch(table, s)
+            lib = s.new_zeros(U * 1024 + 1).index_add_(0, out_map, s)[:-1]
+            check(torch.equal(got, want), f"stream_sum level {i + 1} {prec}:"
+                                          " kernel != plain at config3")
+            lib_err = float((lib - want).abs().max())
+            live = int(table.run_count.sum())
+            nbytes = sum_bytes(table, sv)
+            bound_ms, bound_by = _bound(nbytes, live, prec, peak_bw)
+            log(f"  stream_sum level {i + 1} {prec}: kernel {k_ms:.4f} ms on "
+                f"the device ({eager_ms:.4f} ms per eager call) vs plain "
+                f"{p_ms:.4f} vs index_add_ {lib_ms:.4f} ms; bound "
+                f"{bound_ms:.4f} ms ({nbytes:,} bytes, {bound_by}), "
+                f"{100 * bound_ms / k_ms:.1f}% of it; {U:,} subtiles, "
+                f"{live:,} live elements; bit-equal to plain; "
+                f"|index_add_ - plain| {lib_err:.3e}")
+            add("stream_sum", k_ms, p_ms, lib_ms, 0.0, nbytes, live)
+            parts.append(got[lv.multi_len:])
+            v = got[:lv.multi_len]
+        y = time_gather("final", plan.final_src, torch.cat(parts))
+        for name, t in totals.items():
+            t["bound_ms"], t["bound_by"] = _bound(t.pop("nbytes"),
+                                                  t.pop("flops"), prec,
+                                                  peak_bw)
+            out[name, prec] = t
+            log(f"  {name} {prec}, all launches of one stream_spmv, on the "
+                f"device: kernel {t['ms']:.4f} ms vs plain "
+                f"{t['plain_ms']:.4f} vs yardstick {t['library_ms']:.4f} ms; "
+                f"bound {t['bound_ms']:.4f} ms")
+        # K1 at the product shape
+        k_ms, p_ms, _ = _turns(f"ell_spmv products {prec}",
+                               lambda: ell_cuda.ell_spmv(sm.prod, x),
+                               lambda: ell_cuda.ell_spmv_torch(sm.prod, x))
+        check(torch.equal(ell_cuda.ell_spmv(sm.prod, x),
+                          ell_cuda.ell_spmv_torch(sm.prod, x)),
+              f"ell_spmv products {prec}: kernel != plain")
+        k1_bytes = estimate_actual_bytes(sm.prod, with_y=False)
+        bound_ms, _ = _bound(k1_bytes, sm.prod_len, prec, peak_bw)
+        log(f"  ell_spmv products {prec} ({sm.prod_len:,} rows of 1): kernel "
+            f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({k1_bytes:,} bytes), {100 * bound_ms / k_ms:.1f}% of it; "
+            "bit-equal to plain")
+        # the whole path beside cuSPARSE
+        csr = cusparse_of(coo, x.dtype, x.device)
+        whole = sm.num_nonzeros
+        k_ms, p_ms, lib_ms = _turns(f"stream_spmv {prec}",
+                                    lambda: spmv(sm, x),
+                                    lambda: stream_spmv_plain(sm, x),
+                                    lambda: csr @ x)
+        g_ms = graph_ms(lambda: spmv(sm, x))
+        got, want = spmv(sm, x), stream_spmv_plain(sm, x)
+        check(torch.equal(got, y), f"stream_spmv {prec}: the timed pieces "
+                                   "disagree with the whole call")
+        rel = float(((got.double() - want.double()).abs()
+                     / want.double().abs().clamp(min=1e-300)).max())
+        lib_err = float((csr @ x - want).double().abs().max())
+        nbytes = estimate_actual_bytes(sm, with_y=False)
+        bound_ms, bound_by = _bound(nbytes, 2 * whole, prec, peak_bw)
+        log(f"  stream_spmv {prec}: {k_ms:.4f} ms per eager call, "
+            f"{g_ms:.4f} ms on the device (CUDA graph) vs plain {p_ms:.4f} "
+            f"ms vs cuSPARSE {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({nbytes:,} bytes, {bound_by}), {100 * bound_ms / k_ms:.1f}% "
+            f"of the eager call; max rel |kernels - plain| {rel:.3e}; "
+            f"max |cuSPARSE - plain| {lib_err:.3e}")
+        out["stream_spmv", prec] = dict(ms=k_ms, graph_ms=g_ms,
+                                        plain_ms=p_ms, library_ms=lib_ms,
+                                        bound_ms=bound_ms)
+        _sync(x.device.type)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                spmv(sm, x)
+            _sync(x.device.type)
+            host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        levels = len(plan.levels)
+        stream_breakdown(prof, host_ms, 10, prec,
+                         {"K1": 1, "gather": levels + 1, "K3": levels})
+    return out
+
+
+def stream_breakdown(prof, host_ms, calls, prec, per_call):
+    """One stream_spmv's device time by kernel (the profiler) against the
+    host clock per call. `per_call` gives the launches of each kernel per
+    call: a kernel's time per call is its mean launch times that (the
+    profiler may drop the events of a call); the rest is spread over the
+    calls."""
+    times = device_times_us(prof)
+    groups = {"K1": [0.0, 0], "gather": [0.0, 0], "K3": [0.0, 0],
+              "rest": [0.0, 0]}
+    for key, (count, us) in times.items():
+        group = ("K1" if "ell_spmv_kernel" in key else
+                 "gather" if "permute_kernel" in key else
+                 "K3" if "stream_sum_kernel" in key else "rest")
+        groups[group][0] += us
+        groups[group][1] += count
+    split = {g: (us / max(n, 1) * per_call[g] if g in per_call
+                 else us / calls) / 1e3 for g, (us, n) in groups.items()}
+    device_ms = sum(split.values())
+    if device_ms == 0:
+        log(f"  stream_spmv {prec}: the profiler saw no device time; the "
+            "split is not measured")
+        return
+    log(f"  stream_spmv {prec} under the profiler: {host_ms:.4f} ms per call "
+        f"on the host clock; device {device_ms:.4f} ms "
+        f"({100 * device_ms / host_ms:.1f}%: K1 {split['K1']:.4f}, gathers "
+        f"{split['gather']:.4f}, K3 {split['K3']:.4f}, the rest "
+        f"{split['rest']:.4f}); host and idle {host_ms - device_ms:.4f} ms")
+    for key, (count, us) in sorted(times.items(), key=lambda t: -t[1][1]):
+        log(f"    device: {us / count:9.2f} us x {count:4d}  {key[:90]}")
+
 
 def main() -> int:
     import torch
 
     from ellspmv_tpu_torch.config import hbm_peak_bytes_per_s
-    from ellspmv_tpu_torch.models.generators import fem_mesh_2d
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.models.generators import fem_mesh_2d, power_law
+    from ellspmv_tpu_torch.ops.reference import coo_spmv_numpy
     t_start = time.perf_counter()
     phase_device()
     peak_bw = hbm_peak_bytes_per_s("cuda")
@@ -978,8 +1448,10 @@ def main() -> int:
     phase_dia_vs_plain()
     phase_probe_vs_plain()
     phase_dot_vs_plain()
+    phase_stream_vs_plain()
     log("phase 4: the ellspmv and cgsolve programs")
     phase_cli()
+    phase_stream_cli()
     log("phase 5: full size")
     t0 = time.perf_counter()
     coo = fem_mesh_2d(1440)
@@ -997,20 +1469,34 @@ def main() -> int:
     cg_counts = phase_cg_path(coo, peak_bw)
     log(f"solver path: launches {cg_counts}")
     phase_headline_program()
+    t0 = time.perf_counter()
+    pl_coo = power_law(*CONFIG3, seed=0)
+    pl_x64 = np.random.RandomState(2).rand(pl_coo.num_columns)
+    pl_want = coo_spmv_numpy(pl_coo, pl_x64)
+    pl_scale = coo_spmv_numpy(CooMatrix(
+        pl_coo.num_rows, pl_coo.num_columns, pl_coo.rowidx, pl_coo.colidx,
+        np.abs(pl_coo.values)), pl_x64)
+    log(f"full size: power_law{CONFIG3} (config3): {pl_coo.num_rows:,} rows, "
+        f"{pl_coo.num_nonzeros:,} nonzeros, longest row "
+        f"{int(np.bincount(pl_coo.rowidx).max()):,}; generated with its "
+        f"oracle in {time.perf_counter() - t0:.1f} s")
+    stream_runs, stream_counts = phase_stream_path(pl_coo, pl_x64, pl_want,
+                                                   pl_scale)
     log("phase 6: timing")
     timing = phase_timing(coo, ell_runs, dia_runs, peak_bw)
-    launches = {"ell_spmv": ell_counts["ell_spmv"]
-                + sum(c["ell_spmv"] for c in cg_counts.values()),
-                "dia_spmv": dia_counts["dia_spmv"],
-                "fma_probe": ell_counts["fma_probe"]
-                + dia_counts["fma_probe"]
-                + sum(c["fma_probe"] for c in cg_counts.values()),
-                "dot": cg_counts["float64"]["dot"]}
+    timing.update(phase_stream_timing(pl_coo, stream_runs, peak_bw))
+    paths = [ell_counts, dia_counts, *cg_counts.values(),
+             *stream_counts.values()]
+    launches = {name: sum(c[name] for c in paths)
+                for name in ("ell_spmv", "dia_spmv", "fma_probe", "permute",
+                             "stream_sum")}
+    launches["dot"] = cg_counts["float64"]["dot"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths was not launched: {launches}")
     kernels = []
     for name, key in (("ell_spmv", "float64"), ("fma_probe", "float32"),
-                      ("dia_spmv", "float64"), ("dot", "float64")):
+                      ("dia_spmv", "float64"), ("dot", "float64"),
+                      ("stream_sum", "float64"), ("permute", "float64")):
         source, replaces = KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

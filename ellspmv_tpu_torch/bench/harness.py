@@ -15,6 +15,12 @@ diagonal value takes part and no column index is read:
     flops = 2*diasize, min_bytes = rows*sv + cols*sv + diasize*sv,
     max_bytes = rows*sv + 2*diasize*sv
 
+Stream (the JAX package's accounting; sv is the compute type's size, 4 for
+bfloat16): each stored entry is moved as a 4-byte position and a value:
+
+    flops = 2*nnz, min_bytes = rows*sv + cols*sv + nnz*(4 + sv),
+    max_bytes = rows*sv + nnz*(4 + 2*sv)
+
 Gnz/s uses the file's stored nonzero count (ellspmv.c:1871).
 
 Two timing protocols:
@@ -48,6 +54,7 @@ from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
 from ellspmv_tpu_torch.config import hbm_peak_bytes_per_s
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.stream import StreamMatrix
 
 # The chained protocol's carry scale: small enough that ||A||*scale < 1 for
 # any realistic matrix, so y cannot overflow in long loops.
@@ -85,6 +92,17 @@ class SpmvMetrics:
                 num_flops=2 * diasize,
                 min_bytes=n * sv + m * sv + diasize * sv,
                 max_bytes=n * sv + diasize * sv + diasize * sv)
+        if isinstance(matrix, StreamMatrix):
+            # padding-free: every stored entry counted once as a 4-byte
+            # position and a value, as the JAX package counts it
+            sv = matrix.values.element_size()
+            n, m = matrix.num_rows, matrix.num_columns
+            work = matrix.worksize
+            return SpmvMetrics(
+                num_nonzeros=matrix.num_nonzeros,
+                num_flops=2 * work,
+                min_bytes=n * sv + m * sv + work * (4 + sv),
+                max_bytes=n * sv + work * (4 + 2 * sv))
         raise NotImplementedError(
             f"metrics for {type(matrix).__name__} are not yet ported "
             "(see ROADMAP.md)")

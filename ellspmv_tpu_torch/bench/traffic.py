@@ -16,7 +16,13 @@ must move, so that every report can also carry the physical share (at most
   num_rows``), x once, y when given, and the output;
 - K6 (``csrc/dot.cu``): both vectors once (the 8-byte result is left out);
 - one CG iteration (``models/solvers.cg``): K1 without y, two K6 dots and
-  three vector updates, each reading two vectors and writing one.
+  three vector updates, each reading two vectors and writing one;
+- the stream format (``formats/stream.py``), from its plan: K1 over the
+  ``prod_len`` products (values, column indices, x once, the products
+  written); per level the gather (`gather_bytes`: its map, the live
+  elements read, every position written) and K3 (`sum_bytes`: the live
+  elements read, the outputs written, the table); the concatenation of the
+  levels' row sums; the final gather; the diagonal and y, read once each.
 
 x is counted once: the kernels rely on L1/L2 for its re-reads.
 """
@@ -25,11 +31,55 @@ from __future__ import annotations
 
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.stream import StreamMatrix
+from ellspmv_tpu_torch.ops.permute import BLOCK
+
+
+def gather_bytes(src, value_bytes: int) -> int:
+    """Bytes one gather by the map `src` (``ops/permute.apply_permute``)
+    moves: the map, each live element read once, every output written."""
+    n = int(src.shape[0])
+    return n * (4 + value_bytes) + int((src >= 0).sum()) * value_bytes
+
+
+def sum_bytes(table, value_bytes: int) -> int:
+    """Bytes one level of segmented sums (``ops/stream_sum.stream_sum``)
+    moves: each live element read once, the outputs written, the table."""
+    live = int(table.run_count.sum())
+    return (live * value_bytes + table.num_subtiles * 1024 * value_bytes
+            + 4 * (int(table.slot_ptr.shape[0])
+                   + 2 * int(table.run_start.shape[0])))
+
+
+def stream_bytes_estimate(nnz: int, num_rows: int, num_columns: int,
+                          value_bytes: int) -> int:
+    """The stream format's bytes per SpMV before any plan is built, for the
+    chooser: per padded product slot K1's value, index and product, the
+    level-1 gather's map, read and write, and K3's read; per row K3's
+    output, its concatenation, the final gather's map, read and write, and
+    y; x once. Deeper levels (a few percent of the products on power-law
+    matrices) and the alignment pad of the runs are left out."""
+    slots = max(-(-nnz // BLOCK) * BLOCK, BLOCK)
+    return (slots * (5 * value_bytes + 8)
+            + num_rows * (4 + 6 * value_bytes)
+            + num_columns * value_bytes)
 
 
 def estimate_actual_bytes(matrix, with_y: bool = True) -> int:
     """Bytes one kernel call on `matrix` reads and writes, with y read when
-    `with_y` (as in every accumulating call of the benchmark)."""
+    `with_y` (as in every accumulating call of the benchmark). For the
+    stream format, the bytes of all its kernels in one SpMV."""
+    if isinstance(matrix, StreamMatrix):
+        sv = matrix.values.element_size()
+        plan = matrix.ddsum
+        total = estimate_actual_bytes(matrix.prod, with_y=False)   # K1, x
+        for lv in plan.levels:
+            total += gather_bytes(lv.src, sv) + sum_bytes(lv.table, sv)
+            total += 2 * (lv.out_len - lv.multi_len) * sv  # concatenation
+        total += gather_bytes(plan.final_src, sv)
+        if matrix.diag is not None:
+            total += matrix.num_rows * sv
+        return total + (matrix.num_rows * sv if with_y else 0)
     if isinstance(matrix, EllMatrix):
         sv = matrix.values.element_size()
         si = matrix.colidx.element_size()

@@ -1,6 +1,6 @@
 """The `ellspmv` program on PyTorch: the counterpart of
-``ellspmv_tpu.cli.common`` for the ELLPACK and DIA formats, the auto
-chooser's DIA/ELL branch, both timing protocols and ``--reorder=rcm``.
+``ellspmv_tpu.cli.common`` for the ELLPACK, DIA and stream formats, the auto
+chooser (DIA, ELL or stream), both timing protocols and ``--reorder=rcm``.
 
 Flag-compatible with the JAX package's parser, which follows the
 reference's (parse_program_options, ellspmv.c:465-611): ``--opt=v`` and
@@ -91,12 +91,13 @@ def print_help(program: str, f=None):
     f.write("  --backend=B               auto (default) or pallas: the hand-written\n")
     f.write("                            kernel of the format\n")
     f.write("  --protocol=P              per_iter (default) or chained timing\n")
-    f.write("  --format=F                ell (default), auto (DIA or ELL, whichever\n")
-    f.write("                            moves fewer bytes) or dia (stencil diagonals)\n")
+    f.write("  --format=F                ell (default), auto (DIA, ELL or stream,\n")
+    f.write("                            whichever moves fewest bytes), dia (stencil\n")
+    f.write("                            diagonals) or stream (for power-law matrices)\n")
     f.write("  --reorder=R               none (default) or rcm: reverse Cuthill-McKee\n")
     f.write("                            inside; x, y and the output keep their order\n\n")
     f.write(" Not yet ported (accepted, then refused with exit code 1):\n")
-    f.write("  --format=sell|hybrid|stream, --devices=N>1,\n")
+    f.write("  --format=sell|hybrid, --devices=N>1,\n")
     f.write("  --papi-event-*, --trace=DIR, --backend=xla\n\n")
     f.write("  -h, --help                display this help and exit\n")
     f.write("  --version                 display version information and exit\n")
@@ -236,7 +237,7 @@ def card_missing(program: str, device: str) -> bool:
 
 def unported_option(opts: Options) -> str | None:
     """The first given option that this port does not have yet, or None."""
-    if opts.format in ("sell", "hybrid", "stream"):
+    if opts.format in ("sell", "hybrid"):
         return f"--format={opts.format}"
     if opts.devices > 1:
         return f"--devices={opts.devices}"
@@ -251,10 +252,14 @@ def unported_option(opts: Options) -> str | None:
 
 def kernel_name(opts: Options, mat) -> str:
     """Kernel label in the reference's naming (gemv/gemvsd/gemv16,
-    README:133), and gemv_dia for DIA as in the JAX program."""
+    README:133), and gemv_dia or gemv_stream for DIA or the stream format,
+    as in the JAX program."""
     from ellspmv_tpu_torch.formats.dia import DiaMatrix
+    from ellspmv_tpu_torch.formats.stream import StreamMatrix
     if isinstance(mat, DiaMatrix):
         return "gemv_dia"
+    if isinstance(mat, StreamMatrix):
+        return "gemv_stream"
     if opts.separate_diagonal and mat.rowsize == 16:
         return "gemv16"
     return "gemvsd" if opts.separate_diagonal else "gemv"
@@ -279,6 +284,12 @@ def _convert(coo, opts: Options, index_dtype, device):
             raise CliError("--format=dia: matrix has too many distinct "
                            "diagonals for DIA")
         return mat, "dia_from_coo", f", {mat.num_diags} diagonals"
+    if opts.format == "stream":
+        from ellspmv_tpu_torch.formats.stream import stream_from_coo
+        mat = stream_from_coo(coo, separate_diagonal=opts.separate_diagonal,
+                              value_dtype=opts.precision, device=device)
+        return (mat, "stream_from_coo",
+                f", {len(mat.ddsum.levels)} sum levels")
     from ellspmv_tpu_torch.formats.ell import ell_from_coo
     mat = ell_from_coo(coo, separate_diagonal=opts.separate_diagonal,
                        sort_rows=opts.sort_rows, value_dtype=opts.precision,
@@ -313,9 +324,14 @@ def run(argv: list[str], program: str) -> int:
     if opts.separate_diagonal and opts.format == "dia" and opts.verbose:
         log.write(f"{program}: note: --format=dia stores the diagonal "
                   "inline; --separate-diagonal ignored\n")
-    if opts.format == "auto" and opts.verbose and not opts.sort_rows:
-        log.write(f"{program}: note: --format=auto implies sorted rows "
-                  "(column locality drives the format choice)\n")
+    if opts.format == "auto" and opts.verbose:
+        if not opts.sort_rows:
+            log.write(f"{program}: note: --format=auto implies sorted rows "
+                      "(column locality drives the format choice)\n")
+        if opts.index_width:
+            log.write(f"{program}: note: --format=auto may choose the "
+                      "stream format, which stores int32 positions "
+                      "regardless of --index-width\n")
 
     # Phase 2: read the matrix (timed, like ellspmv.c:1264-1377)
     t0 = time.perf_counter()
@@ -360,7 +376,7 @@ def run(argv: list[str], program: str) -> int:
     except (MemoryError, torch.cuda.OutOfMemoryError) as e:
         sys.stderr.write(f"{program}: conversion failed: {e}\n")
         return 1
-    except (CliError, NotImplementedError) as e:
+    except (CliError, NotImplementedError, ValueError) as e:
         sys.stderr.write(f"{program}: {e}\n")
         return 1
     t_conv = time.perf_counter() - t0

@@ -1,6 +1,7 @@
 // Value-type helpers shared by the SpMV kernels (ell_spmv.cu, dia_spmv.cu):
 // the accumulator type of each storage type, widening loads, the fused
-// multiply-add in that type, and the rounding store.
+// multiply-add in that type, and the rounding store; and the one-thread-per-
+// element launch shape that permute.cu uses too.
 //
 // fp64 and f32 accumulate in their own type with a single-rounding fma/fmaf.
 // bf16 storage accumulates in float32 and rounds the result once to bf16,

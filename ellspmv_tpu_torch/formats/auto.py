@@ -1,26 +1,32 @@
-"""Automatic format selection between DIA and ELL, the counterpart of the
-DIA/ELL branch of ``ellspmv_tpu.formats.auto.auto_from_coo``.
+"""Automatic format selection between DIA, ELL and the stream format, the
+counterpart of ``ellspmv_tpu.formats.auto.auto_from_coo``.
 
-The gates are the JAX chooser's: DIA is a candidate when the matrix has at
-least 3 nonzeros per row, the diagonal is not split, DIA is allowed, the
-matrix has at most 32 distinct diagonals (``dia_from_coo``'s limit, within
-the kernel's 64) and the diagonals are at least half full. The prices are
-this card's: both kernels are bound by device-memory bytes, so each
-candidate is priced by the bytes its kernel moves, at the card's data-sheet
-peak (``config.hbm_peak_bytes_per_s``):
+The gates are the JAX chooser's:
+
+- where ELLPACK padding blows up (more than 4x the nonzeros and over 1M
+  slots), the stream format;
+- else DIA when the matrix has at least 3 nonzeros per row, the diagonal is
+  not split, DIA is allowed, the matrix has at most 32 distinct diagonals
+  (``dia_from_coo``'s limit, within the kernel's 64) and the diagonals are
+  at least half full, and DIA moves fewer bytes than ELL;
+- else ELL or the stream format, whichever moves fewer bytes.
+
+The prices are this card's: all the kernels are bound by device-memory
+bytes, so each candidate is priced by the bytes its kernels move, at the
+card's data-sheet peak (``config.hbm_peak_bytes_per_s``), from the row
+counts alone (no matrix is built to be priced):
 
 - DIA: ``(diasize + 2*rows) * value bytes``, as the JAX chooser prices it;
-- ELL: ``ellsize * (value + index bytes) + 2*rows * value bytes``, from the
-  row counts alone (no ELL matrix is built to be priced).
+- ELL: ``ellsize * (value + index bytes) + 2*rows * value bytes``;
+- stream: ``bench/traffic.stream_bytes_estimate``.
 
-The rate cancels in the comparison; it only turns bytes into the estimated
+The rate cancels in the comparisons; it only turns bytes into the estimated
 milliseconds shown in ``_auto_reason``. No TPU constant of the JAX chooser
 or its calibration is used.
 
-Not yet ported: where JAX would price the SELL split and the stream format
-against each other (ELLPACK padding more than 4x the nonzeros), this
-chooser raises NotImplementedError; where ELL wins, the stream candidate is
-not priced (ROADMAP.md, Queue 1 items 6 and 8).
+Not yet ported: where the padding blows up, the JAX chooser also prices the
+SELL split against the stream format; the port takes the stream format
+there (ROADMAP.md, Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -45,13 +51,17 @@ def _cost(nbytes: int, rate: float | None) -> str:
 def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
                   sort_rows: bool = True, value_dtype=None,
                   index_dtype=None, allow_dia: bool = True, device="cpu"):
-    """Return DIA or ELL on `device`, whichever moves fewer bytes per SpMV.
+    """Return DIA, ELL or the stream format on `device`, whichever moves the
+    fewest bytes per SpMV within the JAX chooser's gates.
 
     The decision is recorded on the returned matrix as `_auto_choice`
-    ('dia' or 'ell') with `_auto_reason` for verbose reporting. Only the
-    chosen matrix is built on `device`."""
+    ('dia', 'ell' or 'stream') with `_auto_reason` for verbose reporting.
+    Only the chosen matrix is built on `device`."""
+    from ellspmv_tpu_torch.bench.traffic import stream_bytes_estimate
     from ellspmv_tpu_torch.formats.dia import dia_from_coo
     from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.formats.stream import (compute_dtype,
+                                                  stream_from_coo)
     from ellspmv_tpu_torch.ops.dia_cuda import MAX_DIAGS
 
     expanded = coo.expand_symmetry()
@@ -62,17 +72,27 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
     rowsize = int(counts.max()) if counts.size else 0
     ellsize = n * rowsize
 
-    if ellsize > MAX_PAD_RATIO * nnz and ellsize > 1 << 20:
-        raise NotImplementedError(
-            f"auto_from_coo: ELL padding blowup ({ellsize:,} slots for "
-            f"{nnz:,} nonzeros): the SELL/stream branch that the JAX "
-            "chooser takes here is not yet ported (see ROADMAP.md)")
-
     dtype = config.value_dtype(expanded.values.dtype if value_dtype is None
                                else value_dtype)
+    rate = config.hbm_peak_bytes_per_s(device)
+    stream_bytes = stream_bytes_estimate(
+        nnz, n, m, torch.empty(0, dtype=compute_dtype(dtype)).element_size())
+
+    def pick_stream(reason):
+        sm = stream_from_coo(coo, separate_diagonal=separate_diagonal,
+                             value_dtype=dtype, device=device)
+        sm._auto_choice = "stream"
+        sm._auto_reason = reason
+        return sm
+
+    if ellsize > MAX_PAD_RATIO * nnz and ellsize > 1 << 20:
+        return pick_stream(
+            f"ELL padding blowup ({ellsize:,} slots for {nnz:,} nonzeros); "
+            f"stream ({_cost(stream_bytes, rate)}); the SELL split, which "
+            "the JAX chooser prices against it here, is not yet ported")
+
     vb = torch.empty(0, dtype=dtype).element_size()
     ib = np.dtype(config.select_index_dtype(n, m, nnz, index_dtype)).itemsize
-    rate = config.hbm_peak_bytes_per_s(device)
     ell_bytes = ellsize * (vb + ib) + 2 * n * vb
     why_ell = None
     if allow_dia and separate_diagonal is False and nnz >= 3 * n:
@@ -91,11 +111,14 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
             why_ell = (f"ELL ({_cost(ell_bytes, rate)}) beats "
                        f"{dia.num_diags} diagonals "
                        f"({_cost(dia_bytes, rate)})")
+    if stream_bytes < ell_bytes:
+        return pick_stream(f"stream ({_cost(stream_bytes, rate)}) beats "
+                           f"ELL ({_cost(ell_bytes, rate)})")
     ell = ell_from_coo(coo, separate_diagonal=separate_diagonal,
                        sort_rows=sort_rows, value_dtype=dtype,
                        index_dtype=index_dtype, device=device)
     ell._auto_choice = "ell"
     ell._auto_reason = ((why_ell or f"ELL ({_cost(ell_bytes, rate)})")
-                        + "; the stream format is not yet priced (not yet "
-                        "ported)")
+                        + "; ELL beats the stream format "
+                        f"({_cost(stream_bytes, rate)})")
     return ell

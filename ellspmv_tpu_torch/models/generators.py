@@ -6,7 +6,9 @@ no large files on disk. Each gives arrays identical to its counterpart in
 - `banded_random`: random banded matrix (bounded bandwidth, no local
   smoothness);
 - `fem_mesh_2d`: jittered-mesh FEM matrix in banded node order, the stand-in
-  for the reference's published Lynx68_reordered.mtx (README:130).
+  for the reference's published Lynx68_reordered.mtx (README:130);
+- `power_law`: skewed rows and hub columns, the webbase-1M class that the
+  stream format serves (BASELINE.json configs[3]).
 """
 
 from __future__ import annotations
@@ -106,5 +108,27 @@ def fem_mesh_2d(nx: int, ny: int | None = None, extras: int = 4,
     vals = pair_vals[inv]
     diag = rows == cols
     vals[diag] = 24.0 + rng.rand(diag.sum())
+    idx_dt = _index_dtype(n)
+    return CooMatrix(n, n, rows.astype(idx_dt), cols.astype(idx_dt), vals)
+
+
+def power_law(n: int, avg_nnz_per_row: int, alpha: float = 1.8,
+              seed: int = 0, value_dtype=np.float64) -> CooMatrix:
+    """Skewed matrix: row lengths ~ Zipf(alpha) capped at n, columns chosen
+    by preferential attachment (hub columns), a webbase-like structure;
+    duplicate (row, col) pairs are dropped."""
+    rng = np.random.RandomState(seed)
+    raw = rng.zipf(alpha, size=n).astype(np.int64)
+    counts = np.minimum(raw, n)
+    scale = counts.sum() / (avg_nnz_per_row * n)
+    counts = np.maximum(1, (counts / max(scale, 1e-9)).astype(np.int64))
+    counts = np.minimum(counts, n)
+    rows = np.repeat(np.arange(n, dtype=np.int64), counts)
+    popularity = 1.0 / np.arange(1, n + 1) ** 0.8
+    popularity /= popularity.sum()
+    cols = rng.choice(n, size=len(rows), p=popularity)
+    _, keep = np.unique(rows * n + cols, return_index=True)
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.randn(len(rows)).astype(value_dtype)
     idx_dt = _index_dtype(n)
     return CooMatrix(n, n, rows.astype(idx_dt), cols.astype(idx_dt), vals)

@@ -1,8 +1,9 @@
-"""The port's `auto_from_coo` (the DIA/ELL branch) against the JAX
-package's chooser: the same choice on the same matrices, the DIA it returns
-equal to JAX's, only the chosen matrix built, and a clean refusal where the
-JAX chooser would take the SELL or stream branch, which are not yet ported.
-The JAX chooser runs with the interpret variable set, as its own tests do
+"""The port's `auto_from_coo` against the JAX package's chooser: the same
+choice on the same matrices, the DIA it returns equal to JAX's, only the
+chosen matrix built, and the stream format where the ELLPACK padding blows
+up (the JAX chooser also prices the SELL split there, which is not yet
+ported) or where it moves fewer bytes than ELL. The JAX chooser runs with
+the interpret variable set, as its own tests do
 (tests/test_stream.py::test_auto_picks_dia_for_stencil)."""
 
 import numpy as np
@@ -16,6 +17,8 @@ from ellspmv_tpu_torch.formats.auto import auto_from_coo
 from ellspmv_tpu_torch.formats.coo import CooMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.stream import StreamMatrix
+from ellspmv_tpu_torch.ops.dispatch import spmv
 
 
 def port_coo(coo) -> CooMatrix:
@@ -53,7 +56,7 @@ def test_same_choice_as_jax(name, monkeypatch):
                                       np.asarray(want.data))
         assert "dense diagonals" in got._auto_reason
     else:
-        assert "the stream format is not yet priced" in got._auto_reason
+        assert "; ELL beats the stream format (" in got._auto_reason
         assert (got.diag is not None) == kw.get("separate_diagonal", False)
 
 
@@ -79,15 +82,41 @@ def test_only_the_chosen_matrix_is_built(monkeypatch):
 
 def test_padding_blowup_is_not_yet_ported():
     # one row of 300 entries over 20,000 rows of one: ELLPACK would hold
-    # 6M slots for 20,299 nonzeros, where JAX takes the SELL/stream branch
+    # 6M slots for 20,299 nonzeros, where JAX takes the SELL/stream branch;
+    # the port takes the stream format, as the SELL split is not yet ported
     n = 20_000
     rows = np.concatenate([np.arange(n), np.zeros(299, np.int64)])
     cols = np.concatenate([np.arange(n), np.arange(1, 300)])
     coo = CooMatrix(n, n, rows.astype(np.int32), cols.astype(np.int32),
                     np.ones(len(rows)))
-    with pytest.raises(NotImplementedError,
-                       match=r"is not yet ported \(see ROADMAP.md\)"):
-        auto_from_coo(coo, value_dtype="float64")
+    sm = auto_from_coo(coo, value_dtype="float64")
+    assert isinstance(sm, StreamMatrix) and sm._auto_choice == "stream"
+    assert sm._auto_reason.startswith(
+        "ELL padding blowup (6,000,000 slots for 20,299 nonzeros); stream (")
+    assert "the SELL split, which the JAX chooser prices against it here, "\
+        "is not yet ported" in sm._auto_reason
+    got = spmv(sm, torch.ones(n, dtype=torch.float64)).numpy()
+    want = np.ones(n)
+    want[0] = 300
+    np.testing.assert_array_equal(got, want)
+
+
+def test_stream_when_it_moves_fewer_bytes(monkeypatch):
+    # rows of 16 entries and one of 63: ELLPACK pads 3.9x (accepted), and
+    # in f32 its 8 bytes per slot then cost more than the stream's bytes
+    monkeypatch.setenv("HBM_PEAK_GBPS", "3350")
+    rng = np.random.RandomState(0)
+    n = 20_000
+    rows = np.concatenate([np.repeat(np.arange(n), 16), np.zeros(47)])
+    cols = rng.randint(0, n, len(rows))
+    coo = CooMatrix(n, n, rows.astype(np.int32), cols.astype(np.int32),
+                    rng.randn(len(rows)))
+    sm = auto_from_coo(coo, value_dtype="float32")
+    assert isinstance(sm, StreamMatrix), sm._auto_reason
+    assert sm._auto_reason.startswith("stream (est ")
+    assert " beats ELL (est " in sm._auto_reason
+    ell = auto_from_coo(coo, value_dtype="float64")
+    assert isinstance(ell, EllMatrix), ell._auto_reason
 
 
 def test_bf16_may_choose_dia():

@@ -108,7 +108,7 @@ def test_verbose_lines(capsys):
 @pytest.mark.parametrize("argv,shown", [
     (["--format=sell"], "--format=sell"),
     (["--format=hybrid"], "--format=hybrid"),
-    (["--format=stream"], "--format=stream"),
+    (["--format=hybrid", "--protocol=chained"], "--format=hybrid"),
     (["--devices=2", "--protocol=chained"], "--devices=2"),
     (["--devices=4"], "--devices=4"),
     (["--reorder=rcm", "--devices=2"], "--devices=2"),
@@ -395,3 +395,51 @@ def test_headline_needs_a_card_or_the_cpu(monkeypatch, capsys):
     assert "no CUDA device is available" in capsys.readouterr().err
     assert headline.main(["--device=tpu"]) == 1
     assert headline.main(["--bogus"]) == 1
+
+
+@pytest.fixture
+def integer_matrix(tmp_path):
+    """A 300 x 280 file with small-integer values: with x = ones every sum
+    is exact, in the JAX package's double-double and f32 as in fp64."""
+    rng = np.random.RandomState(21)
+    coo = random_coo(rng, 300, 280, 3000)
+    coo.values = rng.randint(-5, 6, coo.num_nonzeros).astype(np.float64)
+    path = str(tmp_path / "integer.mtx")
+    write_matrix(path, coo)
+    return path, coo
+
+
+@pytest.mark.parametrize("flags", [
+    ["--format=stream"],
+    ["--format=stream", "--separate-diagonal", "--repeat=2"],
+    ["--format=stream", "--precision=float32"],
+])
+def test_stream_stdout_identical_to_jax(flags, integer_matrix, capsys):
+    path, coo = integer_matrix
+    rc_j, out_j, err_j = run(jax_ellspmv.main, flags + [path], capsys)
+    rc_p, out_p, err_p = port(flags + ["-v", path], capsys)
+    assert rc_j == rc_p == 0, (err_j, err_p)
+    assert out_p == out_j
+    calls = 2 if "--repeat=2" in flags else 1
+    np.testing.assert_array_equal(
+        read_vector(io.BytesIO(out_p.encode())),
+        calls * coo_spmv_numpy(coo, np.ones(coo.num_columns)))
+    assert "stream_from_coo:" in err_p and " 1 sum levels" in err_p
+    assert err_p.count("gemv_stream:") == calls
+
+
+def test_auto_chooses_stream(tmp_path, capsys):
+    # one row of 300 entries over 20,000 rows: ELLPACK padding blows up
+    n = 20_000
+    rows = np.concatenate([np.arange(n), np.zeros(299, np.int64)])
+    cols = np.concatenate([np.arange(n), np.arange(1, 300)])
+    coo = CooMatrix(n, n, rows.astype(np.int32), cols.astype(np.int32),
+                    np.ones(len(rows)))
+    path = str(tmp_path / "blowup.mtx")
+    write_matrix(path, coo)
+    rc, out, err = port(["--format=auto", "-v", path], capsys)
+    assert rc == 0, err
+    assert "auto_from_coo [stream]:" in err and "ELL padding blowup" in err
+    assert err.count("gemv_stream:") == 1
+    np.testing.assert_array_equal(read_vector(io.BytesIO(out.encode())),
+                                  coo_spmv_numpy(coo, np.ones(n)))

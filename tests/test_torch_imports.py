@@ -45,7 +45,9 @@ from ellspmv_tpu_torch.formats.auto import auto_from_coo
 from ellspmv_tpu_torch.formats.ell import ell_from_coo
 from ellspmv_tpu_torch.models.generators import poisson2d
 from ellspmv_tpu_torch.models.solvers import cg
-from ellspmv_tpu_torch.ops import _build, dia_cuda, dot_cuda, ell_cuda
+from ellspmv_tpu_torch.formats.stream import stream_from_coo, stream_spmv
+from ellspmv_tpu_torch.ops import (_build, dia_cuda, dot_cuda, ell_cuda,
+                                   permute, stream_sum)
 ell = ell_from_coo(poisson2d(4))
 ell_cuda.ell_spmv(ell, torch.ones(16, dtype=torch.float64))
 ell_cuda.fma_probe(*ell_cuda.probe_inputs("cpu"))
@@ -53,6 +55,8 @@ dia = auto_from_coo(poisson2d(4), value_dtype="float64")
 dia_cuda.dia_spmv(dia, torch.ones(16, dtype=torch.float64))
 solved = cg(lambda v: ell_cuda.ell_spmv(ell, v),
             torch.ones(16, dtype=torch.float64))
+streamed = stream_spmv(stream_from_coo(poisson2d(4)),
+                       torch.ones(16, dtype=torch.float64))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
                                     "ellspmv_tpu"))
@@ -62,6 +66,8 @@ print(json.dumps({"modules": names, "bad": bad,
                   "dia_launches": dia_cuda.launches,
                   "dot_launches": dot_cuda.launches,
                   "cg_iterations": solved.iterations,
+                  "streamed": streamed.tolist(),
+                  "stream_launches": permute.launches + stream_sum.launches,
                   "chosen": dia._auto_choice,
                   "probe_launches": ell_cuda.probe_launches,
                   "probed": len(ell_cuda.FMA_PROBE_RESULTS)}))
@@ -96,7 +102,10 @@ def test_port_imports_no_jax(child):
                 "ellspmv_tpu_torch.models.reorder",
                 "ellspmv_tpu_torch.models.solvers",
                 "ellspmv_tpu_torch.ops.dot_cuda",
-                "ellspmv_tpu_torch.cli.cgsolve"}
+                "ellspmv_tpu_torch.cli.cgsolve",
+                "ellspmv_tpu_torch.formats.stream",
+                "ellspmv_tpu_torch.ops.stream_sum",
+                "ellspmv_tpu_torch.ops.permute"}
     assert expected <= set(child["modules"])
 
 
@@ -106,6 +115,10 @@ def test_import_without_nvcc_builds_nothing(child):
     assert child["chosen"] == "dia" and child["dia_launches"] == 0
     # a CG solve on the CPU takes the plain dot product
     assert child["cg_iterations"] > 0 and child["dot_launches"] == 0
+    # the stream format on the CPU takes the plain gather and sums
+    assert child["stream_launches"] == 0
+    assert child["streamed"] == [2.0, 1.0, 1.0, 2.0, 1.0, 0.0, 0.0, 1.0,
+                                 1.0, 0.0, 0.0, 1.0, 2.0, 1.0, 1.0, 2.0]
     # the fp64 path probes only a card; the CPU runs the plain versions
     assert child["probe_launches"] == 0 and child["probed"] == 0
 
@@ -182,7 +195,9 @@ def test_library_path_tracks_sources():
     assert path.name.startswith("libellspmv_tpu_torch_")
     assert [p.name for p in _build.sources()] == ["dia_spmv.cu", "dot.cu",
                                                   "ell_spmv.cu",
-                                                  "fma_probe.cu"]
+                                                  "fma_probe.cu",
+                                                  "permute.cu",
+                                                  "stream_sum.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
