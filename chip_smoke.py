@@ -13,8 +13,11 @@ Phases, each of which exits non-zero on failure:
 3. each kernel against its plain PyTorch version on the card, the error
    taken per row relative to sum |a*x| (+ |d*x| + |y|): fp64 1e-13, f32
    1e-5, bf16 1e-2. The ELL kernel for {fp64, f32, bf16} x {int32, int64}
-   x {diag, no diag} x {y, no y} on poisson2d(64) and
-   banded_random(20000, 9, 64); the DIA kernel for {fp64, f32, bf16} x
+   x {diag, no diag} x {y, no y} on poisson2d(64),
+   banded_random(20000, 9, 64) and banded_random(20000, 9, 10000) (narrow
+   columns; each also forced to its wide columns) and on a 3000 x 200,000
+   matrix whose blocks span more than 65,536 columns (wide columns); the
+   DIA kernel for {fp64, f32, bf16} x
    {y, no y} on poisson2d(64), a 700-row matrix with offsets beyond 128
    and a rectangular DIA matrix; the FMA probe on its (8, 128) inputs,
    exactly; the fp64 dot kernel at n in {1, 1023, 1024, 1025, 5000,
@@ -22,8 +25,8 @@ Phases, each of which exits non-zero on failure:
    2e-14 of its plain version, and bit-equal from launch to launch; the
    stream format's segmented-sum kernel (K3) and gather (K4/K5), bit-equal
    to their plain versions in fp64 and f32, on sum plans with one level,
-   several levels, folded buckets, column chunks and empty rows (every
-   level's sums and gather, and the final gather);
+   several levels, folded buckets, column chunks, empty rows and subtiles
+   of 300 runs (every level's sums and gather, and the final gather);
 4. the ``ellspmv`` program: exact stdout on examples/test.mtx, then on a
    fem_mesh_2d(512) file (262,144 rows) ``-v --sort-rows``,
    ``--format=dia``, ``--format=auto -v`` (which must choose DIA) and
@@ -56,16 +59,21 @@ Phases, each of which exits non-zero on failure:
 6. timing: each kernel beside its plain version at the main paths' shapes,
    in turns (plain, kernel, kernel, plain), and beside one library call as
    a yardstick (cuSPARSE, ``torch.sparse_csr_tensor(...) @ x``, for the
-   SpMV kernels; ``torch.dot`` for the dot kernel); the ELL and DIA
+   SpMV kernels; ``torch.dot`` for the dot kernel), with the first
+   versions' times of K1 and K3 beside the new ones; K1 also on narrow and
+   on wide columns in turns, in a CUDA graph, at fem_mesh_2d(1440) and on
+   the config3 products, and a line saying why the x window in shared
+   memory was not kept (with its times from PERF.md); the ELL and DIA
    kernels held against their plain versions on every row at full size;
    the dot kernel also per eager call, its launch path included; at
    config3's shapes K3 per level (yardstick: ``index_add_`` by a
    precomputed position -> output map), the gather per level and final
    (yardstick: ``torch.index_select`` on a zero-prepended payload), K1 at
-   the product shape, and the whole ``stream_spmv`` (yardstick: cuSPARSE on
+   the product shape (in a CUDA graph: eagerly its launch path outlasts
+   it), and the whole ``stream_spmv`` (yardstick: cuSPARSE on
    the same matrix), each held against its plain version on every output,
-   and one ``stream_spmv`` split by ``torch.profiler`` into its kernels
-   against the host clock.
+   one ``stream_spmv`` split by ``torch.profiler`` into its kernels
+   against the host clock, and K3 per level in f32 against fp64 in turns.
 
 The line before the last is a JSON summary of the kernels (time, plain
 time, bound, library time, launches on the main paths); the last line is
@@ -124,6 +132,27 @@ CG_X_TOLERANCE = 1e-10
 # operations bound of the kernels (their bytes bound is far larger).
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 REPEAT, WARMUP = 10, 2
+# The first versions' times of K1 and K3 on the same shapes (one thread per
+# row with 4-byte columns; one block per subtile; PERF.md, NVIDIA H100 80GB
+# HBM3 at 700 W), printed beside this run's; K1's by CUDA events around 20
+# eager calls, K3's and stream_spmv's in a CUDA graph.
+FIRST_MS = {("ell_spmv", "float64"): 0.1951, ("ell_spmv", "float32"): 0.1245,
+          ("products", "float64"): 0.0596, ("products", "float32"): 0.0437,
+          ("stream_sum", "float64"): 0.1027,
+          ("stream_sum", "float32"): 0.1608,
+          ("stream_sum level 1", "float64"): 0.0702,
+          ("stream_sum level 1", "float32"): 0.1088,
+          ("stream_sum level 2", "float64"): 0.0298,
+          ("stream_spmv", "float64"): 0.2700,
+          ("stream_spmv", "float32"): 0.2718}
+# The x window in shared memory (a K1 variant staged by a TMA bulk copy, the
+# counterpart of the TPU kernel's VMEM window), measured against the gather
+# in turns by this script before it was taken out (PERF.md; NVIDIA H100
+# 80GB HBM3 at 700 W): (window ms, gather ms).
+X_WINDOW_MS = {"fem_mesh_2d(1440) fp64": (0.2020, 0.1644),
+               "fem_mesh_2d(1440) f32": (0.1076, 0.0951),
+               "config3 products fp64": (0.0916, 0.0535),
+               "config3 products f32": (0.0755, 0.0338)}
 EXPECTED_TEST_MTX = ("%%MatrixMarket vector array real general\n"
                      "4\n3\n1\n3\n6\n")
 
@@ -216,7 +245,25 @@ def _agree(label, prec, rel):
               f"{rel:.3e}")
 
 
+def spread_coo(n, m, per_row, seed):
+    """n rows of `per_row` random columns in [0, m): with m far above
+    65,536 every block of 256 rows spans more, so its ELL keeps wide
+    columns."""
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    rng = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = rng.randint(0, m, len(rows))
+    return CooMatrix(n, m, rows.astype(np.int32), cols.astype(np.int32),
+                     rng.randn(len(rows)))
+
+
 def phase_kernel_vs_plain(device="cuda"):
+    """K1 against its plain version on matrices in the narrow layout
+    (poisson2d, banded_random with bands of 64 and of 10,000) and on one
+    whose blocks span more than 65,536 columns (wide columns); each narrow
+    matrix also forced to its wide columns."""
+    import dataclasses
+
     import torch
 
     from ellspmv_tpu_torch.config import value_dtype
@@ -225,9 +272,13 @@ def phase_kernel_vs_plain(device="cuda"):
     from ellspmv_tpu_torch.ops import ell_cuda
 
     matrices = [("poisson2d(64)", poisson2d(64)),
-                ("banded_random(20000,9,64)", banded_random(20000, 9, 64))]
+                ("banded_random(20000,9,64)", banded_random(20000, 9, 64)),
+                ("banded_random(20000,9,10000)",
+                 banded_random(20000, 9, 10000)),
+                ("spread(3000x200000,8)", spread_coo(3000, 200_000, 8, 6))]
     before = ell_cuda.launches
     cases = 0
+    layouts = set()
     for mname, coo in matrices:
         rng = np.random.RandomState(3)
         x64 = rng.rand(coo.num_columns)
@@ -239,24 +290,37 @@ def phase_kernel_vs_plain(device="cuda"):
                     ell = ell_from_coo(coo, separate_diagonal=sep_diag,
                                        value_dtype=prec, index_dtype=idx,
                                        device=device)
+                    runs = [("wide", ell_cuda.ell_spmv, ell)]
+                    if ell.lcol is not None:
+                        check(torch.equal(ell.columns(), ell.colidx),
+                              f"{mname}: the narrow columns do not decode "
+                              "to colidx")
+                        runs = [("narrow", ell_cuda.ell_spmv, ell),
+                                ("wide", ell_cuda.ell_spmv,
+                                 dataclasses.replace(ell, lbase=None,
+                                                     lcol=None))]
                     x = torch.from_numpy(x64).to(device).to(dt)
                     for with_y in (False, True):
                         y = (torch.from_numpy(y64).to(device).to(dt)
                              if with_y else None)
-                        got = ell_cuda.ell_spmv(ell, x, y)
-                        want = ell_cuda.ell_spmv_torch(ell, x, y)
-                        if device == "cuda":
-                            torch.cuda.synchronize()
-                        check(got.shape == want.shape
-                              and got.dtype == want.dtype,
-                              f"{mname} {prec}: shape/dtype mismatch")
-                        _agree(f"ell {mname:26s} {prec:8s} {idx} "
-                               f"diag={int(sep_diag)} y={int(with_y)}", prec,
-                               ell_row_errors(ell, x, y, got, want))
-                        cases += 1
+                        for layout, fn, mat in runs:
+                            got = fn(mat, x, y)
+                            want = ell_cuda.ell_spmv_torch(mat, x, y)
+                            _sync(device)
+                            check(got.shape == want.shape
+                                  and got.dtype == want.dtype,
+                                  f"{mname} {prec}: shape/dtype mismatch")
+                            _agree(f"ell {mname:29s} {layout:7s} {prec:8s} "
+                                   f"{idx} diag={int(sep_diag)} "
+                                   f"y={int(with_y)}", prec,
+                                   ell_row_errors(mat, x, y, got, want))
+                            layouts.add(layout)
+                            cases += 1
     launched = ell_cuda.launches - before
-    log(f"ELL kernel vs plain: {cases} cases agree; {launched} kernel "
-        "launches")
+    log(f"ELL kernel vs plain: {cases} cases agree (layouts "
+        f"{sorted(layouts)}); {launched} kernel launches")
+    check(layouts == {"narrow", "wide"},
+          f"the ELL cases missed a layout: {sorted(layouts)}")
     if device == "cuda":
         check(launched >= cases, "the ELL kernel's launch count did not move")
 
@@ -854,6 +918,35 @@ def _bound(nbytes: int, flops: int, prec: str, peak_bw: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _first(name, prec) -> str:
+    ms = FIRST_MS.get((name, prec))
+    return "" if ms is None else f" (first version: {ms:.4f} ms)"
+
+
+def k1_forms(label, ell, x):
+    """K1 on `ell` in the narrow layout and on its wide columns, in turns
+    (narrow, wide, wide, narrow), each in a CUDA graph: (narrow ms, wide
+    ms)."""
+    import dataclasses
+
+    import torch
+
+    from ellspmv_tpu_torch.ops import ell_cuda
+    wide = dataclasses.replace(ell, lbase=None, lcol=None)
+    fns = {"narrow": lambda: ell_cuda.ell_spmv(ell, x),
+           "wide": lambda: ell_cuda.ell_spmv(wide, x)}
+    ms = {k: [] for k in fns}
+    for k in ("narrow", "wide", "wide", "narrow"):
+        ms[k].append(graph_ms(fns[k]))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    check(torch.equal(fns["wide"](), fns["narrow"]()),
+          f"{label}: K1 on wide columns disagrees with the narrow layout")
+    log(f"  {label} K1 forms (CUDA graph): narrow columns "
+        f"{mean['narrow']:.4f} ms, wide {ell.colidx.element_size()}-byte "
+        f"columns {mean['wide']:.4f} ms (bit-equal)")
+    return mean["narrow"], mean["wide"]
+
+
 def _turns(label, kernel, plain, library=None, library_name="cuSPARSE",
            timer=None):
     """Kernel and plain version in turns (plain, kernel, kernel, plain), the
@@ -896,14 +989,16 @@ def phase_timing(coo, ell_runs, dia_runs, peak_bw):
             flops = 2 * (mat.ellsize if name == "ell_spmv" else mat.diasize)
             k_ms, p_ms, lib_ms = _turns(f"{name} {prec}", kernel, plain,
                                         library)
+            if name == "ell_spmv":
+                k1_forms(f"fem_mesh_2d {prec}", mat, x)
             got, want = kernel(), plain()
             err = float((got.double() - want.double()).abs().max())
             rel = errors(mat, x, None, got, want)
             lib_err = float((library() - want).double().abs().max())
             nbytes = estimate_actual_bytes(mat, with_y=False)
             bound_ms, bound_by = _bound(nbytes, flops, prec, peak_bw)
-            log(f"  {name} {prec}: kernel {k_ms:.4f} ms vs plain "
-                f"{p_ms:.4f} ms vs cuSPARSE {lib_ms:.4f} ms; bound "
+            log(f"  {name} {prec}: kernel {k_ms:.4f} ms{_first(name, prec)} "
+                f"vs plain {p_ms:.4f} ms vs cuSPARSE {lib_ms:.4f} ms; bound "
                 f"{bound_ms:.4f} ms ({nbytes:,} bytes, {bound_by}), "
                 f"{100 * bound_ms / k_ms:.1f}% of it; max |kernel - plain| "
                 f"{err:.3e}, {rel:.3e} of sum|a*x| over all "
@@ -1016,6 +1111,8 @@ def _stream_test_plans():
         "column chunks (3)": (chunked, 2500, 128,
                               [0, 9000, 17000, len(chunked)]),
         "empty rows": (pad(empty), 14000, 128, None),
+        # subtiles of 300 runs: K3 stages its run table 128 at a time
+        "cap 300 (runs over a table chunk)": (pad(hubs), 5000, 300, None),
     }
 
 
@@ -1023,7 +1120,8 @@ def phase_stream_vs_plain(device="cuda"):
     """K3 and the gather against their plain versions on the card, bit for
     bit, in fp64 and f32: every level's sums and gather, and the final
     gather, of sum plans with one level, several levels, folded buckets,
-    column chunks and empty rows."""
+    column chunks, empty rows and subtiles of more runs than K3 stages at
+    once."""
     import torch
 
     from ellspmv_tpu_torch.ops import permute, stream_sum
@@ -1259,6 +1357,7 @@ def phase_stream_timing(coo, runs, peak_bw):
     from ellspmv_tpu_torch.ops import ell_cuda, permute, stream_sum
     from ellspmv_tpu_torch.ops.dispatch import spmv
     out = {}
+    levels_in = {}     # level -> precision -> (table, gathered stream)
     for prec, (sm, x) in runs.items():
         sv = x.element_size()
         plan = sm.ddsum
@@ -1325,8 +1424,10 @@ def phase_stream_timing(coo, runs, peak_bw):
             live = int(table.run_count.sum())
             nbytes = sum_bytes(table, sv)
             bound_ms, bound_by = _bound(nbytes, live, prec, peak_bw)
+            levels_in.setdefault(i, {})[prec] = (table, s)
             log(f"  stream_sum level {i + 1} {prec}: kernel {k_ms:.4f} ms on "
-                f"the device ({eager_ms:.4f} ms per eager call) vs plain "
+                f"the device{_first(f'stream_sum level {i + 1}', prec)} "
+                f"({eager_ms:.4f} ms per eager call) vs plain "
                 f"{p_ms:.4f} vs index_add_ {lib_ms:.4f} ms; bound "
                 f"{bound_ms:.4f} ms ({nbytes:,} bytes, {bound_by}), "
                 f"{100 * bound_ms / k_ms:.1f}% of it; {U:,} subtiles, "
@@ -1342,22 +1443,30 @@ def phase_stream_timing(coo, runs, peak_bw):
                                                   peak_bw)
             out[name, prec] = t
             log(f"  {name} {prec}, all launches of one stream_spmv, on the "
-                f"device: kernel {t['ms']:.4f} ms vs plain "
+                f"device: kernel {t['ms']:.4f} ms{_first(name, prec)} vs plain "
                 f"{t['plain_ms']:.4f} vs yardstick {t['library_ms']:.4f} ms; "
                 f"bound {t['bound_ms']:.4f} ms")
-        # K1 at the product shape
-        k_ms, p_ms, _ = _turns(f"ell_spmv products {prec}",
+        # K1 at the product shape, on the device: eagerly, the wrapper's
+        # launch path takes about as long as the kernel
+        k_ms, p_ms, _ = _turns(f"ell_spmv products {prec} (CUDA graph, per "
+                               "call)",
                                lambda: ell_cuda.ell_spmv(sm.prod, x),
-                               lambda: ell_cuda.ell_spmv_torch(sm.prod, x))
+                               lambda: ell_cuda.ell_spmv_torch(sm.prod, x),
+                               timer=graph_ms)
+        eager_ms = time_ms(lambda: ell_cuda.ell_spmv(sm.prod, x))
         check(torch.equal(ell_cuda.ell_spmv(sm.prod, x),
                           ell_cuda.ell_spmv_torch(sm.prod, x)),
               f"ell_spmv products {prec}: kernel != plain")
         k1_bytes = estimate_actual_bytes(sm.prod, with_y=False)
         bound_ms, _ = _bound(k1_bytes, sm.prod_len, prec, peak_bw)
         log(f"  ell_spmv products {prec} ({sm.prod_len:,} rows of 1): kernel "
-            f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms; bound {bound_ms:.4f} ms "
-            f"({k1_bytes:,} bytes), {100 * bound_ms / k_ms:.1f}% of it; "
-            "bit-equal to plain")
+            f"{k_ms:.4f} ms on the device ({eager_ms:.4f} ms per eager call"
+            f"{_first('products', prec)}) vs plain {p_ms:.4f} ms; "
+            f"bound {bound_ms:.4f} ms ({k1_bytes:,} bytes, "
+            f"{'narrow' if sm.prod.lcol is not None else 'wide'} columns), "
+            f"{100 * bound_ms / k_ms:.1f}% of it; bit-equal to plain")
+        if sm.prod.lcol is not None:
+            k1_forms(f"config3 products {prec}", sm.prod, x)
         # the whole path beside cuSPARSE
         csr = cusparse_of(coo, x.dtype, x.device)
         whole = sm.num_nonzeros
@@ -1375,7 +1484,8 @@ def phase_stream_timing(coo, runs, peak_bw):
         nbytes = estimate_actual_bytes(sm, with_y=False)
         bound_ms, bound_by = _bound(nbytes, 2 * whole, prec, peak_bw)
         log(f"  stream_spmv {prec}: {k_ms:.4f} ms per eager call, "
-            f"{g_ms:.4f} ms on the device (CUDA graph) vs plain {p_ms:.4f} "
+            f"{g_ms:.4f} ms on the device (CUDA graph)"
+            f"{_first('stream_spmv', prec)} vs plain {p_ms:.4f} "
             f"ms vs cuSPARSE {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
             f"({nbytes:,} bytes, {bound_by}), {100 * bound_ms / k_ms:.1f}% "
             f"of the eager call; max rel |kernels - plain| {rel:.3e}; "
@@ -1394,7 +1504,32 @@ def phase_stream_timing(coo, runs, peak_bw):
         levels = len(plan.levels)
         stream_breakdown(prof, host_ms, 10, prec,
                          {"K1": 1, "gather": levels + 1, "K3": levels})
+    # K3 in f32 against fp64 on the same positions, in turns
+    for i, by_prec in sorted(levels_in.items()):
+        if len(by_prec) < 2:
+            continue
+        t = {"float64": [], "float32": []}
+        for prec in ("float64", "float32", "float32", "float64"):
+            table, s = by_prec[prec]
+            t[prec].append(graph_ms(
+                lambda: stream_sum.stream_sum(table, s)))
+        m64, m32 = (sum(t[p]) / 2 for p in ("float64", "float32"))
+        log(f"  stream_sum level {i + 1}, f32 against fp64 in turns: f32 "
+            f"{m32:.4f} ms, fp64 {m64:.4f} ms (f32/fp64 {m32 / m64:.3f})")
     return out
+
+
+def window_verdict():
+    """The line on the x window in shared memory (the TPU kernel's VMEM
+    window), which was to be kept only if it beat the gather on
+    fem_mesh_2d(1440) and was not slower on the config3 products."""
+    times = "; ".join(f"{label} {w:.4f} ms against {g:.4f}"
+                      for label, (w, g) in X_WINDOW_MS.items())
+    log(f"x window (TMA bulk copy into shared memory): not kept, slower "
+        f"than K1's gather everywhere it was measured (PERF.md: "
+        f"{times}): its slice of x comes from L2 on top of the matrix, "
+        "64 KB of shared memory leave three blocks per SM, and the gather "
+        "already hits in L1/L2")
 
 
 def stream_breakdown(prof, host_ms, calls, prec, per_call):
@@ -1485,6 +1620,7 @@ def main() -> int:
     log("phase 6: timing")
     timing = phase_timing(coo, ell_runs, dia_runs, peak_bw)
     timing.update(phase_stream_timing(pl_coo, stream_runs, peak_bw))
+    window_verdict()
     paths = [ell_counts, dia_counts, *cg_counts.values(),
              *stream_counts.values()]
     launches = {name: sum(c[name] for c in paths)

@@ -9,9 +9,11 @@ metric against the reference; this module gives the bytes the kernel itself
 must move, so that every report can also carry the physical share (at most
 100% of the card's peak when the count is right):
 
-- K1 (``csrc/ell_spmv.cu``): the slot-major values and column indices
-  (``rowsize * padded_rows`` each), x once, the split diagonal when there
-  is one, y when given, and the output;
+- K1 (``csrc/ell_spmv.cu``): the slot-major values (``rowsize *
+  padded_rows``) and the column indices at the width the kernel reads them
+  (``EllMatrix.index_bytes``: 2 bytes a slot and one base per block of 256
+  rows in the narrow layout, else 4 or 8), x once, the split diagonal when
+  there is one, y when given, and the output;
 - K2 (``csrc/dia_spmv.cu``): the diagonals' values (``num_diags *
   num_rows``), x once, y when given, and the output;
 - K6 (``csrc/dot.cu``): both vectors once (the 8-byte result is left out);
@@ -30,7 +32,7 @@ x is counted once: the kernels rely on L1/L2 for its re-reads.
 from __future__ import annotations
 
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
-from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.ell import LBLOCK, EllMatrix
 from ellspmv_tpu_torch.formats.stream import StreamMatrix
 from ellspmv_tpu_torch.ops.permute import BLOCK
 
@@ -44,23 +46,28 @@ def gather_bytes(src, value_bytes: int) -> int:
 
 def sum_bytes(table, value_bytes: int) -> int:
     """Bytes one level of segmented sums (``ops/stream_sum.stream_sum``)
-    moves: each live element read once, the outputs written, the table."""
+    moves: each live element read once, the outputs written, the table the
+    kernel reads (the runs' starts and counts, and per block of the grid
+    its place, first run and run count)."""
     live = int(table.run_count.sum())
     return (live * value_bytes + table.num_subtiles * 1024 * value_bytes
-            + 4 * (int(table.slot_ptr.shape[0])
-                   + 2 * int(table.run_start.shape[0])))
+            + 4 * (2 * int(table.run_start.shape[0])
+                   + 3 * int(table.order.shape[0])))
 
 
 def stream_bytes_estimate(nnz: int, num_rows: int, num_columns: int,
-                          value_bytes: int) -> int:
+                          value_bytes: int, narrow: bool) -> int:
     """The stream format's bytes per SpMV before any plan is built, for the
-    chooser: per padded product slot K1's value, index and product, the
-    level-1 gather's map, read and write, and K3's read; per row K3's
-    output, its concatenation, the final gather's map, read and write, and
-    y; x once. Deeper levels (a few percent of the products on power-law
-    matrices) and the alignment pad of the runs are left out."""
+    chooser: per padded product slot K1's value, index (2 bytes and a
+    4-byte base per 256 slots when `narrow`, the products' layout by
+    ``formats/stream.products_narrow``, else 4) and product, the level-1
+    gather's map, read and write, and K3's read; per row K3's output, its
+    concatenation, the final gather's map, read and write, and y; x once.
+    Deeper levels (a few percent of the products on power-law matrices)
+    and the alignment pad of the runs are left out."""
     slots = max(-(-nnz // BLOCK) * BLOCK, BLOCK)
-    return (slots * (5 * value_bytes + 8)
+    index = 2 * slots + 4 * (slots // LBLOCK) if narrow else 4 * slots
+    return (slots * (5 * value_bytes + 4) + index
             + num_rows * (4 + 6 * value_bytes)
             + num_columns * value_bytes)
 
@@ -82,8 +89,7 @@ def estimate_actual_bytes(matrix, with_y: bool = True) -> int:
         return total + (matrix.num_rows * sv if with_y else 0)
     if isinstance(matrix, EllMatrix):
         sv = matrix.values.element_size()
-        si = matrix.colidx.element_size()
-        total = matrix.rowsize * matrix.padded_rows * (sv + si)
+        total = matrix.rowsize * matrix.padded_rows * sv + matrix.index_bytes
         if matrix.diag is not None:
             total += matrix.num_rows * sv
     elif isinstance(matrix, DiaMatrix):

@@ -17,8 +17,12 @@ card's data-sheet peak (``config.hbm_peak_bytes_per_s``), from the row
 counts alone (no matrix is built to be priced):
 
 - DIA: ``(diasize + 2*rows) * value bytes``, as the JAX chooser prices it;
-- ELL: ``ellsize * (value + index bytes) + 2*rows * value bytes``;
-- stream: ``bench/traffic.stream_bytes_estimate``.
+- ELL: ``ellsize * value bytes + 2*rows * value bytes`` plus the column
+  indices at the width K1 will read them
+  (``formats/ell.index_bytes_estimate``: 2 bytes a slot where the narrow
+  layout holds, else the index type's);
+- stream: ``bench/traffic.stream_bytes_estimate``, its products' indices
+  by the same rule (``formats/stream.products_narrow``).
 
 The rate cancels in the comparisons; it only turns bytes into the estimated
 milliseconds shown in ``_auto_reason``. No TPU constant of the JAX chooser
@@ -59,8 +63,10 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
     Only the chosen matrix is built on `device`."""
     from ellspmv_tpu_torch.bench.traffic import stream_bytes_estimate
     from ellspmv_tpu_torch.formats.dia import dia_from_coo
-    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.formats.ell import (ell_from_coo,
+                                               index_bytes_estimate)
     from ellspmv_tpu_torch.formats.stream import (compute_dtype,
+                                                  products_narrow,
                                                   stream_from_coo)
     from ellspmv_tpu_torch.ops.dia_cuda import MAX_DIAGS
 
@@ -76,7 +82,8 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
                                else value_dtype)
     rate = config.hbm_peak_bytes_per_s(device)
     stream_bytes = stream_bytes_estimate(
-        nnz, n, m, torch.empty(0, dtype=compute_dtype(dtype)).element_size())
+        nnz, n, m, torch.empty(0, dtype=compute_dtype(dtype)).element_size(),
+        products_narrow(expanded.colidx, m))
 
     def pick_stream(reason):
         sm = stream_from_coo(coo, separate_diagonal=separate_diagonal,
@@ -93,7 +100,8 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
 
     vb = torch.empty(0, dtype=dtype).element_size()
     ib = np.dtype(config.select_index_dtype(n, m, nnz, index_dtype)).itemsize
-    ell_bytes = ellsize * (vb + ib) + 2 * n * vb
+    ell_bytes = (ellsize * vb + 2 * n * vb + index_bytes_estimate(
+        expanded.rowidx, expanded.colidx, n, m, rowsize, ib))
     why_ell = None
     if allow_dia and separate_diagonal is False and nnz >= 3 * n:
         dia = dia_from_coo(coo, value_dtype=dtype)    # on the host

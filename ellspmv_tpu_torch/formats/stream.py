@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ellspmv_tpu_torch import config
-from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.ell import (LBLOCK, EllMatrix,
+                                          ell_from_row_major, narrow_bases)
 from ellspmv_tpu_torch.ops import ell_cuda
 from ellspmv_tpu_torch.ops.permute import BLOCK
 from ellspmv_tpu_torch.ops.stream_sum import (StreamSumPlan,
@@ -94,6 +95,29 @@ def num_chunks(num_columns: int, nnz: int, span_max: int = 196608,
     return min(chunks, max(1, -(-nnz // (32 * BLOCK))))
 
 
+def product_columns(sorted_cols: np.ndarray) -> np.ndarray:
+    """The products' columns: the entries' columns in sorted order, padded
+    to a multiple of BLOCK (at least one BLOCK) with the last column, or 0
+    where there is none."""
+    nnz = len(sorted_cols)
+    pcol = np.full(max(_round_up(nnz, BLOCK), BLOCK),
+                   sorted_cols[-1] if nnz else 0, np.int32)
+    pcol[:nnz] = sorted_cols
+    return pcol
+
+
+def products_narrow(colidx: np.ndarray, num_columns: int) -> bool:
+    """Whether the products' ELL will take the narrow column layout: the
+    rule of ``formats/ell.narrow_bases`` over `product_columns`, in blocks
+    of `LBLOCK` products, sorted from the column counts alone in
+    O(nnz + columns), for the chooser's price."""
+    pcol = product_columns(np.repeat(
+        np.arange(num_columns, dtype=np.int64),
+        np.bincount(colidx, minlength=num_columns)))
+    block = np.arange(len(pcol)) // LBLOCK
+    return narrow_bases(block, pcol, int(block[-1]) + 1) is not None
+
+
 def stream_from_coo(coo, separate_diagonal: bool = False, value_dtype=None,
                     cap: int = 128, span_max: int = 196608,
                     n_chunks: int | None = None,
@@ -133,25 +157,19 @@ def stream_from_coo(coo, separate_diagonal: bool = False, value_dtype=None,
     plan = build_stream_sum(dest, n_rows=n, cap=cap,
                             chunk_starts=chunk_starts)
 
-    # the rowsize-1 ELL of the products; pad slots repeat the last column
-    # with value 0
-    pcol = np.full(prod_len, cols[-1] if nnz else 0, np.int32)
-    pcol[:nnz] = cols
+    # the rowsize-1 ELL of the products (narrow columns where they fit);
+    # pad slots repeat the last column with value 0; values rounded to the
+    # stored type, then held in the compute type
+    pcol = product_columns(cols)
     pval = np.zeros(prod_len, np.float64)
     pval[:nnz] = coo.values[order]
-
-    def put(a):
-        return torch.from_numpy(a).to(device)
-
-    def rounded(a):      # to the stored type, then the compute type
-        return put(a).to(dtype).to(compute)
-
-    prod = EllMatrix(put(pcol).view(1, prod_len),
-                     rounded(pval).view(1, prod_len), None, prod_len, m, nnz)
+    prod = ell_from_row_major(pcol[:, None], pval[:, None], None, prod_len,
+                              m, nnz, dtype, device)
+    prod.values = prod.values.to(compute)
     if diag is not None:
         d = np.zeros(n, np.float64)
         d[:len(diag)] = diag
-        diag = rounded(d)
+        diag = torch.from_numpy(d).to(device).to(dtype).to(compute)
     return StreamMatrix(prod=prod, ddsum=plan.to(device), diag=diag,
                         num_rows=n, num_columns=m, num_nonzeros=nnz_total,
                         prod_len=prod_len)

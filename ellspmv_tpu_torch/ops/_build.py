@@ -40,18 +40,20 @@ def find_nvcc() -> str | None:
     return default if os.access(default, os.X_OK) else None
 
 
-def sources() -> list[pathlib.Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def sources(csrc_dir: pathlib.Path | None = None) -> list[pathlib.Path]:
+    return sorted((csrc_dir or CSRC_DIR).glob("*.cu"))
 
 
-def library_path() -> pathlib.Path:
-    """Where the library for the current sources (and the headers they
-    include) lives once built."""
+def library_path(csrc_dir: pathlib.Path | None = None,
+                 build_dir: pathlib.Path | None = None) -> pathlib.Path:
+    """Where the library for the sources in `csrc_dir` (default
+    `CSRC_DIR`, and the headers they include) lives once built in
+    `build_dir` (default `BUILD_DIR`)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu*")):
+    for src in sorted((csrc_dir or CSRC_DIR).glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libellspmv_tpu_torch_{h.hexdigest()[:16]}.so"
+    return (build_dir or BUILD_DIR) / f"libellspmv_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
 def _fail(returncode: int, cmd: list[str], stderr: str,
@@ -62,12 +64,15 @@ def _fail(returncode: int, cmd: list[str], stderr: str,
                        f"{' '.join(cmd)}\n{stderr}")
 
 
-def build() -> pathlib.Path:
-    """Compile the sources unless the library for them exists; return its
-    path. The compiler's report (registers, spills) is kept beside it with
-    the suffix ``.log``. Raises RuntimeError, with the compiler's stderr,
-    when nvcc is missing or fails."""
-    out = library_path()
+def build(csrc_dir: pathlib.Path | None = None,
+          build_dir: pathlib.Path | None = None) -> pathlib.Path:
+    """Compile the sources in `csrc_dir` (default `CSRC_DIR`) into
+    `build_dir` (default `BUILD_DIR`) unless the library for them exists;
+    return its path. The compiler's report (registers, spills) is kept
+    beside it with the suffix ``.log``. Raises RuntimeError, with the
+    compiler's stderr, when nvcc is missing or fails."""
+    out = library_path(csrc_dir, build_dir)
+    build_dir = out.parent
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -76,11 +81,11 @@ def build() -> pathlib.Path:
             "nvcc not found (looked in $CUDA_HOME, $PATH and the default "
             "toolkit location): the CUDA kernels of "
             "ellspmv_tpu_torch are built from source at first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    objs = [build_dir / f"{tag}.{src.stem}.o" for src in sources(csrc_dir)]
     jobs = []
-    for src, obj in zip(sources(), objs):
+    for src, obj in zip(sources(csrc_dir), objs):
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.PIPE,
@@ -123,3 +128,20 @@ def entry(symbol: str, argtypes: tuple):
     lib.ell_spmv_error_string.argtypes = [ctypes.c_int]
     lib.ell_spmv_error_string.restype = ctypes.c_char_p
     return fn, lib.ell_spmv_error_string
+
+
+@functools.cache
+def check_constants(*pairs: tuple[str, int]) -> None:
+    """Raise unless each (getter, value) pair holds in the library: a
+    constant that the host code and a kernel share, which the kernel's
+    source reports through a C function of no arguments. Checked once per
+    process."""
+    lib = load()
+    for symbol, want in pairs:
+        fn = getattr(lib, symbol)
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        got = fn()
+        if got != want:
+            raise RuntimeError(f"the kernels' {symbol}() is {got}, the host "
+                               f"code's {want}: sources out of step")

@@ -15,7 +15,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.ell import LBLOCK, NARROW_SPAN, EllMatrix
 from ellspmv_tpu_torch.ops import _build
 
 #: Kernel launches made by `ell_spmv` in this process.
@@ -33,14 +33,15 @@ _INDEX_TAGS = {torch.int32: "i32", torch.int64: "i64"}
 
 def ell_spmv_torch(ell: EllMatrix, x: torch.Tensor,
                    y: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain PyTorch version: ``(values * x[colidx]).sum(0)`` plus the
+    """The plain PyTorch version: ``(values * x[columns]).sum(0)`` plus the
     diagonal plus y, accumulated in the values' type (float32 for bf16) and
-    returned in the values' type."""
+    returned in the values' type. The columns are the ones the kernel
+    reads: decoded from the narrow layout where the matrix has it."""
     n = ell.num_rows
     dtype = ell.values.dtype
     acc_dt = torch.float32 if dtype == torch.bfloat16 else dtype
     xa = x.to(acc_dt)
-    out = (ell.values[:, :n].to(acc_dt) * xa[ell.colidx[:, :n]]).sum(0)
+    out = (ell.values[:, :n].to(acc_dt) * xa[ell.columns()[:, :n]]).sum(0)
     if ell.diag is not None and ell.num_columns > 0:
         xi = torch.arange(n, device=x.device).clamp_(max=ell.num_columns - 1)
         out = out + ell.diag[:n].to(acc_dt) * xa[xi]
@@ -77,6 +78,10 @@ def _check(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
     named = [("colidx", ell.colidx, shape, ell.colidx.dtype),
              ("values", ell.values, shape, dtype),
              ("x", x, (ell.num_columns,), dtype)]
+    if ell.lcol is not None:
+        named += [("lbase", ell.lbase, (-(-ell.padded_rows // LBLOCK),),
+                   ell.colidx.dtype),
+                  ("lcol", ell.lcol, shape, torch.int16)]
     if ell.diag is not None:
         named.append(("diag", ell.diag, (ell.padded_rows,), dtype))
     if y is not None:
@@ -84,9 +89,15 @@ def _check(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
     check_tensors("ell_spmv", device, named)
     if ell.num_rows > ell.padded_rows:
         raise ValueError("ell_spmv: num_rows exceeds the padded row count")
+    # the kernel reads two rows' values and columns in one load
+    cols = ("colidx", ell.colidx) if ell.lcol is None else ("lcol", ell.lcol)
+    for name, t in (("values", ell.values), cols):
+        if device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"ell_spmv: {name} is not 16-byte aligned")
 
 
-_SPMV_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 4 \
+#: The argument types of every ELL entry point of ``csrc/ell_spmv.cu``.
+SPMV_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int64,) * 4 \
     + (ctypes.c_void_p,)
 _PROBE_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_void_p)
 
@@ -94,11 +105,24 @@ _PROBE_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_void_p)
 def ell_spmv(ell: EllMatrix, x: torch.Tensor,
              y: torch.Tensor | None = None) -> torch.Tensor:
     """y := A*x + y, a new vector of length ``ell.num_rows`` in the values'
-    type. x, y and the matrix share one device and one value type."""
+    type. x, y and the matrix share one device and one value type. On a
+    card the kernel reads the narrow columns where the matrix has them,
+    else `colidx`."""
     global launches
+    out = _launch(ell, x, y)
+    if out is None:
+        return ell_spmv_torch(ell, x, y)
+    launches += 1
+    return out
+
+
+def _launch(ell: EllMatrix, x: torch.Tensor,
+            y: torch.Tensor | None) -> torch.Tensor | None:
+    """Launch K1 on CUDA tensors, on the narrow columns where the matrix
+    has them, else on `colidx`; None for CPU tensors."""
     _check(ell, x, y)
     if x.device.type == "cpu":
-        return ell_spmv_torch(ell, x, y)
+        return None
     if x.device.type != "cuda":
         raise ValueError(f"ell_spmv: no kernel for tensors on {x.device}")
     # The fp64 path's first call on a card probes it, as the JAX fp64 path
@@ -109,21 +133,36 @@ def ell_spmv(ell: EllMatrix, x: torch.Tensor,
         raise RuntimeError(
             f"ell_spmv: the fused multiply-add on {x.device} does not round "
             "once (fma_probe disagrees with the exact residual)")
-    fn, error_string = _build.entry(
-        f"ell_spmv_{_VALUE_TAGS[ell.values.dtype]}_"
-        f"{_INDEX_TAGS[ell.colidx.dtype]}", _SPMV_ARGS)
-    out = torch.empty(ell.num_rows, dtype=ell.values.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(ell.colidx.data_ptr(), ell.values.data_ptr(),
-             None if ell.diag is None else ell.diag.data_ptr(),
-             x.data_ptr(), None if y is None else y.data_ptr(),
-             out.data_ptr(), ell.num_rows, ell.padded_rows, ell.rowsize,
-             ell.num_columns, stream)
+    _build.check_constants(("ell_spmv_rows_per_base", LBLOCK),
+                           ("ell_spmv_narrow_span", NARROW_SPAN))
+    symbol, args, out = kernel_call(ell, x, y)
+    fn, error_string = _build.entry(symbol, SPMV_ARGTYPES)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"ell_spmv kernel launch failed: "
                            f"{error_string(err).decode()} (error {err})")
-    launches += 1
     return out
+
+
+def kernel_call(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
+    """K1's call for checked CUDA tensors: the name of its entry point in
+    ``csrc/ell_spmv.cu`` (narrow or wide columns, value and index type),
+    the arguments (`SPMV_ARGTYPES`) and the new output they fill, on the
+    current stream. The wrapper launches it; scripts that time builds of
+    variant sources call the same entry point of their own library."""
+    narrow = ell.lcol is not None
+    symbol = (f"ell_spmv_{'narrow_' if narrow else ''}"
+              f"{_VALUE_TAGS[ell.values.dtype]}_"
+              f"{_INDEX_TAGS[ell.colidx.dtype]}")
+    out = torch.empty(ell.num_rows, dtype=ell.values.dtype, device=x.device)
+    args = ((ell.lcol if narrow else ell.colidx).data_ptr(),
+            ell.lbase.data_ptr() if narrow else None,
+            ell.values.data_ptr(),
+            None if ell.diag is None else ell.diag.data_ptr(),
+            x.data_ptr(), None if y is None else y.data_ptr(),
+            out.data_ptr(), ell.num_rows, ell.padded_rows, ell.rowsize,
+            ell.num_columns, torch.cuda.current_stream(x.device).cuda_stream)
+    return symbol, args, out
 
 
 def fma_probe_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

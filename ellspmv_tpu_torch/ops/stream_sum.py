@@ -18,7 +18,9 @@ drives differs:
 - the Pallas segmented-sum kernel (K3), launched per bucket, becomes one
   launch per level of the hand-written CUDA kernel ``csrc/stream_sum.cu``
   (`stream_sum`), over a table that flattens the level's buckets: one CSR
-  list of runs per 1024-output subtile;
+  list of runs per 1024-output subtile, and the kernel's grid of `Q`
+  blocks per subtile (each with the runs that reach its outputs),
+  launched longest first;
 - the final n-sized key sort becomes one gather by ``final_src``
   (``final_src[final_keys[p]] = p``).
 
@@ -48,8 +50,11 @@ _I32_SENTINEL = np.int32(np.iinfo(np.int32).max)   # a key with no position
 G = 8                # 128-row groups per tile (R = G*128 = 1024)
 R = G * 128
 
+Q = 8                # kernel blocks per subtile, of R // Q outputs each
+#: The argument types of the K3 entry points of ``csrc/stream_sum.cu``.
+SUM_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int64,) + (ctypes.c_void_p,)
+
 _VALUE_TAGS = {torch.float64: "f64", torch.float32: "f32"}
-_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) + (ctypes.c_void_p,)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -80,19 +85,33 @@ class SumTable:
     """The kernel's table of one level: subtile u's runs are
     ``slot_ptr[u] .. slot_ptr[u+1]`` of `run_start` (absolute stream
     positions) and `run_count`; its outputs are ``u*1024 .. u*1024+1023``.
-    Runs of count 0 are left out."""
+    Runs of count 0 are left out. The kernel's grid of Q blocks per
+    subtile: the block at launch position b sums outputs
+    ``(j % Q) * R/Q ..`` of subtile ``j // Q``, j =
+    ``order[b]``, over runs ``block_first[b] ..`` + ``block_runs[b]``, the
+    subtile's first runs through the last whose count reaches those
+    outputs; the positions go by live elements, descending (longest
+    first)."""
     slot_ptr: torch.Tensor     # (U+1,) int32
     run_start: torch.Tensor    # (runs,) int32
     run_count: torch.Tensor    # (runs,) int32
     max_slots: int             # most runs of any subtile
+    order: torch.Tensor        # (Q*U,) int32, a permutation of the blocks
+    block_first: torch.Tensor  # (Q*U,) int32, by launch position
+    block_runs: torch.Tensor   # (Q*U,) int32, by launch position
 
     @property
     def num_subtiles(self) -> int:
         return int(self.slot_ptr.shape[0]) - 1
 
     def to(self, device) -> "SumTable":
-        return SumTable(self.slot_ptr.to(device), self.run_start.to(device),
-                        self.run_count.to(device), self.max_slots)
+        return dataclasses.replace(
+            self, slot_ptr=self.slot_ptr.to(device),
+            run_start=self.run_start.to(device),
+            run_count=self.run_count.to(device),
+            order=self.order.to(device),
+            block_first=self.block_first.to(device),
+            block_runs=self.block_runs.to(device))
 
 
 @dataclasses.dataclass
@@ -507,10 +526,12 @@ def _build_chunked_level1(dest: np.ndarray, n_rows: int, cap: int,
     return _splice_chunk_levels(parts)
 
 
-def _sum_table(buckets: list) -> SumTable:
+def _sum_table(buckets: list, parts: int = Q) -> SumTable:
     """Flatten a level's buckets into the kernel's table: subtile j of step
     t of each bucket, in the output's order, with its runs' absolute
-    starts ``estart[t]*128 + o`` and counts, runs of count 0 left out."""
+    starts ``estart[t]*128 + o`` and counts, runs of count 0 left out; the
+    grid of `parts` blocks per subtile (`Q`, the kernel's; another count
+    only for a build of variant sources)."""
     starts, counts, per_subtile = [], [], [np.zeros(0, np.int64)]
     for b in buckets:
         oc = np.asarray(b.oc, np.int64).reshape(b.T, 2, b.sub, b.S)
@@ -523,15 +544,43 @@ def _sum_table(buckets: list) -> SumTable:
         per_subtile.append(live.sum(axis=1))
     per_subtile = np.concatenate(per_subtile)
     slot_ptr = np.concatenate([[0], np.cumsum(per_subtile)])
+    count = np.concatenate([np.zeros(0, np.int64)] + counts)
+    order, block_first, block_runs = _block_schedule(slot_ptr, count, parts)
     return SumTable(
         slot_ptr=torch.from_numpy(slot_ptr.astype(np.int32)),
         run_start=torch.from_numpy(
             np.concatenate([np.zeros(0, np.int64)] + starts)
             .astype(np.int32)),
-        run_count=torch.from_numpy(
-            np.concatenate([np.zeros(0, np.int64)] + counts)
-            .astype(np.int32)),
-        max_slots=int(per_subtile.max(initial=0)))
+        run_count=torch.from_numpy(count.astype(np.int32)),
+        max_slots=int(per_subtile.max(initial=0)),
+        order=torch.from_numpy(order.astype(np.int32)),
+        block_first=torch.from_numpy(block_first.astype(np.int32)),
+        block_runs=torch.from_numpy(block_runs.astype(np.int32)))
+
+
+def _block_schedule(slot_ptr: np.ndarray, count: np.ndarray,
+                    parts: int = Q):
+    """The kernel's grid over a level of U subtiles, `parts` blocks each,
+    block j = (subtile j // parts, outputs (j % parts) * R/parts ..):
+    `order`, the blocks by live
+    elements, descending (ties by index), for a longest-first launch, and
+    by launch position each block's first run and run count, the
+    subtile's first runs through the last whose count reaches the block's
+    first output (the others add nothing there)."""
+    U = len(slot_ptr) - 1
+    width = R // parts
+    subtile = np.repeat(np.arange(U, dtype=np.int64), np.diff(slot_ptr))
+    index = np.arange(len(count), dtype=np.int64) - slot_ptr[subtile]
+    runs = np.zeros(parts * U, np.int64)
+    live = np.zeros(parts * U, np.int64)
+    for q in range(parts):
+        reach = count > q * width
+        np.maximum.at(runs, subtile[reach] * parts + q, index[reach] + 1)
+        live[q::parts] = np.bincount(
+            subtile, weights=np.clip(count - q * width, 0, width),
+            minlength=U).astype(np.int64)
+    order = np.argsort(-live, kind="stable")
+    return order, np.asarray(slot_ptr)[order // parts], runs[order]
 
 
 def _attach_gathers(plan: StreamSumPlan) -> None:
@@ -614,6 +663,7 @@ def _check(table: SumTable, stream: torch.Tensor):
                         f"{stream.dtype}")
     if stream.dim() != 1:
         raise ValueError("stream_sum: the stream must be a vector")
+    blocks = (Q * table.num_subtiles,)
     check_tensors("stream_sum", stream.device, [
         ("slot_ptr", table.slot_ptr, tuple(table.slot_ptr.shape),
          torch.int32),
@@ -621,6 +671,9 @@ def _check(table: SumTable, stream: torch.Tensor):
          torch.int32),
         ("run_count", table.run_count, tuple(table.run_start.shape),
          torch.int32),
+        ("order", table.order, blocks, torch.int32),
+        ("block_first", table.block_first, blocks, torch.int32),
+        ("block_runs", table.block_runs, blocks, torch.int32),
         ("stream", stream, tuple(stream.shape), stream.dtype)])
 
 
@@ -636,20 +689,34 @@ def stream_sum(table: SumTable, stream: torch.Tensor) -> torch.Tensor:
     if stream.device.type != "cuda":
         raise ValueError(f"stream_sum: no kernel for tensors on "
                          f"{stream.device}")
-    U = table.num_subtiles
-    out = torch.empty(U * R, dtype=stream.dtype, device=stream.device)
-    if U == 0:
-        return out
-    fn, error_string = _build.entry(
-        f"stream_sum_{_VALUE_TAGS[stream.dtype]}", _ARGS)
-    err = fn(table.slot_ptr.data_ptr(), table.run_start.data_ptr(),
-             table.run_count.data_ptr(), stream.data_ptr(), out.data_ptr(),
-             U, torch.cuda.current_stream(stream.device).cuda_stream)
+    if table.num_subtiles == 0:
+        return torch.empty(0, dtype=stream.dtype, device=stream.device)
+    _build.check_constants(("stream_sum_rows", R), ("stream_sum_parts", Q))
+    symbol, args, out = kernel_call(table, stream)
+    fn, error_string = _build.entry(symbol, SUM_ARGTYPES)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"stream_sum kernel launch failed: "
                            f"{error_string(err).decode()} (error {err})")
     launches += 1
     return out
+
+
+def kernel_call(table: SumTable, stream: torch.Tensor):
+    """K3's call for a checked table and stream on a card: the name of its
+    entry point in ``csrc/stream_sum.cu``, the arguments (`SUM_ARGTYPES`,
+    one block per entry of ``table.order``) and the new output they fill,
+    on the current stream. The wrapper launches it; scripts that time
+    builds of variant sources call the same entry point of their own
+    library."""
+    out = torch.empty(table.num_subtiles * R, dtype=stream.dtype,
+                      device=stream.device)
+    args = (table.run_start.data_ptr(), table.run_count.data_ptr(),
+            table.order.data_ptr(), table.block_first.data_ptr(),
+            table.block_runs.data_ptr(), stream.data_ptr(), out.data_ptr(),
+            table.order.numel(),
+            torch.cuda.current_stream(stream.device).cuda_stream)
+    return f"stream_sum_{_VALUE_TAGS[stream.dtype]}", args, out
 
 
 def apply_stream_sum(plan: StreamSumPlan, v: torch.Tensor) -> torch.Tensor:

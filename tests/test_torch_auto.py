@@ -101,22 +101,49 @@ def test_padding_blowup_is_not_yet_ported():
     np.testing.assert_array_equal(got, want)
 
 
-def test_stream_when_it_moves_fewer_bytes(monkeypatch):
-    # rows of 16 entries and one of 63: ELLPACK pads 3.9x (accepted), and
-    # in f32 its 8 bytes per slot then cost more than the stream's bytes
-    monkeypatch.setenv("HBM_PEAK_GBPS", "3350")
+def _rows_of_16_and_one_of_63(num_columns):
     rng = np.random.RandomState(0)
     n = 20_000
     rows = np.concatenate([np.repeat(np.arange(n), 16), np.zeros(47)])
-    cols = rng.randint(0, n, len(rows))
-    coo = CooMatrix(n, n, rows.astype(np.int32), cols.astype(np.int32),
-                    rng.randn(len(rows)))
+    cols = rng.randint(0, num_columns, len(rows))
+    return (n, num_columns, rows.astype(np.int32), cols.astype(np.int32),
+            rng.randn(len(rows)))
+
+
+def test_stream_when_it_moves_fewer_bytes(monkeypatch):
+    # rows of 16 entries and one of 63: ELLPACK pads 3.9x (accepted). Below
+    # that gate narrow ELL columns (2 bytes a slot) always move fewer bytes
+    # than the stream format, so the columns spread over 70,000: every
+    # block of 256 rows then spans more than 65,536 of them, the ELL keeps
+    # 4-byte columns, and in f32 its 8 bytes per slot cost more than the
+    # stream's bytes. The JAX chooser takes ELL here by its TPU prices (a
+    # known divergence, ROADMAP F8)
+    monkeypatch.setenv("HBM_PEAK_GBPS", "3350")
+    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
+    coo = CooMatrix(*_rows_of_16_and_one_of_63(70_000))
+    assert not port_ell.narrow_columns_fit(coo.rowidx, coo.colidx, 20_000,
+                                           70_000, 63)
     sm = auto_from_coo(coo, value_dtype="float32")
     assert isinstance(sm, StreamMatrix), sm._auto_reason
     assert sm._auto_reason.startswith("stream (est ")
     assert " beats ELL (est " in sm._auto_reason
     ell = auto_from_coo(coo, value_dtype="float64")
     assert isinstance(ell, EllMatrix), ell._auto_reason
+    assert ell.lcol is None
+    want = jax_auto_from_coo(coo, value_dtype="float32")
+    assert want._auto_choice == "ell"
+
+
+def test_narrow_ell_beats_the_stream_as_in_jax(monkeypatch):
+    # the same rows with their columns in 20,000: the narrow ELL's 6 bytes
+    # a slot in f32 beat the stream format, and both choosers take ELL
+    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
+    coo = CooMatrix(*_rows_of_16_and_one_of_63(20_000))
+    got = auto_from_coo(coo, value_dtype="float32")
+    assert isinstance(got, EllMatrix) and got.lcol is not None
+    assert "; ELL beats the stream format (" in got._auto_reason
+    assert jax_auto_from_coo(coo, value_dtype="float32")._auto_choice == \
+        "ell"
 
 
 def test_bf16_may_choose_dia():

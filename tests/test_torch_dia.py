@@ -259,9 +259,13 @@ def test_actual_bytes_count_what_the_kernels_move():
     dia = dia_from_coo(coo)
     assert estimate_actual_bytes(dia, with_y=False) == (6 * n + m + n) * 8
     assert estimate_actual_bytes(dia) == (6 * n + m + 2 * n) * 8
+    # K1 in the narrow layout: 4-byte values, 2-byte columns and a 4-byte
+    # base per 256 rows
     ell = ell_from_coo(coo, separate_diagonal=True, value_dtype="float32")
+    assert ell.lcol is not None
     slots = ell.rowsize * ell.padded_rows
-    assert estimate_actual_bytes(ell) == slots * 8 + (n + m + 2 * n) * 4
+    assert estimate_actual_bytes(ell) == (
+        slots * 6 + 4 * -(-ell.padded_rows // 256) + (n + m + 2 * n) * 4)
 
 
 def test_hbm_peaks(monkeypatch):

@@ -9,6 +9,8 @@ composed from; the JAX knobs are set in the environment, the port's are
 arguments. The kernels themselves run only on a card (the ``cuda`` tests
 below, and ``chip_smoke.py``)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -25,8 +27,8 @@ from ellspmv_tpu_torch.bench.harness import SpmvMetrics, benchmark_spmv
 from ellspmv_tpu_torch.bench.traffic import (estimate_actual_bytes,
                                              stream_bytes_estimate)
 from ellspmv_tpu_torch.formats.coo import CooMatrix
-from ellspmv_tpu_torch.formats.stream import (StreamMatrix, stream_from_coo,
-                                              stream_spmv)
+from ellspmv_tpu_torch.formats.stream import (StreamMatrix, products_narrow,
+                                              stream_from_coo, stream_spmv)
 from ellspmv_tpu_torch.models.generators import power_law
 from ellspmv_tpu_torch.ops import permute, stream_sum
 from ellspmv_tpu_torch.ops.dispatch import spmv
@@ -135,7 +137,15 @@ def _dest_chunked(C):
     return make
 
 
+def _dest_cap300():
+    # rows of 1500 and 400 entries under cap 300: subtiles of 300 runs, more
+    # than K3 stages in shared memory at once
+    dest, n, _, starts = _dest_long_rows()
+    return dest, n, 300, starts
+
+
 PLAN_CASES = {
+    "cap300": _dest_cap300,
     "random": _dest_random,
     "long_rows": _dest_long_rows,
     "deep": _dest_deep,
@@ -270,6 +280,111 @@ def test_plain_sums_equal_jax_kernel(case):
                                       np.asarray(want).reshape(-1))
 
 
+def _per_subtile_sums(table, stream):
+    """The first kernel's schedule, in NumPy: per 1024-output subtile, all
+    its runs in order into one accumulator per output."""
+    ptr, start, count = (t.numpy().astype(np.int64) for t in
+                         (table.slot_ptr, table.run_start, table.run_count))
+    out = np.zeros(table.num_subtiles * stream_sum.R, stream.dtype)
+    r = np.arange(stream_sum.R)
+    for u in range(table.num_subtiles):
+        acc = np.zeros(stream_sum.R, stream.dtype)
+        for k in range(ptr[u], ptr[u + 1]):
+            acc = acc + np.where(r < count[k], stream[np.minimum(
+                start[k] + r, len(stream) - 1)], 0).astype(stream.dtype)
+        out[u * stream_sum.R:(u + 1) * stream_sum.R] = acc
+    return out
+
+
+def _per_block_sums(table, stream):
+    """The kernel's grid, in NumPy: each block at its launch position sums
+    its R/Q outputs over its runs in order."""
+    start, count = (t.numpy().astype(np.int64) for t in
+                    (table.run_start, table.run_count))
+    width = stream_sum.R // stream_sum.Q
+    out = np.full(table.num_subtiles * stream_sum.R, np.nan, stream.dtype)
+    for j, first, runs in zip(table.order.numpy(), table.block_first.numpy(),
+                              table.block_runs.numpy()):
+        u, q = divmod(int(j), stream_sum.Q)
+        r = q * width + np.arange(width)
+        acc = np.zeros(width, stream.dtype)
+        for k in range(first, first + runs):
+            acc = acc + np.where(r < count[k], stream[np.minimum(
+                start[k] + r, len(stream) - 1)], 0).astype(stream.dtype)
+        out[u * stream_sum.R + r] = acc
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_block_split_covers_every_output_once(case):
+    """Every level's grid: the blocks are a permutation of the subtiles'
+    Q parts, each reads a prefix of its subtile's runs that holds every
+    run reaching its outputs, and they launch by live elements,
+    descending."""
+    dest, n, cap, starts = PLAN_CASES[case]()
+    plan = stream_sum.build_stream_sum(dest, n, cap=cap, chunk_starts=starts)
+    for lv in plan.levels:
+        _check_grid(lv.table, stream_sum.Q)
+
+
+@pytest.mark.parametrize("parts", [1, 4, 16])
+@pytest.mark.parametrize("case", ["cap300", "chunked4", "long_rows"])
+def test_block_split_holds_for_other_part_counts(case, parts):
+    """The table's grid at another count of blocks per subtile (as a build
+    of variant sources takes it) keeps the same guarantees."""
+    dest, n, cap, starts = PLAN_CASES[case]()
+    plan = stream_sum.build_stream_sum(dest, n, cap=cap, chunk_starts=starts)
+    for lv in plan.levels:
+        _check_grid(stream_sum._sum_table(lv.buckets, parts), parts)
+
+
+def _check_grid(t, parts):
+    """The blocks of table `t`, `parts` per subtile, are a permutation of
+    the subtiles' parts, each reads the prefix of its subtile's runs that
+    ends with the last run reaching its outputs, and they launch by live
+    elements, descending."""
+    width = stream_sum.R // parts
+    U = t.num_subtiles
+    order = t.order.numpy()
+    assert sorted(order) == list(range(parts * U))
+    ptr = t.slot_ptr.numpy()
+    count = t.run_count.numpy()
+    covered = np.zeros(U * stream_sum.R, int)
+    live = []
+    for j, first, runs in zip(order, t.block_first.numpy(),
+                              t.block_runs.numpy()):
+        u, q = divmod(int(j), parts)
+        covered[u * stream_sum.R + q * width:
+                u * stream_sum.R + (q + 1) * width] += 1
+        assert first == ptr[u] and first + runs <= ptr[u + 1]
+        reach = np.flatnonzero(count[ptr[u]:ptr[u + 1]] > q * width)
+        assert runs == (reach[-1] + 1 if len(reach) else 0)
+        live.append(int(np.clip(count[first:first + runs] - q * width,
+                                0, width).sum()))
+    assert (covered == 1).all()
+    assert live == sorted(live, reverse=True)
+    assert sum(live) == int(count.sum())
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plain_sums_equal_both_schedules(case):
+    """`stream_sum_torch` on the new table is bit for bit the sums of the
+    first kernel's schedule (per subtile) and of the new one (per block,
+    longest first), in fp64 and f32."""
+    dest, n, cap, starts = PLAN_CASES[case]()
+    plan = stream_sum.build_stream_sum(dest, n, cap=cap, chunk_starts=starts)
+    rng = np.random.RandomState(24)
+    for lv in plan.levels:
+        for dtype in (np.float64, np.float32):
+            stream = rng.randn(lv.in_rows * 128).astype(dtype)
+            got = stream_sum.stream_sum_torch(lv.table,
+                                              torch.from_numpy(stream))
+            np.testing.assert_array_equal(
+                got.numpy(), _per_subtile_sums(lv.table, stream))
+            np.testing.assert_array_equal(
+                got.numpy(), _per_block_sums(lv.table, stream))
+
+
 @pytest.mark.parametrize("case", ["random", "long_rows", "chunked3"])
 def test_apply_stream_sum_exact_small_ints(case):
     dest, n, cap, starts = PLAN_CASES[case]()
@@ -391,8 +506,7 @@ def test_stream_sum_wrapper_refuses(case):
     if case == "dtype":
         stream, err = stream.to(torch.bfloat16), TypeError
     elif case == "table_dtype":
-        table = stream_sum.SumTable(table.slot_ptr.long(), table.run_start,
-                                    table.run_count, table.max_slots)
+        table = dataclasses.replace(table, slot_ptr=table.slot_ptr.long())
         err = TypeError
     elif case == "mixed_device":
         stream = stream.to("meta")
@@ -573,9 +687,15 @@ def test_traffic_counts_the_plan():
     # more than K1's slots alone; the chooser's estimate leaves out the
     # deeper levels and the pads, so it lies a little below the count
     assert exact > sm.prod_len * 20
+    narrow = products_narrow(coo.colidx, coo.num_columns)
+    assert narrow and sm.prod.lcol is not None
     est = stream_bytes_estimate(coo.num_nonzeros, coo.num_rows,
-                                coo.num_columns, 8)
+                                coo.num_columns, 8, narrow)
     assert 0.9 * exact <= est <= exact, (est, exact)
+    # K1 reads the products' columns at 2 bytes and a base per 256
+    assert estimate_actual_bytes(sm.prod, with_y=False) == (
+        sm.prod_len * (8 + 2 + 8) + 4 * -(-sm.prod_len // 256)
+        + coo.num_columns * 8)
     live = sum(int(lv.table.run_count.sum()) for lv in plan.levels)
     assert live == sum(int((lv.src >= 0).sum()) for lv in plan.levels)
     assert isinstance(sm, StreamMatrix) and sm.worksize == coo.num_nonzeros
@@ -596,6 +716,23 @@ def test_stream_sum_kernel_matches_plain_on_card(dtype):
     torch.cuda.synchronize()
     assert stream_sum.launches == before + 1
     assert torch.equal(got, stream_sum.stream_sum_torch(lv.table, stream))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_stream_sum_kernel_on_every_plan_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    dest, n, cap, starts = PLAN_CASES[case]()
+    plan = stream_sum.build_stream_sum(dest, n, cap=cap,
+                                       chunk_starts=starts).to("cuda")
+    for lv in plan.levels:
+        stream = torch.from_numpy(np.random.RandomState(25).randn(
+            lv.in_rows * 128)).cuda()
+        got = stream_sum.stream_sum(lv.table, stream)
+        torch.cuda.synchronize()
+        assert torch.equal(got, stream_sum.stream_sum_torch(lv.table,
+                                                            stream))
 
 
 @pytest.mark.cuda
