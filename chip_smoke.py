@@ -23,10 +23,13 @@ Phases, each of which exits non-zero on failure:
    exactly; the fp64 dot kernel at n in {1, 1023, 1024, 1025, 5000,
    262,144, 2,073,600}, within 1e-14 of sum |x*y| of `math.fsum` and
    2e-14 of its plain version, and bit-equal from launch to launch; the
-   stream format's segmented-sum kernel (K3) and gather (K4/K5), bit-equal
-   to their plain versions in fp64 and f32, on sum plans with one level,
-   several levels, folded buckets, column chunks, empty rows and subtiles
-   of 300 runs (every level's sums and gather, and the final gather);
+   stream format's segmented-sum kernel (K3, both its entry points: the
+   stream read in place, and read through a map) and gather (K4/K5),
+   bit-equal to their plain versions in fp64 and f32, on sum plans with one
+   level, several levels, folded buckets, column chunks, empty rows and
+   subtiles of 300 runs (every level's sums in place and through its map,
+   the gather by level 1's map and by the final one, and the whole plan
+   against its plain version);
 4. the ``ellspmv`` program: exact stdout on examples/test.mtx, then on a
    fem_mesh_2d(512) file (262,144 rows) ``-v --sort-rows``,
    ``--format=dia``, ``--format=auto -v`` (which must choose DIA) and
@@ -55,7 +58,9 @@ Phases, each of which exits non-zero on failure:
    power_law(1,000,000, 8) (7,049,701 nonzeros, the webbase-1M class):
    ``stream_from_coo``'s host seconds and plan, ``benchmark_spmv`` per_iter
    and chained in fp64 and f32, every row held against the oracle, and the
-   launch counts of K1, the gather, K3 and the probe;
+   launch counts of K1, K3 (in place on level 1, through its map on each
+   deeper level), the gather and the probe: one SpMV launches K1, K3 once
+   per level and one gather;
 6. timing: each kernel beside its plain version at the main paths' shapes,
    in turns (plain, kernel, kernel, plain), and beside one library call as
    a yardstick (cuSPARSE, ``torch.sparse_csr_tensor(...) @ x``, for the
@@ -66,14 +71,18 @@ Phases, each of which exits non-zero on failure:
    memory was not kept (with its times from PERF.md); the ELL and DIA
    kernels held against their plain versions on every row at full size;
    the dot kernel also per eager call, its launch path included; at
-   config3's shapes K3 per level (yardstick: ``index_add_`` by a
-   precomputed position -> output map), the gather per level and final
-   (yardstick: ``torch.index_select`` on a zero-prepended payload), K1 at
-   the product shape (in a CUDA graph: eagerly its launch path outlasts
-   it), and the whole ``stream_spmv`` (yardstick: cuSPARSE on
-   the same matrix), each held against its plain version on every output,
-   one ``stream_spmv`` split by ``torch.profiler`` into its kernels
-   against the host clock, and K3 per level in f32 against fp64 in turns.
+   config3's shapes K3 per level, in place on level 1 and through its map
+   on the deeper ones (yardstick: ``index_add_`` by a precomputed
+   input -> output map), the final gather (yardstick:
+   ``torch.index_select`` on a zero-prepended payload), K1 at the product
+   shape (in a CUDA graph: eagerly its launch path outlasts it), and the
+   whole ``stream_spmv`` eagerly and in a CUDA graph (yardstick: cuSPARSE
+   on the same matrix), each held against its plain version on every
+   output, with the times of the design that laid the products out in
+   column order and gathered every level (PERF.md) beside them; the
+   launches of one ``stream_spmv``; one ``stream_spmv`` split by
+   ``torch.profiler`` into its kernels against the host clock; and K3 per
+   level in f32 against fp64 in turns.
 
 The line before the last is a JSON summary of the kernels (time, plain
 time, bound, library time, launches on the main paths); the last line is
@@ -112,6 +121,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
             "ellspmv_tpu/ops/dd_reduce.py:30"),
     "stream_sum": ("ellspmv_tpu_torch/csrc/stream_sum.cu",
                    "ellspmv_tpu/ops/stream_sum.py:65"),
+    # K3 reading through a map: the sums of K3 and the deliveries of K4
+    "stream_sum_src": ("ellspmv_tpu_torch/csrc/stream_sum.cu",
+                       "ellspmv_tpu/ops/stream_sum.py:65"),
     "permute": ("ellspmv_tpu_torch/csrc/permute.cu",
                 "ellspmv_tpu/ops/permute.py:531"),
 }
@@ -132,19 +144,25 @@ CG_X_TOLERANCE = 1e-10
 # operations bound of the kernels (their bytes bound is far larger).
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 REPEAT, WARMUP = 10, 2
-# The first versions' times of K1 and K3 on the same shapes (one thread per
-# row with 4-byte columns; one block per subtile; PERF.md, NVIDIA H100 80GB
-# HBM3 at 700 W), printed beside this run's; K1's by CUDA events around 20
-# eager calls, K3's and stream_spmv's in a CUDA graph.
+# The first versions' times of K1 and the stream path on the same shapes
+# (one thread per row with 4-byte columns; K3 one block per subtile; PERF.md,
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's; K1's by CUDA
+# events around 20 eager calls, stream_spmv's in a CUDA graph.
 FIRST_MS = {("ell_spmv", "float64"): 0.1951, ("ell_spmv", "float32"): 0.1245,
           ("products", "float64"): 0.0596, ("products", "float32"): 0.0437,
-          ("stream_sum", "float64"): 0.1027,
-          ("stream_sum", "float32"): 0.1608,
-          ("stream_sum level 1", "float64"): 0.0702,
-          ("stream_sum level 1", "float32"): 0.1088,
-          ("stream_sum level 2", "float64"): 0.0298,
           ("stream_spmv", "float64"): 0.2700,
           ("stream_spmv", "float32"): 0.2718}
+# The stream path's times when its products lay in column order and a gather
+# delivered every level (four gathers and a concatenation per SpMV; PERF.md,
+# NVIDIA H100 80GB HBM3 at 700 W), per SpMV on the device (CUDA graph) but
+# for the eager call; printed beside this run's.
+COLUMN_ORDER_MS = {("stream_spmv", "float64"): 0.1911,
+                   ("stream_spmv", "float32"): 0.1382,
+                   ("stream_spmv eager", "float64"): 0.3922,
+                   ("products", "float64"): 0.0492,
+                   ("products", "float32"): 0.0302,
+                   ("K3", "float64"): 0.0315, ("K3", "float32"): 0.0241,
+                   ("K4", "float64"): 0.1015, ("K4", "float32"): 0.0765}
 # The x window in shared memory (a K1 variant staged by a TMA bulk copy, the
 # counterpart of the TPU kernel's VMEM window), measured against the gather
 # in turns by this script before it was taken out (PERF.md; NVIDIA H100
@@ -604,6 +622,7 @@ def _reset_counts():
     ell_cuda.FMA_PROBE_RESULTS.clear()
     ell_cuda.launches = ell_cuda.probe_launches = dia_cuda.launches = 0
     dot_cuda.launches = permute.launches = stream_sum.launches = 0
+    stream_sum.src_launches = 0
 
 
 def _counts():
@@ -611,7 +630,8 @@ def _counts():
                                        stream_sum)
     return {"ell_spmv": ell_cuda.launches, "dia_spmv": dia_cuda.launches,
             "fma_probe": ell_cuda.probe_launches, "dot": dot_cuda.launches,
-            "permute": permute.launches, "stream_sum": stream_sum.launches}
+            "permute": permute.launches, "stream_sum": stream_sum.launches,
+            "stream_sum_src": stream_sum.src_launches}
 
 
 def phase_ell_path(coo, x64, sample, device="cuda"):
@@ -1118,55 +1138,88 @@ def _stream_test_plans():
 
 def phase_stream_vs_plain(device="cuda"):
     """K3 and the gather against their plain versions on the card, bit for
-    bit, in fp64 and f32: every level's sums and gather, and the final
-    gather, of sum plans with one level, several levels, folded buckets,
-    column chunks, empty rows and subtiles of more runs than K3 stages at
-    once."""
+    bit, in fp64 and f32, on sum plans with one level, several levels,
+    folded buckets, column chunks, empty rows and subtiles of more runs than
+    K3 stages at once: every level's sums with the stream read in place and
+    read through a map (level 1's over its entries, a deeper level's into
+    the output buffer), K3 through a map also against the gather kernel and
+    K3 in place, the gather by level 1's map and by the final one, and the
+    whole plan (`apply_stream_sum`) against its plain version."""
     import torch
 
     from ellspmv_tpu_torch.ops import permute, stream_sum
-    before = (permute.launches, stream_sum.launches)
-    sums = gathers = 0
+    before = (permute.launches, stream_sum.launches, stream_sum.src_launches)
+    sums = src_sums = gathers = plans = deeper = 0
     for name, (dest, n, cap, starts) in _stream_test_plans().items():
         plan = stream_sum.build_stream_sum(dest, n, cap=cap,
                                            chunk_starts=starts).to(device)
         rng = np.random.RandomState(23)
+        first = torch.from_numpy(stream_sum.position_map(
+            plan.levels[0])).to(device)
+
+        def gather(src, v, label):
+            nonlocal gathers
+            got = permute.apply_permute(src, v)
+            want = permute.apply_permute_torch(src, v)
+            _sync(device)
+            check(torch.equal(got, want), f"gather {name} {label} "
+                                          f"{v.dtype}: kernel != plain")
+            gathers += 1
+            return got
+
         for dtype in (torch.float64, torch.float32):
-            maps = [(f"level {i + 1}", lv.src, lv.in_len)
-                    for i, lv in enumerate(plan.levels)]
-            maps.append(("final", plan.final_src,
-                         sum(lv.out_len - lv.multi_len
-                             for lv in plan.levels)))
-            for label, src, n_in in maps:
-                v = torch.from_numpy(rng.randn(n_in)).to(device, dtype)
-                got = permute.apply_permute(src, v)
-                want = permute.apply_permute_torch(src, v)
-                _sync(device)
-                check(torch.equal(got, want), f"gather {name} {label} "
-                                              f"{dtype}: kernel != plain")
-                gathers += 1
+            buffer = torch.from_numpy(rng.randn(plan.buffer_len)).to(
+                device, dtype)
+            entries = torch.from_numpy(rng.randn(plan.levels[0].in_len)).to(
+                device, dtype)
+            gather(plan.final_src, buffer, "final")
             for i, lv in enumerate(plan.levels):
+                label = f"stream_sum {name} level {i + 1} {dtype}"
                 s = torch.from_numpy(rng.randn(lv.in_rows * 128)).to(
                     device, dtype)
                 got = stream_sum.stream_sum(lv.table, s)
                 want = stream_sum.stream_sum_torch(lv.table, s)
                 _sync(device)
                 check(got.shape == (lv.out_len,) and torch.equal(got, want),
-                      f"stream_sum {name} level {i + 1} {dtype}: kernel != "
-                      f"plain")
+                      f"{label}: kernel != plain")
                 sums += 1
+                src, v = ((first, entries) if lv.src is None
+                          else (lv.src, buffer))
+                got = stream_sum.stream_sum(lv.table, v, src)
+                want = stream_sum.stream_sum_torch(lv.table, v, src)
+                gathered = stream_sum.stream_sum(
+                    lv.table, gather(src, v, f"level {i + 1}"))
+                sums += 1
+                _sync(device)
+                check(got.shape == (lv.out_len,) and torch.equal(got, want)
+                      and torch.equal(got, gathered),
+                      f"{label} through its map: kernel != plain")
+                src_sums += 1
+            v = permute.apply_permute_torch(first, entries)
+            got = stream_sum.apply_stream_sum(plan, v)
+            want = apply_stream_sum_plain(plan, v)
+            _sync(device)
+            check(torch.equal(got, want), f"apply_stream_sum {name} {dtype}:"
+                                          " kernels != plain")
+            plans += 1
+            deeper += len(plan.levels) - 1
         log(f"  stream plan {name:31s}: {len(plan.levels)} levels, "
             f"buckets {[len(lv.buckets) for lv in plan.levels]}, folded "
             f"{sum(b.sub > 1 for lv in plan.levels for b in lv.buckets)}, "
             f"chunks {max(len(plan.chunk_bases) - 1, 0)}, subtiles "
-            f"{[lv.table.num_subtiles for lv in plan.levels]}: gathers and "
-            "sums bit-equal to plain (fp64, f32)")
-    grew = (permute.launches - before[0], stream_sum.launches - before[1])
-    log(f"stream kernels vs plain: {gathers} gathers and {sums} level sums "
-        f"bit-equal; {grew[0]} gather and {grew[1]} stream_sum launches")
+            f"{[lv.table.num_subtiles for lv in plan.levels]}, buffer "
+            f"{plan.buffer_len:,}: gathers, sums in place and through maps, "
+            "and the whole plan bit-equal to plain (fp64, f32)")
+    grew = (permute.launches - before[0], stream_sum.launches - before[1],
+            stream_sum.src_launches - before[2])
+    log(f"stream kernels vs plain: {gathers} gathers, {sums} level sums in "
+        f"place, {src_sums} through a map and {plans} plans bit-equal; "
+        f"{grew[0]} gather, {grew[1]} stream_sum and {grew[2]} "
+        "stream_sum_src launches")
     if device == "cuda":
-        check(grew == (gathers, sums), "the stream kernels' launch counts "
-                                       "did not move by one per case")
+        check(grew == (gathers + plans, sums + plans, src_sums + deeper),
+              "the stream kernels' launch counts did not move by one per "
+              "case")
 
 
 def phase_stream_cli(device="cuda"):
@@ -1253,8 +1306,7 @@ def phase_stream_path(coo, x64, want, scale, device="cuda"):
             f"{len(sm.ddsum.levels)} sum levels")
         for line in stream_plan_lines(sm):
             log(line)
-        per_call = {"ell_spmv": 1, "permute": len(sm.ddsum.levels) + 1,
-                    "stream_sum": len(sm.ddsum.levels)}
+        per_call = stream_launches_per_call(sm)
         calls = 2 + WARMUP + REPEAT
         res = benchmark_spmv(None, sm, x, None, repeat=REPEAT, warmup=WARMUP)
         grew = _counts()
@@ -1267,6 +1319,8 @@ def phase_stream_path(coo, x64, want, scale, device="cuda"):
             check(device != "cuda" or grew[k] == c * calls,
                   f"stream {prec}: {grew[k]} {k} launches, expected "
                   f"{c * calls}")
+        log(f"  stream {prec}: {sum(per_call.values())} launches per "
+            f"stream_spmv ({per_call})")
         iters = WARMUP + REPEAT          # calls that accumulate into y
         got = res.y.double().cpu().numpy()
         err = float(np.max(np.abs(got - iters * want)
@@ -1285,8 +1339,9 @@ def phase_stream_path(coo, x64, want, scale, device="cuda"):
                         res.y, n, got, err, TOLERANCE[prec])
         counts[prec] = _counts()
         log(f"  stream {prec}: launches on the path {counts[prec]}")
-        check(device != "cuda" or all(counts[prec][k] > 0 for k in per_call),
-              f"the stream path did not launch K1, the gather and K3: "
+        check(device != "cuda" or all(counts[prec][k] > 0 for k in per_call
+                                      if per_call[k]),
+              f"the stream path did not launch K1, K3 and the gather: "
               f"{counts[prec]}")
         if prec == "float64" and device == "cuda":
             check(counts[prec]["fma_probe"] == 1,
@@ -1311,26 +1366,39 @@ def _all_rows_check(label, y, n, got, err, tol):
     check(err <= tol, f"{label}: rows disagree with the oracle: {err:.3e}")
 
 
-def stream_spmv_plain(sm, x):
-    """`stream_spmv` with every kernel replaced by its plain version."""
+def stream_launches_per_call(sm):
+    """The kernel launches of one `stream_spmv` on `sm`: K1, K3 in place on
+    level 1 and through its map on each deeper level, and one gather."""
+    levels = len(sm.ddsum.levels)
+    return {"ell_spmv": 1, "stream_sum": 1, "stream_sum_src": levels - 1,
+            "permute": 1}
+
+
+def apply_stream_sum_plain(plan, v):
+    """`apply_stream_sum` with every kernel replaced by its plain version."""
     import torch
 
-    from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
     from ellspmv_tpu_torch.ops.permute import apply_permute_torch
     from ellspmv_tpu_torch.ops.stream_sum import stream_sum_torch
-    v = ell_spmv_torch(sm.prod, x)
-    parts = []
-    for lv in sm.ddsum.levels:
-        out = stream_sum_torch(lv.table, apply_permute_torch(lv.src, v))
-        parts.append(out[lv.multi_len:])
-        v = out[:lv.multi_len]
-    return apply_permute_torch(sm.ddsum.final_src, torch.cat(parts))
+    buffer = torch.empty(plan.buffer_len, dtype=v.dtype, device=v.device)
+    for lv in plan.levels:
+        buffer[lv.out_offset:lv.out_offset + lv.out_len] = (
+            stream_sum_torch(lv.table, v) if lv.src is None
+            else stream_sum_torch(lv.table, buffer, lv.src))
+    return apply_permute_torch(plan.final_src, buffer)
 
 
-def _sum_output_map(table, n_positions):
-    """Each stream position's output under `table` (the position -> output
-    map of the index_add_ yardstick), num_subtiles*1024 where no run reads
-    it."""
+def stream_spmv_plain(sm, x):
+    """`stream_spmv` with every kernel replaced by its plain version."""
+    from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
+    return apply_stream_sum_plain(sm.ddsum, ell_spmv_torch(sm.prod, x))
+
+
+def _sum_output_map(table, n_inputs, src=None, first=0):
+    """Each input's output under `table` (the input -> output map of the
+    index_add_ yardstick): input p is stream position p, or with `src` the
+    input ``src[p] - first`` that position p reads; num_subtiles*1024 where
+    no run reads an input."""
     import torch
     ptr = table.slot_ptr.cpu().numpy().astype(np.int64)
     start = table.run_start.cpu().numpy().astype(np.int64)
@@ -1338,17 +1406,27 @@ def _sum_output_map(table, n_positions):
     subtile = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
     lane = np.arange(int(count.sum())) - np.repeat(np.cumsum(count) - count,
                                                     count)
-    out = np.full(n_positions, (len(ptr) - 1) * 1024, np.int64)
-    out[np.repeat(start, count) + lane] = (np.repeat(subtile, count) * 1024
-                                           + lane)
+    pos = np.repeat(start, count) + lane
+    if src is not None:
+        pos = src.cpu().numpy().astype(np.int64)[pos] - first
+    out = np.full(n_inputs, (len(ptr) - 1) * 1024, np.int64)
+    out[pos] = np.repeat(subtile, count) * 1024 + lane
     return torch.from_numpy(out).to(table.slot_ptr.device)
 
 
+def _beside(name, prec) -> str:
+    ms = COLUMN_ORDER_MS.get((name, prec))
+    return "" if ms is None else (f" (products in column order, a gather "
+                                  f"per level: {ms:.4f} ms)")
+
+
 def phase_stream_timing(coo, runs, peak_bw):
-    """At config3's shapes: K3 per level, the gather per level and final, K1
-    at the product shape and the whole stream_spmv, each in turns with its
-    plain version and beside one PyTorch call, each held against its plain
-    version on every output; then one stream_spmv split by the profiler."""
+    """At config3's shapes: K3 per level (in place on level 1, through its
+    map on the deeper ones), the final gather, K1 at the product shape and
+    the whole stream_spmv, each in turns with its plain version and beside
+    one PyTorch call, each held against its plain version on every output;
+    the launches of one stream_spmv; then one stream_spmv split by the
+    profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1357,95 +1435,104 @@ def phase_stream_timing(coo, runs, peak_bw):
     from ellspmv_tpu_torch.ops import ell_cuda, permute, stream_sum
     from ellspmv_tpu_torch.ops.dispatch import spmv
     out = {}
-    levels_in = {}     # level -> precision -> (table, gathered stream)
+    level_kernels = {}     # level -> precision -> K3's call on that level
     for prec, (sm, x) in runs.items():
         sv = x.element_size()
         plan = sm.ddsum
-        totals = {"stream_sum": dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                                     max_abs_err=0.0, bound_ms=0.0,
-                                     nbytes=0, flops=0),
-                  "permute": dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                                  max_abs_err=0.0, bound_ms=0.0, nbytes=0,
-                                  flops=0)}
+        totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                             max_abs_err=0.0, bound_ms=0.0, nbytes=0, flops=0)
+                  for name in ("stream_sum", "stream_sum_src", "permute")}
 
-        def add(name, k_ms, p_ms, lib_ms, err, nbytes, flops):
+        def add(name, k_ms, p_ms, lib_ms, nbytes, flops):
             t = totals[name]
             t["ms"] += k_ms
             t["plain_ms"] += p_ms
             t["library_ms"] += lib_ms
-            t["max_abs_err"] = max(t["max_abs_err"], err)
             t["nbytes"] += nbytes
             t["flops"] += flops
 
-        def time_gather(label, src, v):
-            padded = torch.cat([v.new_zeros(1), v])
-            shifted = src.long() + 1
-            k_ms, p_ms, lib_ms = _turns(
-                f"gather {label} {prec} (CUDA graph, per call)",
-                lambda: permute.apply_permute(src, v),
-                lambda: permute.apply_permute_torch(src, v),
-                lambda: torch.index_select(padded, 0, shifted),
-                "torch.index_select", timer=graph_ms)
-            eager_ms = time_ms(lambda: permute.apply_permute(src, v))
-            got = permute.apply_permute(src, v)
-            want = permute.apply_permute_torch(src, v)
-            check(torch.equal(got, want), f"gather {label} {prec}: kernel "
-                                          "!= plain at config3")
-            nbytes = gather_bytes(src, sv)
-            bound_ms, _ = _bound(nbytes, 0, prec, peak_bw)
-            log(f"  gather {label} {prec}: kernel {k_ms:.4f} ms on the device "
-                f"({eager_ms:.4f} ms per eager call) vs plain {p_ms:.4f} vs "
-                f"index_select {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
-                f"({nbytes:,} bytes), {100 * bound_ms / k_ms:.1f}% of it; "
-                "bit-equal to plain")
-            add("permute", k_ms, p_ms, lib_ms, 0.0, nbytes, 0)
-            return got
-
         v = ell_cuda.ell_spmv(sm.prod, x)
-        parts = []
+        buffer = torch.empty(plan.buffer_len, dtype=x.dtype, device=x.device)
         for i, lv in enumerate(plan.levels):
-            s = time_gather(f"level {i + 1}", lv.src, v)
-            table = lv.table
-            out_map = _sum_output_map(table, s.shape[0])
-            U = table.num_subtiles
-            k_ms, p_ms, lib_ms = _turns(
-                f"stream_sum level {i + 1} {prec} (CUDA graph, per call)",
-                lambda: stream_sum.stream_sum(table, s),
-                lambda: stream_sum.stream_sum_torch(table, s),
-                lambda: s.new_zeros(U * 1024 + 1).index_add_(0, out_map, s),
-                "index_add_", timer=graph_ms)
-            eager_ms = time_ms(lambda: stream_sum.stream_sum(table, s))
-            got = stream_sum.stream_sum(table, s)
-            want = stream_sum.stream_sum_torch(table, s)
-            lib = s.new_zeros(U * 1024 + 1).index_add_(0, out_map, s)[:-1]
-            check(torch.equal(got, want), f"stream_sum level {i + 1} {prec}:"
-                                          " kernel != plain at config3")
-            lib_err = float((lib - want).abs().max())
+            table, U = lv.table, lv.table.num_subtiles
+            dest = buffer[lv.out_offset:lv.out_offset + lv.out_len]
+            if lv.src is None:
+                name, form, inputs, first = "stream_sum", "in place", v, 0
+                args = (table, v, None, dest)
+            else:
+                prev = plan.levels[i - 1]
+                first = prev.out_offset
+                name, form = "stream_sum_src", "through its map"
+                inputs = buffer[first:first + prev.multi_len]
+                args = (table, buffer, lv.src, dest)
+            out_map = _sum_output_map(table, inputs.shape[0], args[2], first)
+
+            def kernel(args=args):
+                return stream_sum.stream_sum(*args)
+
+            def plain(args=args):
+                return stream_sum.stream_sum_torch(*args[:3])
+
+            def library(inputs=inputs, out_map=out_map, U=U):
+                return inputs.new_zeros(U * 1024 + 1).index_add_(
+                    0, out_map, inputs)
+            label = f"stream_sum level {i + 1} {prec} ({form})"
+            k_ms, p_ms, lib_ms = _turns(f"{label} (CUDA graph, per call)",
+                                        kernel, plain, library, "index_add_",
+                                        timer=graph_ms)
+            eager_ms = time_ms(kernel)
+            got, want = kernel(), plain()
+            check(torch.equal(got, want), f"{label}: kernel != plain at "
+                                          "config3")
+            lib_err = float((library()[:-1] - want).abs().max())
             live = int(table.run_count.sum())
-            nbytes = sum_bytes(table, sv)
+            nbytes = sum_bytes(table, sv, with_map=lv.src is not None)
             bound_ms, bound_by = _bound(nbytes, live, prec, peak_bw)
-            levels_in.setdefault(i, {})[prec] = (table, s)
-            log(f"  stream_sum level {i + 1} {prec}: kernel {k_ms:.4f} ms on "
-                f"the device{_first(f'stream_sum level {i + 1}', prec)} "
-                f"({eager_ms:.4f} ms per eager call) vs plain "
-                f"{p_ms:.4f} vs index_add_ {lib_ms:.4f} ms; bound "
-                f"{bound_ms:.4f} ms ({nbytes:,} bytes, {bound_by}), "
+            level_kernels.setdefault(i, {})[prec] = kernel
+            log(f"  {label}: kernel {k_ms:.4f} ms on the device "
+                f"({eager_ms:.4f} ms per eager call) vs plain {p_ms:.4f} vs "
+                f"index_add_ {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                f"({nbytes:,} bytes, {bound_by}), "
                 f"{100 * bound_ms / k_ms:.1f}% of it; {U:,} subtiles, "
                 f"{live:,} live elements; bit-equal to plain; "
                 f"|index_add_ - plain| {lib_err:.3e}")
-            add("stream_sum", k_ms, p_ms, lib_ms, 0.0, nbytes, live)
-            parts.append(got[lv.multi_len:])
-            v = got[:lv.multi_len]
-        y = time_gather("final", plan.final_src, torch.cat(parts))
+            add(name, k_ms, p_ms, lib_ms, nbytes, live)
+        src, padded = plan.final_src, torch.cat([buffer.new_zeros(1), buffer])
+        shifted = src.long() + 1
+        k_ms, p_ms, lib_ms = _turns(
+            f"gather final {prec} (CUDA graph, per call)",
+            lambda: permute.apply_permute(src, buffer),
+            lambda: permute.apply_permute_torch(src, buffer),
+            lambda: torch.index_select(padded, 0, shifted),
+            "torch.index_select", timer=graph_ms)
+        eager_ms = time_ms(lambda: permute.apply_permute(src, buffer))
+        y = permute.apply_permute(src, buffer)
+        check(torch.equal(y, permute.apply_permute_torch(src, buffer)),
+              f"gather final {prec}: kernel != plain at config3")
+        nbytes = gather_bytes(src, sv)
+        bound_ms, _ = _bound(nbytes, 0, prec, peak_bw)
+        log(f"  gather final {prec}: kernel {k_ms:.4f} ms on the device "
+            f"({eager_ms:.4f} ms per eager call) vs plain {p_ms:.4f} vs "
+            f"index_select {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({nbytes:,} bytes), {100 * bound_ms / k_ms:.1f}% of it; "
+            "bit-equal to plain")
+        add("permute", k_ms, p_ms, lib_ms, nbytes, 0)
         for name, t in totals.items():
             t["bound_ms"], t["bound_by"] = _bound(t.pop("nbytes"),
                                                   t.pop("flops"), prec,
                                                   peak_bw)
             out[name, prec] = t
-            log(f"  {name} {prec}, all launches of one stream_spmv, on the "
-                f"device: kernel {t['ms']:.4f} ms{_first(name, prec)} vs plain "
-                f"{t['plain_ms']:.4f} vs yardstick {t['library_ms']:.4f} ms; "
-                f"bound {t['bound_ms']:.4f} ms")
+        k3 = {k: out["stream_sum", prec][k] + out["stream_sum_src", prec][k]
+              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        for row, t in (("K3", k3), ("K4", out["permute", prec])):
+            log(f"  {row} row {prec}, all its launches in one stream_spmv, "
+                f"on the device: kernel {t['ms']:.4f} ms{_beside(row, prec)} "
+                f"vs plain {t['plain_ms']:.4f} vs yardstick "
+                f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms"
+                + (" (K3: level 1 in place, the deeper levels through their "
+                   "maps)" if row == "K3" else
+                   " (the final gather; the deeper levels' deliveries run "
+                   "inside K3, level 1's in the products' layout)"))
         # K1 at the product shape, on the device: eagerly, the wrapper's
         # launch path takes about as long as the kernel
         k_ms, p_ms, _ = _turns(f"ell_spmv products {prec} (CUDA graph, per "
@@ -1458,9 +1545,11 @@ def phase_stream_timing(coo, runs, peak_bw):
                           ell_cuda.ell_spmv_torch(sm.prod, x)),
               f"ell_spmv products {prec}: kernel != plain")
         k1_bytes = estimate_actual_bytes(sm.prod, with_y=False)
-        bound_ms, _ = _bound(k1_bytes, sm.prod_len, prec, peak_bw)
-        log(f"  ell_spmv products {prec} ({sm.prod_len:,} rows of 1): kernel "
-            f"{k_ms:.4f} ms on the device ({eager_ms:.4f} ms per eager call"
+        slots = sm.prod.padded_rows
+        bound_ms, _ = _bound(k1_bytes, slots, prec, peak_bw)
+        log(f"  ell_spmv products {prec} ({slots:,} rows of 1, in position "
+            f"order): kernel {k_ms:.4f} ms on the device"
+            f"{_beside('products', prec)} ({eager_ms:.4f} ms per eager call"
             f"{_first('products', prec)}) vs plain {p_ms:.4f} ms; "
             f"bound {bound_ms:.4f} ms ({k1_bytes:,} bytes, "
             f"{'narrow' if sm.prod.lcol is not None else 'wide'} columns), "
@@ -1469,26 +1558,36 @@ def phase_stream_timing(coo, runs, peak_bw):
             k1_forms(f"config3 products {prec}", sm.prod, x)
         # the whole path beside cuSPARSE
         csr = cusparse_of(coo, x.dtype, x.device)
-        whole = sm.num_nonzeros
         k_ms, p_ms, lib_ms = _turns(f"stream_spmv {prec}",
                                     lambda: spmv(sm, x),
                                     lambda: stream_spmv_plain(sm, x),
                                     lambda: csr @ x)
         g_ms = graph_ms(lambda: spmv(sm, x))
-        got, want = spmv(sm, x), stream_spmv_plain(sm, x)
+        before = _counts()
+        got = spmv(sm, x)
+        after = _counts()
+        want = stream_spmv_plain(sm, x)
         check(torch.equal(got, y), f"stream_spmv {prec}: the timed pieces "
                                    "disagree with the whole call")
+        per_call = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        check(x.device.type != "cuda" or per_call == {
+            k: c for k, c in stream_launches_per_call(sm).items() if c},
+              f"stream_spmv {prec}: launches {per_call}")
         rel = float(((got.double() - want.double()).abs()
                      / want.double().abs().clamp(min=1e-300)).max())
         lib_err = float((csr @ x - want).double().abs().max())
         nbytes = estimate_actual_bytes(sm, with_y=False)
-        bound_ms, bound_by = _bound(nbytes, 2 * whole, prec, peak_bw)
-        log(f"  stream_spmv {prec}: {k_ms:.4f} ms per eager call, "
-            f"{g_ms:.4f} ms on the device (CUDA graph)"
+        bound_ms, bound_by = _bound(nbytes, 2 * sm.num_nonzeros, prec,
+                                    peak_bw)
+        log(f"  stream_spmv {prec}: {sum(per_call.values())} launches "
+            f"{per_call}; {k_ms:.4f} ms per eager call"
+            f"{_beside('stream_spmv eager', prec)}, {g_ms:.4f} ms on the "
+            f"device (CUDA graph){_beside('stream_spmv', prec)}"
             f"{_first('stream_spmv', prec)} vs plain {p_ms:.4f} "
             f"ms vs cuSPARSE {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
-            f"({nbytes:,} bytes, {bound_by}), {100 * bound_ms / k_ms:.1f}% "
-            f"of the eager call; max rel |kernels - plain| {rel:.3e}; "
+            f"({nbytes:,} bytes, {bound_by}), {100 * bound_ms / g_ms:.1f}% "
+            f"of the device time; max rel |kernels - plain| {rel:.3e}; "
             f"max |cuSPARSE - plain| {lib_err:.3e}")
         out["stream_spmv", prec] = dict(ms=k_ms, graph_ms=g_ms,
                                         plain_ms=p_ms, library_ms=lib_ms,
@@ -1501,18 +1600,16 @@ def phase_stream_timing(coo, runs, peak_bw):
                 spmv(sm, x)
             _sync(x.device.type)
             host_ms = (time.perf_counter() - t0) / 10 * 1e3
-        levels = len(plan.levels)
         stream_breakdown(prof, host_ms, 10, prec,
-                         {"K1": 1, "gather": levels + 1, "K3": levels})
+                         {"K1": 1, "K3": 1, "K3 src": len(plan.levels) - 1,
+                          "gather": 1})
     # K3 in f32 against fp64 on the same positions, in turns
-    for i, by_prec in sorted(levels_in.items()):
+    for i, by_prec in sorted(level_kernels.items()):
         if len(by_prec) < 2:
             continue
         t = {"float64": [], "float32": []}
         for prec in ("float64", "float32", "float32", "float64"):
-            table, s = by_prec[prec]
-            t[prec].append(graph_ms(
-                lambda: stream_sum.stream_sum(table, s)))
+            t[prec].append(graph_ms(by_prec[prec]))
         m64, m32 = (sum(t[p]) / 2 for p in ("float64", "float32"))
         log(f"  stream_sum level {i + 1}, f32 against fp64 in turns: f32 "
             f"{m32:.4f} ms, fp64 {m64:.4f} ms (f32/fp64 {m32 / m64:.3f})")
@@ -1539,12 +1636,14 @@ def stream_breakdown(prof, host_ms, calls, prec, per_call):
     profiler may drop the events of a call); the rest is spread over the
     calls."""
     times = device_times_us(prof)
-    groups = {"K1": [0.0, 0], "gather": [0.0, 0], "K3": [0.0, 0],
-              "rest": [0.0, 0]}
+    groups = {g: [0.0, 0] for g in ("K1", "K3", "K3 src", "gather", "rest")}
     for key, (count, us) in times.items():
+        # K3's two forms are one template, <V, false> and <V, true>
+        through_map = "true>" in key or "Lb1E" in key
         group = ("K1" if "ell_spmv_kernel" in key else
                  "gather" if "permute_kernel" in key else
-                 "K3" if "stream_sum_kernel" in key else "rest")
+                 ("K3 src" if through_map else "K3")
+                 if "stream_sum_kernel" in key else "rest")
         groups[group][0] += us
         groups[group][1] += count
     split = {g: (us / max(n, 1) * per_call[g] if g in per_call
@@ -1556,9 +1655,10 @@ def stream_breakdown(prof, host_ms, calls, prec, per_call):
         return
     log(f"  stream_spmv {prec} under the profiler: {host_ms:.4f} ms per call "
         f"on the host clock; device {device_ms:.4f} ms "
-        f"({100 * device_ms / host_ms:.1f}%: K1 {split['K1']:.4f}, gathers "
-        f"{split['gather']:.4f}, K3 {split['K3']:.4f}, the rest "
-        f"{split['rest']:.4f}); host and idle {host_ms - device_ms:.4f} ms")
+        f"({100 * device_ms / host_ms:.1f}%: K1 {split['K1']:.4f}, K3 in "
+        f"place {split['K3']:.4f}, K3 through maps {split['K3 src']:.4f}, "
+        f"the gather {split['gather']:.4f}, the rest {split['rest']:.4f}); "
+        f"host and idle {host_ms - device_ms:.4f} ms")
     for key, (count, us) in sorted(times.items(), key=lambda t: -t[1][1]):
         log(f"    device: {us / count:9.2f} us x {count:4d}  {key[:90]}")
 
@@ -1625,14 +1725,15 @@ def main() -> int:
              *stream_counts.values()]
     launches = {name: sum(c[name] for c in paths)
                 for name in ("ell_spmv", "dia_spmv", "fma_probe", "permute",
-                             "stream_sum")}
+                             "stream_sum", "stream_sum_src")}
     launches["dot"] = cg_counts["float64"]["dot"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths was not launched: {launches}")
     kernels = []
     for name, key in (("ell_spmv", "float64"), ("fma_probe", "float32"),
                       ("dia_spmv", "float64"), ("dot", "float64"),
-                      ("stream_sum", "float64"), ("permute", "float64")):
+                      ("stream_sum", "float64"),
+                      ("stream_sum_src", "float64"), ("permute", "float64")):
         source, replaces = KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

@@ -29,6 +29,9 @@ Two timing protocols:
   untimed iterations, then `repeat` timed ones, with y accumulating. On a
   CUDA device each timed iteration is bracketed by CUDA events and followed
   by a synchronise, so the host's launch path inside the events counts.
+  Where the best time is under 3x the round trip of an empty launch and a
+  synchronise, the result carries the JAX package's warning that the times
+  measure dispatch (`BenchResult.warning`).
 - ``chained``: y accumulates with a serial dependency, ``x <- 1e-6*y_new``
   after each multiply, in loops of two lengths; the slope of their times is
   the time per iteration, so what is constant per loop (the first launch,
@@ -118,6 +121,7 @@ class BenchResult:
     hbm_peak: float | None = None    # bytes/s of the card; None on the CPU
     span_iters: int | None = None    # chained: iterations in the slope
     actual_bytes: int | None = None  # bytes the kernel moves per iteration
+    warning: str | None = None       # per_iter: the times measure dispatch
 
     @property
     def best(self) -> float:
@@ -172,6 +176,33 @@ class BenchResult:
                 f"{self.gflop_per_s(t):.3f} Gflop/s, "
                 f"{self.min_gb_per_s(t):.1f} to {self.max_gb_per_s(t):.1f} "
                 f"GB/s)" for t in self.times]
+
+
+def dispatch_round_trip(device: torch.device) -> float:
+    """Seconds of an empty launch and a synchronise on `device`, the least
+    of three after one untimed (the JAX harness's no-op round trip)."""
+    z = torch.zeros((), device=device)
+
+    def once() -> float:
+        t0 = time.perf_counter()
+        torch.add(z, 1)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    once()
+    return min(once() for _ in range(3))
+
+
+def _dispatch_warning(best: float, dispatch: float) -> str | None:
+    """Per-iteration times under 3x the launch round trip measure dispatch,
+    not the kernel (``ellspmv_tpu.bench.harness._dispatch_warning``, its
+    text)."""
+    if best < 3 * dispatch:
+        return (f"per-iteration times are dispatch-dominated (dispatch "
+                f"round trip ~{dispatch * 1e3:.1f} ms); use "
+                "--protocol=chained for kernel-time measurements")
+    return None
 
 
 def _per_iter(spmv_fn, matrix, x, y, repeat, warmup, sync):
@@ -277,9 +308,10 @@ def benchmark_spmv(spmv_fn: Callable | None, matrix, x: torch.Tensor,
             torch.cuda.synchronize(x.device)
 
     device = torch.cuda.get_device_name(x.device) if cuda else "cpu"
+    span = warning = None
     if protocol == "per_iter":
         times, yk = _per_iter(spmv_fn, matrix, x, y, repeat, warmup, sync)
-        span = None
+        warning = _dispatch_warning(min(times), dispatch_round_trip(x.device))
     elif protocol == "chained":
         per_iter, yk, span = _chained(spmv_fn, matrix, x, y, repeat, warmup,
                                       sync)
@@ -288,4 +320,5 @@ def benchmark_spmv(spmv_fn: Callable | None, matrix, x: torch.Tensor,
         raise ValueError(f"unknown protocol {protocol!r}")
     return BenchResult(times, metrics, yk, device, protocol,
                        hbm_peak_bytes_per_s(x.device), span_iters=span,
-                       actual_bytes=estimate_actual_bytes(matrix))
+                       actual_bytes=estimate_actual_bytes(matrix),
+                       warning=warning)

@@ -20,11 +20,12 @@ must move, so that every report can also carry the physical share (at most
 - one CG iteration (``models/solvers.cg``): K1 without y, two K6 dots and
   three vector updates, each reading two vectors and writing one;
 - the stream format (``formats/stream.py``), from its plan: K1 over the
-  ``prod_len`` products (values, column indices, x once, the products
-  written); per level the gather (`gather_bytes`: its map, the live
-  elements read, every position written) and K3 (`sum_bytes`: the live
-  elements read, the outputs written, the table); the concatenation of the
-  levels' row sums; the final gather; the diagonal and y, read once each.
+  products, one slot per position of level 1 (values, column indices at
+  the width K1 reads them, x once, the products written); per level K3
+  (`sum_bytes`: the live elements read, and on the deeper levels their map
+  entries, the outputs written, the table); the final gather
+  (`gather_bytes`: its map, the live elements read, every row written);
+  the diagonal and y, read once each.
 
 x is counted once: the kernels rely on L1/L2 for its re-reads.
 """
@@ -44,31 +45,32 @@ def gather_bytes(src, value_bytes: int) -> int:
     return n * (4 + value_bytes) + int((src >= 0).sum()) * value_bytes
 
 
-def sum_bytes(table, value_bytes: int) -> int:
+def sum_bytes(table, value_bytes: int, with_map: bool = False) -> int:
     """Bytes one level of segmented sums (``ops/stream_sum.stream_sum``)
-    moves: each live element read once, the outputs written, the table the
-    kernel reads (the runs' starts and counts, and per block of the grid
-    its place, first run and run count)."""
+    moves: each live element read once (and its 4-byte map entry
+    `with_map`, the entry points that read through a map), the outputs
+    written, the table the kernel reads (the runs' starts and counts, and
+    per block of the grid its place, first run and run count)."""
     live = int(table.run_count.sum())
-    return (live * value_bytes + table.num_subtiles * 1024 * value_bytes
+    return (live * (value_bytes + (4 if with_map else 0))
+            + table.num_subtiles * 1024 * value_bytes
             + 4 * (2 * int(table.run_start.shape[0])
                    + 3 * int(table.order.shape[0])))
 
 
 def stream_bytes_estimate(nnz: int, num_rows: int, num_columns: int,
                           value_bytes: int, narrow: bool) -> int:
-    """The stream format's bytes per SpMV before any plan is built, for the
+    """The stream format's bytes per SpMV by the counts alone, for the
     chooser: per padded product slot K1's value, index (2 bytes and a
-    4-byte base per 256 slots when `narrow`, the products' layout by
-    ``formats/stream.products_narrow``, else 4) and product, the level-1
-    gather's map, read and write, and K3's read; per row K3's output, its
-    concatenation, the final gather's map, read and write, and y; x once.
-    Deeper levels (a few percent of the products on power-law matrices)
+    4-byte base per 256 slots when `narrow`, the layout of the built
+    products, else 4) and product; per entry K3's read; per row K3's
+    output, the final gather's map, read and write, and y; x once. The
+    deeper levels (a few percent of the products on power-law matrices)
     and the alignment pad of the runs are left out."""
     slots = max(-(-nnz // BLOCK) * BLOCK, BLOCK)
     index = 2 * slots + 4 * (slots // LBLOCK) if narrow else 4 * slots
-    return (slots * (5 * value_bytes + 4) + index
-            + num_rows * (4 + 6 * value_bytes)
+    return (slots * 2 * value_bytes + index + nnz * value_bytes
+            + num_rows * (4 + 4 * value_bytes)
             + num_columns * value_bytes)
 
 
@@ -81,8 +83,7 @@ def estimate_actual_bytes(matrix, with_y: bool = True) -> int:
         plan = matrix.ddsum
         total = estimate_actual_bytes(matrix.prod, with_y=False)   # K1, x
         for lv in plan.levels:
-            total += gather_bytes(lv.src, sv) + sum_bytes(lv.table, sv)
-            total += 2 * (lv.out_len - lv.multi_len) * sv  # concatenation
+            total += sum_bytes(lv.table, sv, with_map=lv.src is not None)
         total += gather_bytes(plan.final_src, sv)
         if matrix.diag is not None:
             total += matrix.num_rows * sv

@@ -433,6 +433,8 @@ def run(argv: list[str], program: str) -> int:
         name = kernel_name(opts, mat)
         for line in res.iteration_lines():
             log.write(f"{name}: {line}\n")
+        if res.warning:
+            log.write(f"{program}: warning: {res.warning}\n")
 
     # Phase 6: write y to stdout (ellspmv.c:1898-1912)
     if not opts.quiet:

@@ -18,7 +18,10 @@
 // host composes the inverse map once (ops/permute.py gather_from_targets,
 // src[target[k]] = k), and one thread per output moves one element. A fp64
 // payload moves as one value, where the TPU routes the hi and lo halves of
-// its double-double pair separately.
+// its double-double pair separately. On the stream path it delivers each
+// row's sum from the sum levels' output buffer into row order; the levels'
+// own inputs arrive by the products' layout (formats/stream.py) and by K3's
+// map loads (csrc/stream_sum.cu).
 //
 // What bounds it: device-memory bytes. Per output, 4 B of src and one value
 // written, plus one value read where src >= 0; no arithmetic. The design
@@ -26,9 +29,7 @@
 // and written by neighbouring threads at neighbouring addresses (src with
 // the evict-first hint, as it is read once), and only the payload read is a
 // gather, through the read-only path. Each output is written exactly once,
-// so no atomics and no ordering are needed. The stream format's maps are
-// mostly short monotone runs (a sum level's runs are column-ordered
-// products), so neighbouring gathers often share sectors.
+// so no atomics and no ordering are needed.
 //
 // Binding: plain C entry points, one per payload type, loaded with ctypes.
 // Each launches on the stream it is given, does not synchronise, and returns

@@ -72,10 +72,32 @@
 // coalesced loads from a 128-aligned start (evict-first, as the stream is
 // read once), and the writes are coalesced.
 //
-// Binding: plain C entry points, one per value type, loaded with ctypes.
-// Each launches on the stream it is given, does not synchronise, and returns
-// cudaGetLastError(). The host reads the grid's constants back
-// (stream_sum_rows, stream_sum_parts) and checks its table against them.
+// Reading through a map (the stream_sum_src_* entry points). A deeper
+// level's input is the level before's outputs in another order: position p
+// of the level holds in[src[p]]. (The TPU moves the values there first, with
+// the route of ellspmv_tpu/ops/permute.py: K4, _make_w1_kernel :531 and
+// _make_w2_kernel :547, and the XLA take between them.) K3 reads src[p]
+// where the in-place form reads stream[p] (coalesced, evict-first: the map
+// is read once), then in[src[p]] through the read-only path, both under the
+// run's predicate. A batch's value loads go out together with the next
+// batch's map loads (kMapBatch runs each), all before the batch's first add,
+// so that a batch does not wait on two trips to memory (timed against that
+// form with scripts/kernel_variants.py). The adds and their order are the
+// in-place form's, so the result is bit-equal to the plain version
+// (ops/stream_sum.py stream_sum_torch with src). Two conditions, which the
+// host's plan holds, make this safe:
+// - no map entry under a run's predicate is -1: the plan refuses a map in
+//   which a position below a run's count has no source (_check_sources);
+// - the output and the sources it reads are disjoint: each level writes its
+//   own slice of one buffer and reads only the slice of the level before,
+//   as the read-only loads need.
+//
+// Binding: plain C entry points, one per value type and form, loaded with
+// ctypes. Each launches on the stream it is given, does not synchronise, and
+// returns cudaGetLastError(). The output may be a slice of a larger buffer
+// that also holds the map's sources, at other addresses. The host reads the
+// grid's constants back (stream_sum_rows, stream_sum_parts) and checks its
+// table against them.
 
 #include <cstdint>
 
@@ -90,6 +112,7 @@ constexpr int kThreads = kRows / kParts;   // one output each
 // scripts/kernel_variants.py)
 template <typename V>
 constexpr int kBatch = sizeof(V) == 8 ? 8 : 4;
+constexpr int kMapBatch = 8;        // the same, read through a map
 constexpr int kTable = kThreads;    // runs staged in shared memory at a time
 
 // The stream element at a where p holds, else +0.0: an evict-first load
@@ -111,14 +134,59 @@ __device__ __forceinline__ float load_if(bool p, const float* a) {
       : "l"(a), "r"(static_cast<unsigned>(p)));
   return v;
 }
+__device__ __forceinline__ int load_if(bool p, const int* a) {
+  int v = 0;
+  asm("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
+      " @q ld.global.cs.s32 %0, [%1];\n}"
+      : "+r"(v)
+      : "l"(a), "r"(static_cast<unsigned>(p)));
+  return v;
+}
 
-template <typename V>
+// The value at a where p holds, else +0.0, through the read-only path (the
+// gathered reads of the map's sources).
+__device__ __forceinline__ double load_nc_if(bool p, const double* a) {
+  double v = 0.0;
+  asm("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
+      " @q ld.global.nc.f64 %0, [%1];\n}"
+      : "+d"(v)
+      : "l"(a), "r"(static_cast<unsigned>(p)));
+  return v;
+}
+__device__ __forceinline__ float load_nc_if(bool p, const float* a) {
+  float v = 0.0f;
+  asm("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
+      " @q ld.global.nc.f32 %0, [%1];\n}"
+      : "+f"(v)
+      : "l"(a), "r"(static_cast<unsigned>(p)));
+  return v;
+}
+
+// The map entries of the runs s0 .. s0 + kMapBatch - 1 of the staged table
+// (src[start + r]), each under its run's predicate, which `live` keeps for
+// the value loads.
+__device__ __forceinline__ void map_batch(int s0, int nt, int r,
+                                          const int* s_start,
+                                          const int* s_count, const int* src,
+                                          bool (&live)[kMapBatch],
+                                          int (&from)[kMapBatch]) {
+#pragma unroll
+  for (int k = 0; k < kMapBatch; ++k) {
+    const int s = min(s0 + k, nt - 1);
+    live[k] = s0 + k < nt && r < s_count[s];
+    from[k] = load_if(live[k], src + static_cast<int64_t>(s_start[s]) + r);
+  }
+}
+
+// kMap: position p is read as stream[src[p]] (else as stream[p]).
+template <typename V, bool kMap>
 __global__ void __launch_bounds__(kThreads)
 stream_sum_kernel(const int* __restrict__ run_start,
                   const int* __restrict__ run_count,
                   const int* __restrict__ order,
                   const int* __restrict__ block_first,
                   const int* __restrict__ block_runs,
+                  const int* __restrict__ src,
                   const V* __restrict__ stream, V* __restrict__ out) {
   __shared__ int s_start[kTable];
   __shared__ int s_count[kTable];
@@ -138,39 +206,57 @@ stream_sum_kernel(const int* __restrict__ run_start,
       s_count[threadIdx.x] = __ldg(run_count + first + t0 + threadIdx.x);
     }
     __syncthreads();
-    for (int s0 = 0; s0 < nt; s0 += kBatch<V>) {
-      int start[kBatch<V>], count[kBatch<V>];
+    if constexpr (kMap) {
+      // a batch's values go out with the next batch's map entries: one
+      // trip to memory a batch, where loading the map, then the values,
+      // took two
+      bool live[kMapBatch];
+      int from[kMapBatch];
+      map_batch(0, nt, r, s_start, s_count, src, live, from);
+      for (int s0 = 0; s0 < nt; s0 += kMapBatch) {
+        V v[kMapBatch];
 #pragma unroll
-      for (int k = 0; k < kBatch<V>; ++k) {
-        const int s = min(s0 + k, nt - 1);
-        start[k] = s_start[s];
-        count[k] = s0 + k < nt ? s_count[s] : 0;
+        for (int k = 0; k < kMapBatch; ++k)
+          v[k] = load_nc_if(live[k], stream + from[k]);
+        map_batch(s0 + kMapBatch, nt, r, s_start, s_count, src, live, from);
+#pragma unroll
+        for (int k = 0; k < kMapBatch; ++k) acc += v[k];
       }
-      V v[kBatch<V>];
+    } else {
+      for (int s0 = 0; s0 < nt; s0 += kBatch<V>) {
+        int start[kBatch<V>], count[kBatch<V>];
 #pragma unroll
-      for (int k = 0; k < kBatch<V>; ++k)
-        v[k] = load_if(r < count[k],
-                       stream + static_cast<int64_t>(start[k]) + r);
+        for (int k = 0; k < kBatch<V>; ++k) {
+          const int s = min(s0 + k, nt - 1);
+          start[k] = s_start[s];
+          count[k] = s0 + k < nt ? s_count[s] : 0;
+        }
+        V v[kBatch<V>];
 #pragma unroll
-      for (int k = 0; k < kBatch<V>; ++k) acc += v[k];
+        for (int k = 0; k < kBatch<V>; ++k)
+          v[k] = load_if(r < count[k],
+                         stream + static_cast<int64_t>(start[k]) + r);
+#pragma unroll
+        for (int k = 0; k < kBatch<V>; ++k) acc += v[k];
+      }
     }
   }
   out[u * kRows + r] = acc;
 }
 
-template <typename V>
+template <typename V, bool kMap>
 int launch(const void* run_start, const void* run_count, const void* order,
-           const void* block_first, const void* block_runs,
+           const void* block_first, const void* block_runs, const void* src,
            const void* stream_in, void* out, int64_t num_blocks,
            void* stream) {
   if (num_blocks < 1 || num_blocks > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  stream_sum_kernel<V><<<static_cast<unsigned>(num_blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  stream_sum_kernel<V, kMap><<<static_cast<unsigned>(num_blocks), kThreads,
+                               0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(run_start), static_cast<const int*>(run_count),
       static_cast<const int*>(order), static_cast<const int*>(block_first),
-      static_cast<const int*>(block_runs), static_cast<const V*>(stream_in),
-      static_cast<V*>(out));
+      static_cast<const int*>(block_runs), static_cast<const int*>(src),
+      static_cast<const V*>(stream_in), static_cast<V*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -181,12 +267,26 @@ int launch(const void* run_start, const void* run_count, const void* order,
                       const void* order, const void* block_first,            \
                       const void* block_runs, const void* stream_in,         \
                       void* out, int64_t num_blocks, void* stream) {         \
-    return launch<V>(run_start, run_count, order, block_first, block_runs,   \
-                     stream_in, out, num_blocks, stream);                    \
+    return launch<V, false>(run_start, run_count, order, block_first,        \
+                            block_runs, nullptr, stream_in, out, num_blocks, \
+                            stream);                                         \
+  }
+
+#define STREAM_SUM_SRC_ENTRY(NAME, V)                                        \
+  extern "C" int NAME(const void* run_start, const void* run_count,          \
+                      const void* order, const void* block_first,            \
+                      const void* block_runs, const void* src,               \
+                      const void* stream_in, void* out, int64_t num_blocks,  \
+                      void* stream) {                                        \
+    return launch<V, true>(run_start, run_count, order, block_first,         \
+                           block_runs, src, stream_in, out, num_blocks,      \
+                           stream);                                          \
   }
 
 STREAM_SUM_ENTRY(stream_sum_f64, double)
 STREAM_SUM_ENTRY(stream_sum_f32, float)
+STREAM_SUM_SRC_ENTRY(stream_sum_src_f64, double)
+STREAM_SUM_SRC_ENTRY(stream_sum_src_f32, float)
 
 // Outputs per subtile, and blocks per subtile.
 extern "C" int stream_sum_rows() { return kRows; }

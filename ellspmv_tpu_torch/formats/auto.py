@@ -13,8 +13,8 @@ The gates are the JAX chooser's:
 
 The prices are this card's: all the kernels are bound by device-memory
 bytes, so each candidate is priced by the bytes its kernels move, at the
-card's data-sheet peak (``config.hbm_peak_bytes_per_s``), from the row
-counts alone (no matrix is built to be priced):
+card's data-sheet peak (``config.hbm_peak_bytes_per_s``); only the chosen
+matrix is built on `device`:
 
 - DIA: ``(diasize + 2*rows) * value bytes``, as the JAX chooser prices it;
 - ELL: ``ellsize * value bytes + 2*rows * value bytes`` plus the column
@@ -22,7 +22,13 @@ counts alone (no matrix is built to be priced):
   (``formats/ell.index_bytes_estimate``: 2 bytes a slot where the narrow
   layout holds, else the index type's);
 - stream: ``bench/traffic.stream_bytes_estimate``, its products' indices
-  by the same rule (``formats/stream.products_narrow``).
+  by the same rule. The products lie in the sum plan's position order, so
+  their layout is known only once the plan is built: where the stream
+  format must be priced (where the padding blows up, or where it could
+  beat ELL even with 2-byte columns), its plan and products are laid out
+  on the host (``formats/stream.stream_layout``) and priced by the column
+  layout the products take; the format is finished on `device` from that
+  layout only when chosen.
 
 The rate cancels in the comparisons; it only turns bytes into the estimated
 milliseconds shown in ``_auto_reason``. No TPU constant of the JAX chooser
@@ -66,8 +72,8 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
     from ellspmv_tpu_torch.formats.ell import (ell_from_coo,
                                                index_bytes_estimate)
     from ellspmv_tpu_torch.formats.stream import (compute_dtype,
-                                                  products_narrow,
-                                                  stream_from_coo)
+                                                  stream_from_layout,
+                                                  stream_layout)
     from ellspmv_tpu_torch.ops.dia_cuda import MAX_DIAGS
 
     expanded = coo.expand_symmetry()
@@ -81,22 +87,32 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
     dtype = config.value_dtype(expanded.values.dtype if value_dtype is None
                                else value_dtype)
     rate = config.hbm_peak_bytes_per_s(device)
-    stream_bytes = stream_bytes_estimate(
-        nnz, n, m, torch.empty(0, dtype=compute_dtype(dtype)).element_size(),
-        products_narrow(expanded.colidx, m))
 
-    def pick_stream(reason):
-        sm = stream_from_coo(coo, separate_diagonal=separate_diagonal,
-                             value_dtype=dtype, device=device)
+    def stream_bytes(narrow: bool) -> int:
+        return stream_bytes_estimate(
+            nnz, n, m,
+            torch.empty(0, dtype=compute_dtype(dtype)).element_size(),
+            narrow)
+
+    def stream_on_host():
+        """The stream format's plan and position-order products on the
+        host, and its price by the column layout the products take."""
+        layout = stream_layout(coo, separate_diagonal=separate_diagonal)
+        return layout, stream_bytes(layout.products_narrow())
+
+    def pick_stream(layout, reason):
+        sm = stream_from_layout(layout, value_dtype=dtype, device=device)
         sm._auto_choice = "stream"
         sm._auto_reason = reason
         return sm
 
     if ellsize > MAX_PAD_RATIO * nnz and ellsize > 1 << 20:
+        layout, price = stream_on_host()
         return pick_stream(
-            f"ELL padding blowup ({ellsize:,} slots for {nnz:,} nonzeros); "
-            f"stream ({_cost(stream_bytes, rate)}); the SELL split, which "
-            "the JAX chooser prices against it here, is not yet ported")
+            layout, f"ELL padding blowup ({ellsize:,} slots for {nnz:,} "
+            f"nonzeros); stream ({_cost(price, rate)}); the SELL split, "
+            "which the JAX chooser prices against it here, is not yet "
+            "ported")
 
     vb = torch.empty(0, dtype=dtype).element_size()
     ib = np.dtype(config.select_index_dtype(n, m, nnz, index_dtype)).itemsize
@@ -119,14 +135,19 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
             why_ell = (f"ELL ({_cost(ell_bytes, rate)}) beats "
                        f"{dia.num_diags} diagonals "
                        f"({_cost(dia_bytes, rate)})")
-    if stream_bytes < ell_bytes:
-        return pick_stream(f"stream ({_cost(stream_bytes, rate)}) beats "
-                           f"ELL ({_cost(ell_bytes, rate)})")
+    # 2-byte product columns are the stream format's least price
+    least = stream_bytes(True)
+    stream_price = f"at least {_cost(least, rate)}"
+    if least < ell_bytes:
+        layout, price = stream_on_host()
+        if price < ell_bytes:
+            return pick_stream(layout, f"stream ({_cost(price, rate)}) "
+                                       f"beats ELL ({_cost(ell_bytes, rate)})")
+        stream_price = _cost(price, rate)
     ell = ell_from_coo(coo, separate_diagonal=separate_diagonal,
                        sort_rows=sort_rows, value_dtype=dtype,
                        index_dtype=index_dtype, device=device)
     ell._auto_choice = "ell"
     ell._auto_reason = ((why_ell or f"ELL ({_cost(ell_bytes, rate)})")
-                        + "; ELL beats the stream format "
-                        f"({_cost(stream_bytes, rate)})")
+                        + f"; ELL beats the stream format ({stream_price})")
     return ell

@@ -28,10 +28,11 @@ each slot's column as a 16-bit offset from it (`lcol`, slot-major like
 Every constructor builds it through `ell_from_row_major` (`ell_from_coo`,
 `ell_from_jax_arrays` and the stream format's products). The rule is
 written once, in `narrow_bases`: `narrow_columns` applies it to the built
-rows, `narrow_columns_fit` to COO triplets (for the chooser's prices) and
-``formats/stream.products_narrow`` to the stream format's products. The
-kernel's library reports its own `LBLOCK` and `NARROW_SPAN`, and the
-wrapper checks them against these.
+rows, `narrow_columns_fit` to COO triplets (for the chooser's ELL price)
+and ``formats/stream.StreamLayout.products_narrow`` to the stream format's
+products laid out on the host (for its price). The kernel's library
+reports its own `LBLOCK` and `NARROW_SPAN`, and the wrapper checks them
+against these.
 """
 
 from __future__ import annotations

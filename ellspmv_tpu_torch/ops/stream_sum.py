@@ -11,18 +11,30 @@ longer than `cap` split into sub-rows whose sums feed a further level, and
 a column-chunked stream builds its first level per chunk. What the plan
 drives differs:
 
-- the runtime key sort (or the TPU router of ``ops/permute.py``) that
-  delivers each level's entries to their positions becomes one gather by
-  ``src`` (``ops/permute.apply_permute``, the counterpart of K4 and K5),
-  composed here from the positions: ``src[keys[k]] = k``;
 - the Pallas segmented-sum kernel (K3), launched per bucket, becomes one
   launch per level of the hand-written CUDA kernel ``csrc/stream_sum.cu``
   (`stream_sum`), over a table that flattens the level's buckets: one CSR
   list of runs per 1024-output subtile, and the kernel's grid of `Q`
   blocks per subtile (each with the runs that reach its outputs),
   launched longest first;
-- the final n-sized key sort becomes one gather by ``final_src``
-  (``final_src[final_keys[p]] = p``).
+- the runtime key sort (or the TPU router of ``ops/permute.py``, K4 and
+  K5) that delivers each level's entries to their positions becomes a map
+  composed here from the positions, ``src[keys[k]] = k``
+  (`position_map`), and is applied where it costs nothing per call. Level
+  1's input comes in position order: the stream format's products
+  a_k*x[col_k] have static values and columns, which it lays out by this
+  map once, on the host, so level 1 carries no map on the card. Each
+  deeper level's K3 reads its input through its map (``in[src[p]]``, the
+  kernel's `src` entry points);
+- every level's outputs go to one buffer, back to back (level i's at
+  ``out_offset``), so a deeper level's map points into the buffer and the
+  terminal outputs need no concatenation;
+- the final n-sized key sort becomes one gather from that buffer by
+  ``final_src`` (``ops/permute.apply_permute``, K4's kernel).
+
+Before it ships a map, the plan checks that every position a run reads
+has a source and every source is read (`_check_sources`), so that K3
+never reads a position that holds nothing.
 
 Not ported: ``build_stream_sum_uniform`` (the SPMD plan of the sharded
 stream, ROADMAP Queue 1 item 9), the router builds of ``_attach_perms``,
@@ -43,16 +55,22 @@ from ellspmv_tpu_torch.ops.ell_cuda import check_tensors
 from ellspmv_tpu_torch.ops.permute import (BLOCK, apply_permute,
                                            gather_from_targets)
 
-#: Kernel launches made by `stream_sum` in this process.
+#: Kernel launches made by `stream_sum` in this process: of the entry points
+#: that read the stream in place (`launches`) and of those that read it
+#: through a map (`src_launches`).
 launches = 0
+src_launches = 0
 
 _I32_SENTINEL = np.int32(np.iinfo(np.int32).max)   # a key with no position
 G = 8                # 128-row groups per tile (R = G*128 = 1024)
 R = G * 128
 
 Q = 8                # kernel blocks per subtile, of R // Q outputs each
-#: The argument types of the K3 entry points of ``csrc/stream_sum.cu``.
+#: The argument types of the K3 entry points of ``csrc/stream_sum.cu``:
+#: ``stream_sum_<type>`` and, with the map, ``stream_sum_src_<type>``.
 SUM_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int64,) + (ctypes.c_void_p,)
+SUM_SRC_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int64,)
+                    + (ctypes.c_void_p,))
 
 _VALUE_TAGS = {torch.float64: "f64", torch.float32: "f32"}
 
@@ -125,12 +143,16 @@ class SumLevel:
     out_len: int
     multi_len: int          # split rows' outputs: the next level's input
     in_len: int = 0         # entries in the level's input
-    src: torch.Tensor | None = None       # (in_rows*128,) int32 gather map
+    # (in_rows*128,) int32: each position's source in the plan's output
+    # buffer, -1 at the gaps; None for level 1 (delivered in position order)
+    src: torch.Tensor | None = None
     table: SumTable | None = None
+    out_offset: int = 0     # where the level's outputs start in the buffer
 
     def to(self, device) -> "SumLevel":
-        return dataclasses.replace(self, src=self.src.to(device),
-                                   table=self.table.to(device))
+        return dataclasses.replace(
+            self, src=None if self.src is None else self.src.to(device),
+            table=self.table.to(device))
 
 
 @dataclasses.dataclass
@@ -141,7 +163,14 @@ class StreamSumPlan:
     # column-chunked level 1: each chunk's BLOCK-aligned stream base, C+1
     # cumulative entries; () when unchunked
     chunk_bases: tuple = ()
-    final_src: torch.Tensor | None = None   # (num_rows,) int32 gather map
+    # (num_rows,) int32: each row's sum in the output buffer, -1 for none
+    final_src: torch.Tensor | None = None
+    buffer_len: int = 0          # every level's outputs, back to back
+
+    @property
+    def in_positions(self) -> int:
+        """The length of level 1's input in position order."""
+        return self.levels[0].in_rows * 128
 
     def to(self, device) -> "StreamSumPlan":
         return dataclasses.replace(
@@ -583,21 +612,66 @@ def _block_schedule(slot_ptr: np.ndarray, count: np.ndarray,
     return order, np.asarray(slot_ptr)[order // parts], runs[order]
 
 
-def _attach_gathers(plan: StreamSumPlan) -> None:
-    """Compose each level's gather map from its entry positions (the gap
-    positions stay -1) and the final one from the final keys, and build
-    each level's kernel table; all on the CPU."""
-    for lv in plan.levels:
-        keys = np.asarray(lv.keys)[:lv.in_len]
-        target = np.where(keys == _I32_SENTINEL, np.int64(-1),
-                          keys.astype(np.int64))
-        lv.src = torch.from_numpy(gather_from_targets(
-            target, lv.in_rows * 128, validate=False))
-        lv.table = _sum_table(lv.buckets)
+def position_map(level: SumLevel) -> np.ndarray:
+    """The map that delivers a level's input entries to its positions: an
+    int32 array of ``in_rows * 128`` with ``src[keys[k]] = k``, and -1 at
+    the positions no entry takes (the alignment gaps)."""
+    keys = np.asarray(level.keys)[:level.in_len]
+    target = np.where(keys == _I32_SENTINEL, np.int64(-1),
+                      keys.astype(np.int64))
+    return gather_from_targets(target, level.in_rows * 128, validate=False)
+
+
+def final_map(plan: StreamSumPlan) -> np.ndarray:
+    """The map from each row to its sum among the levels' terminal outputs
+    taken in level order (``final_src[final_keys[p]] = p``), -1 for none."""
     fk = np.asarray(plan.final_keys)
     target = np.where(fk == _I32_SENTINEL, np.int64(-1), fk.astype(np.int64))
-    plan.final_src = torch.from_numpy(gather_from_targets(
-        target, plan.num_rows, validate=False))
+    return gather_from_targets(target, plan.num_rows, validate=False)
+
+
+def _check_sources(table: SumTable, src: np.ndarray) -> None:
+    """Raise unless the positions the table's runs read (``run_start + r``,
+    r below the run's count) are exactly those `src` gives a source: K3
+    reads no position that holds nothing, and drops no entry."""
+    count = table.run_count.numpy().astype(np.int64)
+    first = np.repeat(table.run_start.numpy().astype(np.int64), count)
+    lane = np.arange(len(first)) - np.repeat(np.cumsum(count) - count,
+                                             count)
+    live = first + lane
+    if len(live) and (live.max() >= len(src) or (src[live] < 0).any()):
+        raise ValueError("stream-sum plan: a position that a run reads has "
+                         "no source")
+    if len(live) != int((src >= 0).sum()):
+        raise ValueError("stream-sum plan: an entry's position lies outside "
+                         "every run")
+
+
+def _attach_maps(plan: StreamSumPlan) -> None:
+    """Build each level's kernel table, check each level's map against it,
+    place the levels' outputs in one buffer, and compose each deeper
+    level's map and the final one into that buffer; all on the CPU."""
+    offset = 0
+    terminal = []       # buffer index of each terminal output, level order
+    for i, lv in enumerate(plan.levels):
+        lv.table = _sum_table(lv.buckets)
+        src = position_map(lv)
+        _check_sources(lv.table, src)
+        if i > 0:    # input k is output k of the level before
+            lv.src = torch.from_numpy(np.where(
+                src >= 0, src + plan.levels[i - 1].out_offset,
+                -1).astype(np.int32))
+        lv.out_offset = offset
+        terminal.append(np.arange(offset + lv.multi_len, offset + lv.out_len,
+                                  dtype=np.int64))
+        offset += lv.out_len
+    if offset >= np.iinfo(np.int32).max:
+        raise ValueError("stream-sum output buffer exceeds int32")
+    plan.buffer_len = offset
+    terminal = np.concatenate(terminal)
+    fm = final_map(plan)
+    plan.final_src = torch.from_numpy(np.where(
+        fm >= 0, terminal[np.maximum(fm, 0)], -1).astype(np.int32))
 
 
 def build_stream_sum(dest: np.ndarray, n_rows: int, cap: int = 128,
@@ -629,7 +703,7 @@ def build_stream_sum(dest: np.ndarray, n_rows: int, cap: int = 128,
                          final_keys=np.concatenate([lv.tkeys
                                                     for lv in levels]),
                          num_rows=n_rows, chunk_bases=chunk_bases)
-    _attach_gathers(plan)
+    _attach_maps(plan)
     return plan
 
 
@@ -637,9 +711,11 @@ def build_stream_sum(dest: np.ndarray, n_rows: int, cap: int = 128,
 # The segmented sums and the pipeline
 # --------------------------------------------------------------------------
 
-def stream_sum_torch(table: SumTable, stream: torch.Tensor) -> torch.Tensor:
+def stream_sum_torch(table: SumTable, stream: torch.Tensor,
+                     src: torch.Tensor | None = None) -> torch.Tensor:
     """The plain PyTorch version of the kernel: per subtile, its runs added
-    in order into one accumulator per output, as masked gathers."""
+    in order into one accumulator per output, as masked gathers; each
+    position p read as ``stream[p]``, or as ``stream[src[p]]`` given `src`."""
     U = table.num_subtiles
     r = torch.arange(R, device=stream.device)
     first, last = table.slot_ptr[:-1].long(), table.slot_ptr[1:].long()
@@ -653,18 +729,20 @@ def stream_sum_torch(table: SumTable, stream: torch.Tensor) -> torch.Tensor:
         pos = table.run_start[run].long()[:, None] + r
         mask = r < count[:, None]
         pos = torch.where(mask, pos, 0)
+        if src is not None:
+            pos = torch.where(mask, src[pos].long(), 0)
         acc = acc + torch.where(mask, stream[pos], 0)
     return acc.reshape(-1)
 
 
-def _check(table: SumTable, stream: torch.Tensor):
+def _check(table: SumTable, stream: torch.Tensor, src, out):
     if stream.dtype not in _VALUE_TAGS:
         raise TypeError(f"stream_sum: unsupported stream dtype "
                         f"{stream.dtype}")
     if stream.dim() != 1:
         raise ValueError("stream_sum: the stream must be a vector")
     blocks = (Q * table.num_subtiles,)
-    check_tensors("stream_sum", stream.device, [
+    named = [
         ("slot_ptr", table.slot_ptr, tuple(table.slot_ptr.shape),
          torch.int32),
         ("run_start", table.run_start, tuple(table.run_start.shape),
@@ -674,65 +752,94 @@ def _check(table: SumTable, stream: torch.Tensor):
         ("order", table.order, blocks, torch.int32),
         ("block_first", table.block_first, blocks, torch.int32),
         ("block_runs", table.block_runs, blocks, torch.int32),
-        ("stream", stream, tuple(stream.shape), stream.dtype)])
+        ("stream", stream, tuple(stream.shape), stream.dtype)]
+    if src is not None:
+        if src.dim() != 1:
+            raise ValueError("stream_sum: src must be a vector")
+        named.append(("src", src, tuple(src.shape), torch.int32))
+    if out is not None:
+        named.append(("out", out, (table.num_subtiles * R,), stream.dtype))
+    check_tensors("stream_sum", stream.device, named)
 
 
-def stream_sum(table: SumTable, stream: torch.Tensor) -> torch.Tensor:
-    """One level's segmented sums: a new vector of ``num_subtiles * 1024``
-    outputs in the stream's type (float64 or float32). The table's runs must
-    lie inside the stream; a level's plan guarantees it for a stream of
-    ``in_rows * 128`` values."""
-    global launches
-    _check(table, stream)
+def stream_sum(table: SumTable, stream: torch.Tensor,
+               src: torch.Tensor | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One level's segmented sums, ``num_subtiles * 1024`` outputs in the
+    stream's type (float64 or float32), written to `out` (a contiguous
+    vector, which may be a slice of a larger buffer) or to a new vector;
+    returns them. Position p of the level is read as ``stream[p]``, or
+    through the map as ``stream[src[p]]``. The table's runs must lie inside
+    the stream (or `src`), and every position they read must have a source
+    in `src`; a level's plan guarantees both for ``in_rows * 128``
+    positions."""
+    global launches, src_launches
+    _check(table, stream, src, out)
     if stream.device.type == "cpu":
-        return stream_sum_torch(table, stream)
+        sums = stream_sum_torch(table, stream, src)
+        return sums if out is None else out.copy_(sums)
     if stream.device.type != "cuda":
         raise ValueError(f"stream_sum: no kernel for tensors on "
                          f"{stream.device}")
     if table.num_subtiles == 0:
-        return torch.empty(0, dtype=stream.dtype, device=stream.device)
+        return torch.empty(0, dtype=stream.dtype, device=stream.device) \
+            if out is None else out
     _build.check_constants(("stream_sum_rows", R), ("stream_sum_parts", Q))
-    symbol, args, out = kernel_call(table, stream)
-    fn, error_string = _build.entry(symbol, SUM_ARGTYPES)
+    symbol, args, out = kernel_call(table, stream, src, out)
+    fn, error_string = _build.entry(
+        symbol, SUM_ARGTYPES if src is None else SUM_SRC_ARGTYPES)
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"stream_sum kernel launch failed: "
                            f"{error_string(err).decode()} (error {err})")
-    launches += 1
+    if src is None:
+        launches += 1
+    else:
+        src_launches += 1
     return out
 
 
-def kernel_call(table: SumTable, stream: torch.Tensor):
-    """K3's call for a checked table and stream on a card: the name of its
-    entry point in ``csrc/stream_sum.cu``, the arguments (`SUM_ARGTYPES`,
-    one block per entry of ``table.order``) and the new output they fill,
+def kernel_call(table: SumTable, stream: torch.Tensor,
+                src: torch.Tensor | None = None,
+                out: torch.Tensor | None = None):
+    """K3's call for a checked table, stream, map and output on a card: the
+    name of its entry point in ``csrc/stream_sum.cu``, the arguments
+    (`SUM_ARGTYPES`, or `SUM_SRC_ARGTYPES` with `src`; one block per entry
+    of ``table.order``) and the output they fill (`out`, or a new vector),
     on the current stream. The wrapper launches it; scripts that time
     builds of variant sources call the same entry point of their own
     library."""
-    out = torch.empty(table.num_subtiles * R, dtype=stream.dtype,
-                      device=stream.device)
+    if out is None:
+        out = torch.empty(table.num_subtiles * R, dtype=stream.dtype,
+                          device=stream.device)
+    maps = () if src is None else (src.data_ptr(),)
     args = (table.run_start.data_ptr(), table.run_count.data_ptr(),
             table.order.data_ptr(), table.block_first.data_ptr(),
-            table.block_runs.data_ptr(), stream.data_ptr(), out.data_ptr(),
-            table.order.numel(),
+            table.block_runs.data_ptr(), *maps, stream.data_ptr(),
+            out.data_ptr(), table.order.numel(),
             torch.cuda.current_stream(stream.device).cuda_stream)
-    return f"stream_sum_{_VALUE_TAGS[stream.dtype]}", args, out
+    kind = "stream_sum" if src is None else "stream_sum_src"
+    return f"{kind}_{_VALUE_TAGS[stream.dtype]}", args, out
 
 
 def apply_stream_sum(plan: StreamSumPlan, v: torch.Tensor) -> torch.Tensor:
-    """Run the plan on the value stream `v` (length of level 1's input):
-    the per-row sums in natural row order, in v's type.
+    """Run the plan on `v`, level 1's input in position order
+    (``plan.in_positions`` values; `position_map` of level 1 delivers a
+    stream of entries there): the per-row sums in natural row order, in v's
+    type.
 
-    Each level gathers its input into position order (`apply_permute`),
-    sums it (`stream_sum`), keeps its terminal outputs and passes its multi
-    prefix on as the next level's input; one final gather puts the terminal
-    outputs of all levels in row order."""
-    parts = []
+    Level 1 sums `v` in place; each deeper level sums its input through its
+    map from the output buffer, where every level writes its outputs; one
+    final gather (`apply_permute`) takes each row's sum from the buffer."""
+    if tuple(v.shape) != (plan.in_positions,):
+        raise ValueError(f"apply_stream_sum: level 1's input has shape "
+                         f"{tuple(v.shape)}, expected "
+                         f"({plan.in_positions},)")
+    buffer = torch.empty(plan.buffer_len, dtype=v.dtype, device=v.device)
     for lv in plan.levels:
-        if tuple(v.shape) != (lv.in_len,):
-            raise ValueError(f"apply_stream_sum: a level's input has shape "
-                             f"{tuple(v.shape)}, expected ({lv.in_len},)")
-        out = stream_sum(lv.table, apply_permute(lv.src, v))
-        parts.append(out[lv.multi_len:])
-        v = out[:lv.multi_len]
-    return apply_permute(plan.final_src, torch.cat(parts))
+        out = buffer[lv.out_offset:lv.out_offset + lv.out_len]
+        if lv.src is None:
+            stream_sum(lv.table, v, out=out)
+        else:
+            stream_sum(lv.table, buffer, lv.src, out)
+    return apply_permute(plan.final_src, buffer)

@@ -12,7 +12,9 @@ import torch
 
 from ellspmv_tpu.formats.auto import auto_from_coo as jax_auto_from_coo
 from ellspmv_tpu.models.generators import banded_random, fem_mesh_2d, poisson2d
+from ellspmv_tpu_torch.bench.traffic import stream_bytes_estimate
 from ellspmv_tpu_torch.formats import ell as port_ell
+from ellspmv_tpu_torch.formats import stream as port_stream
 from ellspmv_tpu_torch.formats.auto import auto_from_coo
 from ellspmv_tpu_torch.formats.coo import CooMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
@@ -101,49 +103,109 @@ def test_padding_blowup_is_not_yet_ported():
     np.testing.assert_array_equal(got, want)
 
 
-def _rows_of_16_and_one_of_63(num_columns):
+def _rows_of_16_and_one_of(longest, num_columns):
     rng = np.random.RandomState(0)
     n = 20_000
-    rows = np.concatenate([np.repeat(np.arange(n), 16), np.zeros(47)])
+    rows = np.concatenate([np.repeat(np.arange(n), 16),
+                           np.zeros(longest - 16)])
     cols = rng.randint(0, num_columns, len(rows))
     return (n, num_columns, rows.astype(np.int32), cols.astype(np.int32),
             rng.randn(len(rows)))
 
 
+def _stream_ms(coo, value_bytes, narrow):
+    n, m = coo.num_rows, coo.num_columns
+    return stream_bytes_estimate(coo.num_nonzeros, n, m, value_bytes,
+                                 narrow) / 3.35e12 * 1e3
+
+
 def test_stream_when_it_moves_fewer_bytes(monkeypatch):
-    # rows of 16 entries and one of 63: ELLPACK pads 3.9x (accepted). Below
-    # that gate narrow ELL columns (2 bytes a slot) always move fewer bytes
-    # than the stream format, so the columns spread over 70,000: every
-    # block of 256 rows then spans more than 65,536 of them, the ELL keeps
-    # 4-byte columns, and in f32 its 8 bytes per slot cost more than the
-    # stream's bytes. The JAX chooser takes ELL here by its TPU prices (a
+    # rows of 16 entries and one of 63: ELLPACK pads 3.9x (accepted). The
+    # columns spread over 70,000, so every block of 256 rows spans more
+    # than 65,536 of them and the ELL keeps 4-byte columns. The stream's
+    # products, in the sum plan's position order, hold the s-th column of
+    # each row in run s, which keeps their blocks under 65,536: priced by
+    # the layout they took (2-byte columns), the stream moves fewer bytes
+    # in both types. The JAX chooser takes ELL here by its TPU prices (a
     # known divergence, ROADMAP F8)
     monkeypatch.setenv("HBM_PEAK_GBPS", "3350")
     monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
-    coo = CooMatrix(*_rows_of_16_and_one_of_63(70_000))
+    coo = CooMatrix(*_rows_of_16_and_one_of(63, 70_000))
     assert not port_ell.narrow_columns_fit(coo.rowidx, coo.colidx, 20_000,
                                            70_000, 63)
-    sm = auto_from_coo(coo, value_dtype="float32")
-    assert isinstance(sm, StreamMatrix), sm._auto_reason
-    assert sm._auto_reason.startswith("stream (est ")
-    assert " beats ELL (est " in sm._auto_reason
-    ell = auto_from_coo(coo, value_dtype="float64")
-    assert isinstance(ell, EllMatrix), ell._auto_reason
-    assert ell.lcol is None
-    want = jax_auto_from_coo(coo, value_dtype="float32")
-    assert want._auto_choice == "ell"
+    for precision in ("float32", "float64"):
+        sm = auto_from_coo(coo, value_dtype=precision)
+        assert isinstance(sm, StreamMatrix), sm._auto_reason
+        assert sm.prod.lcol is not None
+        ms = _stream_ms(coo, sm.values.element_size(), True)
+        assert sm._auto_reason.startswith(f"stream (est {ms:.3f} ms) beats "
+                                          "ELL (est ")
+        want = jax_auto_from_coo(coo, value_dtype=precision)
+        assert want._auto_choice == "ell"
 
 
 def test_narrow_ell_beats_the_stream_as_in_jax(monkeypatch):
-    # the same rows with their columns in 20,000: the narrow ELL's 6 bytes
-    # a slot in f32 beat the stream format, and both choosers take ELL
+    # rows of 16 entries and one of 63, columns in 20,000: ELLPACK pads 3.9x
+    # (accepted) and keeps 2-byte columns. The JAX chooser takes ELL. The
+    # port's byte rule takes the stream format in both types: its products
+    # in position order keep 2-byte columns too, and it moves no padding
+    # (f32: 5,042,108 bytes against the narrow ELL's 7,720,316). Between
+    # about 2.5x padding (2.8x in fp64) and the blowup gate the two
+    # choosers part (ROADMAP F8)
+    monkeypatch.setenv("HBM_PEAK_GBPS", "3350")
     monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
-    coo = CooMatrix(*_rows_of_16_and_one_of_63(20_000))
+    coo = CooMatrix(*_rows_of_16_and_one_of(63, 20_000))
+    assert port_ell.narrow_columns_fit(coo.rowidx, coo.colidx, 20_000,
+                                       20_000, 63)
+    for precision in ("float32", "float64"):
+        sm = auto_from_coo(coo, value_dtype=precision)
+        assert isinstance(sm, StreamMatrix), sm._auto_reason
+        assert sm.prod.lcol is not None
+        ms = _stream_ms(coo, sm.values.element_size(), True)
+        assert sm._auto_reason.startswith(f"stream (est {ms:.3f} ms) beats "
+                                          "ELL (est ")
+        want = jax_auto_from_coo(coo, value_dtype=precision)
+        assert want._auto_choice == "ell" and want.num_rows == 20_000
+    assert stream_bytes_estimate(coo.num_nonzeros, 20_000, 20_000, 4,
+                                 True) == 5_042_108
+
+
+def test_narrow_ell_beats_even_the_least_stream_price(monkeypatch):
+    # rows of 16 and one of 24, columns in 20,000: the narrow ELL's 6 bytes
+    # a slot in f32 beat even the stream's least price (2-byte product
+    # columns), so no stream layout is built, and both choosers take ELL
+    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
+
+    def no_stream(*args, **kwargs):
+        raise AssertionError("the stream format was laid out to be priced")
+    monkeypatch.setattr(port_stream, "stream_layout", no_stream)
+    coo = CooMatrix(*_rows_of_16_and_one_of(24, 20_000))
     got = auto_from_coo(coo, value_dtype="float32")
     assert isinstance(got, EllMatrix) and got.lcol is not None
-    assert "; ELL beats the stream format (" in got._auto_reason
+    assert "; ELL beats the stream format (at least " in got._auto_reason
     assert jax_auto_from_coo(coo, value_dtype="float32")._auto_choice == \
         "ell"
+
+
+def test_ell_when_the_built_products_are_wide(monkeypatch):
+    # rows of 16 and one of 37, columns over 200,000: with 2-byte product
+    # columns the stream would beat the wide ELL, so its plan and products
+    # are laid out on the host; their blocks span more than 65,536 columns
+    # even in position order, at 4 bytes a column the stream costs more
+    # than ELL, and the products' ELL is never built
+    monkeypatch.setenv("HBM_PEAK_GBPS", "3350")
+
+    def no_products(*args, **kwargs):
+        raise AssertionError("the stream format was built, not chosen")
+    monkeypatch.setattr(port_stream, "stream_from_layout", no_products)
+    coo = CooMatrix(*_rows_of_16_and_one_of(37, 200_000))
+    assert _stream_ms(coo, 4, True) < _stream_ms(coo, 4, False)
+    assert not port_stream.stream_layout(coo).products_narrow()
+    got = auto_from_coo(coo, value_dtype="float32")
+    assert isinstance(got, EllMatrix) and got.lcol is None, got._auto_reason
+    assert got._auto_reason.endswith(
+        f"; ELL beats the stream format (est "
+        f"{_stream_ms(coo, 4, False):.3f} ms)")
 
 
 def test_bf16_may_choose_dia():

@@ -105,6 +105,37 @@ def test_verbose_lines(capsys):
     assert "Gnz/s" in err and "Gflop/s" in err and "GB/s" in err
 
 
+@pytest.mark.parametrize("round_trip", [10.0, 0.0])
+def test_dispatch_warning_as_jax(round_trip, monkeypatch, capsys):
+    """With the launch round trip pinned, `-v` prints the JAX program's
+    warning line (its `_dispatch_warning` text for the same best time and
+    round trip) exactly when the best per_iter time is under 3x the round
+    trip; without `-v` it prints none."""
+    from ellspmv_tpu.bench.harness import _dispatch_warning as jax_warning
+    from ellspmv_tpu_torch.bench import harness
+    assert harness.dispatch_round_trip(torch.device("cpu")) > 0
+    seen = []
+    real = harness._dispatch_warning
+
+    def spy(best, dispatch):
+        seen.append((best, dispatch))
+        return real(best, dispatch)
+    monkeypatch.setattr(harness, "dispatch_round_trip",
+                        lambda device: round_trip)
+    monkeypatch.setattr(harness, "_dispatch_warning", spy)
+    rc, out, err = port(["-v", "--repeat=2", TEST_MTX], capsys)
+    assert rc == 0 and len(seen) == 1 and seen[0][1] == round_trip
+    want = jax_warning(*seen[0])
+    lines = [line for line in err.splitlines() if "warning" in line]
+    if round_trip:
+        assert want is not None
+        assert lines == [f"ellspmv: warning: {want}"]
+    else:
+        assert want is None and lines == []
+    rc, out, err = port(["--repeat=2", TEST_MTX], capsys)
+    assert rc == 0 and "warning" not in err
+
+
 @pytest.mark.parametrize("argv,shown", [
     (["--format=sell"], "--format=sell"),
     (["--format=hybrid"], "--format=hybrid"),

@@ -3,8 +3,11 @@
 generator bit for bit, the sum plans field for field, the plain segmented
 sums against the interpret-mode Pallas kernel exactly, the gather against
 both TPU routes, and `stream_spmv` against the NumPy oracle and the JAX
-`stream_spmv`. The JAX plans are built with ``ELLSPMV_TPU_NO_PERMUTE`` set,
-so that they keep the positions (sort keys) that the port's gathers are
+`stream_spmv`; and the port's delivery of each level's entries (products
+laid out in position order, sums read through a map, one output buffer)
+bit for bit against the pipeline that gathers every level into position
+order first. The JAX plans are built with ``ELLSPMV_TPU_NO_PERMUTE`` set,
+so that they keep the positions (sort keys) that the port's maps are
 composed from; the JAX knobs are set in the environment, the port's are
 arguments. The kernels themselves run only on a card (the ``cuda`` tests
 below, and ``chip_smoke.py``)."""
@@ -25,13 +28,19 @@ from ellspmv_tpu.ops import stream_sum as jax_stream_sum
 from ellspmv_tpu.ops.reference import coo_spmv_numpy
 from ellspmv_tpu_torch.bench.harness import SpmvMetrics, benchmark_spmv
 from ellspmv_tpu_torch.bench.traffic import (estimate_actual_bytes,
-                                             stream_bytes_estimate)
+                                             gather_bytes,
+                                             stream_bytes_estimate,
+                                             sum_bytes)
 from ellspmv_tpu_torch.formats.coo import CooMatrix
-from ellspmv_tpu_torch.formats.stream import (StreamMatrix, products_narrow,
-                                              stream_from_coo, stream_spmv)
+from ellspmv_tpu_torch.formats.stream import (StreamMatrix,
+                                              column_order_products,
+                                              stream_from_coo,
+                                              stream_from_layout,
+                                              stream_layout, stream_spmv)
 from ellspmv_tpu_torch.models.generators import power_law
 from ellspmv_tpu_torch.ops import permute, stream_sum
 from ellspmv_tpu_torch.ops.dispatch import spmv
+from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv, ell_spmv_torch
 from tests.conftest import random_coo
 
 # Per-row tolerance of stream_spmv against the oracle, relative to
@@ -200,16 +209,36 @@ def _src_of(keys, in_len, n_out):
 def test_gather_maps_invert_the_positions(case):
     dest, n, cap, starts = PLAN_CASES[case]()
     plan = stream_sum.build_stream_sum(dest, n, cap=cap, chunk_starts=starts)
-    for lv in plan.levels:
-        assert lv.src.dtype == torch.int32
+    offsets = []
+    for i, lv in enumerate(plan.levels):
+        src = stream_sum.position_map(lv)
         np.testing.assert_array_equal(
-            lv.src.numpy(), _src_of(lv.keys, lv.in_len, lv.in_rows * 128))
+            src, _src_of(lv.keys, lv.in_len, lv.in_rows * 128))
         # the gap positions after the entries get no element
-        assert (lv.src.numpy()[lv.keys[lv.in_len:]] == -1).all()
-    # every row terminates exactly once
+        assert (src[lv.keys[lv.in_len:]] == -1).all()
+        # level 1 carries no map; a deeper level's points into the buffer,
+        # at the outputs of the level before
+        if i == 0:
+            assert lv.src is None
+        else:
+            assert lv.src.dtype == torch.int32
+            got = lv.src.numpy()
+            np.testing.assert_array_equal(
+                got, np.where(src >= 0, src + offsets[-1], -1))
+        offsets.append(lv.out_offset)
+    assert offsets == list(np.cumsum([0] + [lv.out_len for lv in
+                                            plan.levels])[:-1])
+    assert plan.buffer_len == sum(lv.out_len for lv in plan.levels)
+    # every row terminates exactly once, at a terminal output in the buffer
     fs = plan.final_src.numpy()
     assert (fs >= 0).all() and len(np.unique(fs)) == n
-    np.testing.assert_array_equal(plan.final_keys[fs], np.arange(n))
+    terminal = np.concatenate([np.arange(lv.out_offset + lv.multi_len,
+                                         lv.out_offset + lv.out_len)
+                               for lv in plan.levels])
+    concat = np.searchsorted(terminal, fs)
+    np.testing.assert_array_equal(terminal[concat], fs)
+    np.testing.assert_array_equal(plan.final_keys[concat], np.arange(n))
+    np.testing.assert_array_equal(concat, stream_sum.final_map(plan))
 
 
 # name -> (COO factory, JAX environment, port keyword arguments)
@@ -392,11 +421,15 @@ def test_apply_stream_sum_exact_small_ints(case):
     vals = np.random.RandomState(10).randint(-8, 9, len(dest))
     want = np.bincount(dest[dest >= 0], weights=vals[dest >= 0],
                        minlength=n)
+    # level 1 takes its entries in position order
+    src = torch.from_numpy(stream_sum.position_map(plan.levels[0]))
     for dtype in (torch.float64, torch.float32):
-        got = stream_sum.apply_stream_sum(plan,
-                                          torch.from_numpy(vals).to(dtype))
+        v = permute.apply_permute_torch(src, torch.from_numpy(vals).to(dtype))
+        got = stream_sum.apply_stream_sum(plan, v)
         assert got.dtype == dtype
         np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="level 1's input"):
+        stream_sum.apply_stream_sum(plan, torch.zeros(plan.in_positions + 1))
 
 
 def _general_targets():
@@ -462,14 +495,22 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     dest, n, cap, starts = _dest_long_rows()
     plan = stream_sum.build_stream_sum(dest, n)
     lv = plan.levels[0]
+    src = torch.from_numpy(stream_sum.position_map(lv))
     v = torch.from_numpy(np.random.RandomState(13).randn(lv.in_len))
-    before = (permute.launches, stream_sum.launches)
-    s = permute.apply_permute(lv.src, v)
-    assert torch.equal(s, permute.apply_permute_torch(lv.src, v))
+    before = (permute.launches, stream_sum.launches, stream_sum.src_launches)
+    s = permute.apply_permute(src, v)
+    assert torch.equal(s, permute.apply_permute_torch(src, v))
     out = stream_sum.stream_sum(lv.table, s)
     assert torch.equal(out, stream_sum.stream_sum_torch(lv.table, s))
     assert out.shape == (lv.out_len,)
-    assert (permute.launches, stream_sum.launches) == before
+    # through the map, into a slice of a larger buffer
+    buffer = torch.full((lv.out_len + 5,), np.nan, dtype=torch.float64)
+    got = stream_sum.stream_sum(lv.table, v, src, buffer[3:-2])
+    assert got.data_ptr() == buffer[3:].data_ptr()
+    assert torch.equal(buffer[3:-2], out)
+    assert buffer[:3].isnan().all() and buffer[-2:].isnan().all()
+    assert (permute.launches, stream_sum.launches,
+            stream_sum.src_launches) == before
 
 
 @pytest.mark.parametrize("case", ["src_dtype", "payload_dtype", "shape",
@@ -496,12 +537,14 @@ def test_permute_wrapper_refuses(case):
 
 
 @pytest.mark.parametrize("case", ["dtype", "table_dtype", "mixed_device",
-                                  "meta_device"])
+                                  "meta_device", "src_dtype", "src_device",
+                                  "out_shape", "out_dtype"])
 def test_stream_sum_wrapper_refuses(case):
     dest, n, cap, starts = _dest_random()
     lv = stream_sum.build_stream_sum(dest, n).levels[0]
     table = lv.table
     stream = torch.zeros(lv.in_rows * 128, dtype=torch.float64)
+    src = out = None
     err = ValueError
     if case == "dtype":
         stream, err = stream.to(torch.bfloat16), TypeError
@@ -512,8 +555,16 @@ def test_stream_sum_wrapper_refuses(case):
         stream = stream.to("meta")
     elif case == "meta_device":
         table, stream = table.to("meta"), stream.to("meta")
+    elif case.startswith("src"):
+        src = torch.from_numpy(stream_sum.position_map(lv))
+        src, err = ((src.long(), TypeError) if case == "src_dtype"
+                    else (src.to("meta"), ValueError))
+    elif case == "out_shape":
+        out = torch.empty(lv.out_len + 1, dtype=torch.float64)
+    else:
+        out, err = torch.empty(lv.out_len, dtype=torch.float32), TypeError
     with pytest.raises(err):
-        stream_sum.stream_sum(table, stream)
+        stream_sum.stream_sum(table, stream, src, out)
 
 
 def test_sum_position_space_guard(monkeypatch):
@@ -683,22 +734,258 @@ def test_traffic_counts_the_plan():
     coo = power_law(20_000, 8, seed=6)
     sm = stream_from_coo(coo, value_dtype="float64")
     plan = sm.ddsum
+    slots = plan.in_positions
+    assert sm.prod.padded_rows == slots >= sm.prod_len
     exact = estimate_actual_bytes(sm)
-    # more than K1's slots alone; the chooser's estimate leaves out the
-    # deeper levels and the pads, so it lies a little below the count
-    assert exact > sm.prod_len * 20
-    narrow = products_narrow(coo.colidx, coo.num_columns)
-    assert narrow and sm.prod.lcol is not None
+    # K1 runs over one slot per position of level 1; 20,000 columns keep
+    # every block narrow: 2 bytes a slot and a base per 256
+    assert sm.prod.lcol is not None
+    k1 = slots * (8 + 2 + 8) + 4 * -(-slots // 256) + coo.num_columns * 8
+    assert estimate_actual_bytes(sm.prod, with_y=False) == k1
+    # level 1's K3 reads the products in place, the deeper levels read
+    # through their maps, one gather ends it; no gather per level and no
+    # concatenation
+    sums = sum(sum_bytes(lv.table, 8, with_map=i > 0)
+               for i, lv in enumerate(plan.levels))
+    assert len(plan.levels) >= 2
+    assert exact == (k1 + sums + gather_bytes(plan.final_src, 8)
+                     + coo.num_rows * 8)
+    # the chooser's estimate leaves out the deeper levels and the pads, so
+    # it lies a little below the count
     est = stream_bytes_estimate(coo.num_nonzeros, coo.num_rows,
-                                coo.num_columns, 8, narrow)
+                                coo.num_columns, 8, True)
     assert 0.9 * exact <= est <= exact, (est, exact)
-    # K1 reads the products' columns at 2 bytes and a base per 256
-    assert estimate_actual_bytes(sm.prod, with_y=False) == (
-        sm.prod_len * (8 + 2 + 8) + 4 * -(-sm.prod_len // 256)
-        + coo.num_columns * 8)
     live = sum(int(lv.table.run_count.sum()) for lv in plan.levels)
-    assert live == sum(int((lv.src >= 0).sum()) for lv in plan.levels)
+    assert live == sum(int((stream_sum.position_map(lv) >= 0).sum())
+                       for lv in plan.levels)
     assert isinstance(sm, StreamMatrix) and sm.worksize == coo.num_nonzeros
+
+
+# --------------------------------------------------------------------------
+# The delivery of each level's entries, against gathering them first
+# --------------------------------------------------------------------------
+
+def _gather_pipeline(plan, entries, gather=permute.apply_permute_torch,
+                     sums=stream_sum.stream_sum_torch):
+    """The plan's sums as the port first ran them: per level a gather of its
+    entries into position order (`position_map`), then the sums; the
+    levels' terminal outputs concatenated, and one gather into row order
+    (`final_map`). `gather` and `sums` are the plain versions or the
+    kernels."""
+    device = entries.device
+    parts, v = [], entries
+    for lv in plan.levels:
+        src = torch.from_numpy(stream_sum.position_map(lv)).to(device)
+        out = sums(lv.table, gather(src, v))
+        parts.append(out[lv.multi_len:])
+        v = out[:lv.multi_len]
+    final = torch.from_numpy(stream_sum.final_map(plan)).to(device)
+    return gather(final, torch.cat(parts))
+
+
+def _gather_pipeline_spmv(coo, sm, kw, precision, x, y, device="cpu",
+                          k1=ell_spmv_torch, **pipeline):
+    """`stream_spmv` as the port first ran it: K1 over the column-order
+    products, `_gather_pipeline`, the split diagonal and y."""
+    dtype = sm.values.dtype
+    x = x.to(dtype)
+    prod = column_order_products(coo, kw.get("separate_diagonal", False),
+                                 precision)
+    out = _gather_pipeline(sm.ddsum, k1(prod.to(device), x), **pipeline)
+    if sm.diag is not None and sm.num_columns > 0:
+        xi = torch.arange(sm.num_rows, device=x.device).clamp_(
+            max=sm.num_columns - 1)
+        out = torch.addcmul(out, sm.diag, x[xi])
+    return out if y is None else out + y.to(dtype)
+
+
+def _spmv_inputs(case, device="cpu"):
+    make, precision, with_y, kw = SPMV_CASES[case]
+    coo = make()
+    rng = np.random.RandomState(16)
+    x = torch.from_numpy(rng.rand(coo.num_columns)).to(device)
+    y = (torch.from_numpy(rng.randn(coo.num_rows)).to(device) if with_y
+         else None)
+    sm = stream_from_coo(coo, value_dtype=precision, device=device, **kw)
+    return coo, sm, kw, precision, x, y
+
+
+# the stream_spmv cases whose products differ in layout: unchunked,
+# chunked, several levels, split diagonal, fp64 and f32
+PRODUCT_CASES = ["chunked", "chunked_f32", "deep", "f32", "hubs", "rect",
+                 "separate_diagonal_rect"]
+
+
+@pytest.mark.parametrize("case", PRODUCT_CASES)
+def test_position_order_products_equal_the_gathered_column_order(case):
+    """K1 over the products laid out in level 1's position order gives the
+    level-1 stream that K1 over the column-order products and a gather
+    gave; gap slots hold 0 and the column of the slot before them."""
+    coo, sm, kw, precision, x, _ = _spmv_inputs(case)
+    x = x.to(sm.values.dtype)
+    src = torch.from_numpy(stream_sum.position_map(sm.ddsum.levels[0]))
+    col = column_order_products(coo, kw.get("separate_diagonal", False),
+                                precision)
+    want = permute.apply_permute_torch(src, ell_spmv_torch(col, x))
+    got = ell_spmv_torch(sm.prod, x)
+    assert got.shape == (sm.ddsum.in_positions,)
+    assert torch.equal(got, want)
+    gaps = (src < 0).numpy()
+    assert gaps.any() and (sm.prod.values[0].numpy()[gaps] == 0).all()
+    columns = sm.prod.columns()[0].numpy()
+    after = np.flatnonzero(gaps)
+    after = after[after > np.argmax(~gaps)]
+    np.testing.assert_array_equal(columns[after], columns[after - 1])
+
+
+@pytest.mark.parametrize("case", PRODUCT_CASES + ["wide"])
+def test_layout_knows_the_products_column_layout(case):
+    """`StreamLayout.products_narrow`, by which the chooser prices the
+    products, is the column layout the built products take; the format
+    finished from the layout is `stream_from_coo`'s; the column-order
+    yardstick spans the JAX package's `prod_len`."""
+    if case == "wide":
+        # 2,000 rows of 8 columns over 300,000: every block of 256
+        # position-order slots spans more than 65,536 columns
+        coo, precision, kw = _rng_coo(2000, 300_000, 16_000)(), "float32", {}
+    else:
+        coo, _, kw, precision, _, _ = _spmv_inputs(case)
+    split = kw.get("separate_diagonal", False)
+    layout = stream_layout(coo, **kw)
+    sm = stream_from_coo(coo, value_dtype=precision, **kw)
+    assert layout.products_narrow() == (sm.prod.lcol is not None)
+    assert layout.products_narrow() == (case != "wide")
+    got = stream_from_layout(layout, value_dtype=precision)
+    for a, b in ((got.prod.colidx, sm.prod.colidx),
+                 (got.prod.values, sm.prod.values)):
+        assert torch.equal(a, b)
+    assert (got.prod_len, got.num_nonzeros) == (sm.prod_len, sm.num_nonzeros)
+    col = column_order_products(coo, split, precision)
+    assert col.padded_rows == sm.prod_len and col.values.dtype == \
+        sm.values.dtype
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_sums_through_a_map_equal_gather_then_sum(case):
+    """`stream_sum_torch` reading position p as ``stream[src[p]]`` is bit
+    for bit the sums of the gathered stream, on level 1's map over its
+    entries and on each deeper level's map into the output buffer."""
+    dest, n, cap, starts = PLAN_CASES[case]()
+    plan = stream_sum.build_stream_sum(dest, n, cap=cap, chunk_starts=starts)
+    rng = np.random.RandomState(26)
+    for dtype in (np.float64, np.float32):
+        buffer = torch.from_numpy(rng.randn(plan.buffer_len).astype(dtype))
+        for i, lv in enumerate(plan.levels):
+            if i == 0:
+                src = torch.from_numpy(stream_sum.position_map(lv))
+                stream = torch.from_numpy(rng.randn(lv.in_len).astype(dtype))
+            else:
+                src, stream = lv.src, buffer
+            want = stream_sum.stream_sum_torch(
+                lv.table, permute.apply_permute_torch(src, stream))
+            got = stream_sum.stream_sum_torch(lv.table, stream, src)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_stream_spmv_bit_equal_to_the_gather_pipeline(case):
+    """`stream_spmv` (products in position order, sums through maps, one
+    output buffer, one gather) is bit for bit the pipeline that gathered
+    every level first; test_stream_spmv_matches_oracle and
+    test_stream_spmv_matches_jax hold the same cases to the oracle and to
+    JAX."""
+    coo, sm, kw, precision, x, y = _spmv_inputs(case)
+    got = stream_spmv(sm, x, y)
+    want = _gather_pipeline_spmv(coo, sm, kw, precision, x, y)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("how", ["dropped", "moved to a gap"])
+@pytest.mark.parametrize("level", [0, -1])
+@pytest.mark.parametrize("case", ["chunked3", "deep", "long_rows"])
+def test_plan_refuses_a_read_position_without_a_source(case, level, how):
+    """A map in which a position that a run reads has no source (its entry
+    dropped, or moved to an alignment gap) is refused before it ships."""
+    dest, n, cap, starts = PLAN_CASES[case]()
+    plan = stream_sum.build_stream_sum(dest, n, cap=cap, chunk_starts=starts)
+    lv = plan.levels[level]
+    k = int(np.flatnonzero(lv.keys[:lv.in_len] != stream_sum._I32_SENTINEL)
+            [0])
+    if how == "dropped":
+        lv.keys[k] = stream_sum._I32_SENTINEL
+    else:
+        assert len(lv.keys) > lv.in_len
+        lv.keys[k] = lv.keys[lv.in_len]
+    with pytest.raises(ValueError, match="a position that a run reads has "
+                                         "no source"):
+        stream_sum._attach_maps(plan)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PRODUCT_CASES)
+def test_position_order_products_on_card(case):
+    _needs_card()
+    coo, sm, kw, precision, x, _ = _spmv_inputs(case, "cuda")
+    x = x.to(sm.values.dtype)
+    src = torch.from_numpy(stream_sum.position_map(
+        sm.ddsum.levels[0])).cuda()
+    col = column_order_products(coo, kw.get("separate_diagonal", False),
+                                precision)
+    want = permute.apply_permute(src, ell_spmv(col.to("cuda"), x))
+    got = ell_spmv(sm.prod, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_sums_through_a_map_on_card(case):
+    _needs_card()
+    dest, n, cap, starts = PLAN_CASES[case]()
+    plan = stream_sum.build_stream_sum(dest, n, cap=cap,
+                                       chunk_starts=starts).to("cuda")
+    rng = np.random.RandomState(27)
+    for dtype in (torch.float64, torch.float32):
+        buffer = torch.from_numpy(rng.randn(plan.buffer_len)).to(
+            "cuda", dtype)
+        for i, lv in enumerate(plan.levels):
+            if i == 0:
+                src = torch.from_numpy(stream_sum.position_map(lv)).cuda()
+                stream = torch.from_numpy(rng.randn(lv.in_len)).to(
+                    "cuda", dtype)
+            else:
+                src, stream = lv.src, buffer
+            before = stream_sum.src_launches
+            got = stream_sum.stream_sum(lv.table, stream, src)
+            want = stream_sum.stream_sum(lv.table,
+                                         permute.apply_permute(src, stream))
+            torch.cuda.synchronize()
+            assert stream_sum.src_launches == before + 1
+            assert torch.equal(got, want)
+            assert torch.equal(got, stream_sum.stream_sum_torch(
+                lv.table, stream, src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_stream_spmv_bit_equal_on_card(case):
+    _needs_card()
+    coo, sm, kw, precision, x, y = _spmv_inputs(case, "cuda")
+    before = (stream_sum.launches, stream_sum.src_launches, permute.launches)
+    got = stream_spmv(sm, x, y)
+    torch.cuda.synchronize()
+    deeper = len(sm.ddsum.levels) - 1
+    assert (stream_sum.launches - before[0], stream_sum.src_launches
+            - before[1], permute.launches - before[2]) == (1, deeper, 1)
+    want = _gather_pipeline_spmv(coo, sm, kw, precision, x, y, "cuda",
+                                 k1=ell_spmv, gather=permute.apply_permute,
+                                 sums=stream_sum.stream_sum)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
