@@ -29,9 +29,13 @@ Phases, each of which exits non-zero on failure:
    level, several levels, folded buckets, column chunks, empty rows and
    subtiles of 300 runs (every level's sums in place and through its map,
    the gather by level 1's map and by the final one, and the whole plan
-   against its plain version);
+   against its plain version); ``sell_spmv`` and ``csr_spmv`` against the
+   same calls on CPU copies on every reassembly branch (a CSR tail, the
+   long-row split, the length sort with and without it, a symmetric and a
+   rectangular matrix, the one-bucket CSR repack with and without its split
+   diagonal), with y and without, one K1 launch per bucket;
 4. the ``ellspmv`` program: exact stdout on examples/test.mtx, then on a
-   fem_mesh_2d(512) file (262,144 rows) ``-v --sort-rows``,
+   fem_mesh_2d(256) file (65,536 rows) ``-v --sort-rows``,
    ``--format=dia``, ``--format=auto -v`` (which must choose DIA) and
    ``--reorder=rcm -v``, their y held against the NumPy oracle, and
    ``--format=auto --protocol=chained -v``, its y held against the same
@@ -41,7 +45,11 @@ Phases, each of which exits non-zero on failure:
    and ``--tol=1e-14 --maxiter=2 -q``, which must exit 2); then
    ``ellspmv --format=stream -v`` and ``--format=auto -v`` (which must
    choose the stream format) on a power_law(100,000, 8) file, their y held
-   against the oracle;
+   against the oracle; the ``csrspmv`` program on examples/test.mtx
+   (exact stdout), then ``csrspmv -v``, ``--separate-diagonal`` and
+   ``--partition-nonzeros`` and ``ellspmv --format=sell|auto -v`` (which
+   must choose SELL) on a dense_rows(100,000, 8, 16, 12,500) file, their y
+   held against the oracle and their labels checked;
 5. full size, fem_mesh_2d(1440) (2,073,600 rows, about 32.3M nonzeros, the
    class of the reference's Lynx68 matrix): the ELL main path (ell_from_coo,
    benchmark_spmv per_iter, repeat 10, warmup 2), the headline path
@@ -60,7 +68,14 @@ Phases, each of which exits non-zero on failure:
    and chained in fp64 and f32, every row held against the oracle, and the
    launch counts of K1, K3 (in place on level 1, through its map on each
    deeper level), the gather and the probe: one SpMV launches K1, K3 once
-   per level and one gather;
+   per level and one gather; `csrspmv`'s path at fem_mesh_2d(1440)
+   (``csr_from_coo``, its SELL repack, ``benchmark_spmv`` per_iter in fp64
+   and f32, every row held against the oracle, one K1 launch per bucket
+   per call); and the SELL path at the suite's config-dense-rows,
+   dense_rows(1,000,000, 8, 16, 125,000): ``sell_from_coo`` (``ellspmv
+   --format=sell``'s) and ``auto_from_coo`` (``--format=auto``'s, its
+   choice and both prices), their host seconds and buckets, each run
+   per_iter in fp64 and f32 with every row held against the oracle;
 6. timing: each kernel beside its plain version at the main paths' shapes,
    in turns (plain, kernel, kernel, plain), and beside one library call as
    a yardstick (cuSPARSE, ``torch.sparse_csr_tensor(...) @ x``, for the
@@ -81,8 +96,16 @@ Phases, each of which exits non-zero on failure:
    output, with the times of the design that laid the products out in
    column order and gathered every level (PERF.md) beside them; the
    launches of one ``stream_spmv``; one ``stream_spmv`` split by
-   ``torch.profiler`` into its kernels against the host clock; and K3 per
-   level in f32 against fp64 in turns.
+   ``torch.profiler`` into its kernels against the host clock; K3 per
+   level in f32 against fp64 in turns; ``csr_spmv`` at fem_mesh_2d(1440)
+   against K1 on the 21-wide ELL in turns (CUDA graph), eagerly beside
+   cuSPARSE, and against its bytes bound; ``sell_spmv`` at
+   config-dense-rows in a CUDA graph against the stream path on the same
+   matrix, eagerly beside cuSPARSE, its launches per call, K1's share of
+   its device time under the profiler, and its bound; K1 on every bucket of
+   both held against its plain version on every row; and the FMA probe
+   against an empty kernel launched the same way, in turns, in a CUDA
+   graph: the floor of one launch.
 
 The line before the last is a JSON summary of the kernels (time, plain
 time, bound, library time, launches on the main paths); the last line is
@@ -130,6 +153,13 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 # config3 of the suite (ellspmv_tpu/bench/suite.py), BASELINE.json
 # configs[3]: the stream path's full width.
 CONFIG3 = (1_000_000, 8)
+# The suite's config-dense-rows (ellspmv_tpu/bench/suite.py:246-249) at
+# full width: a few long random rows over a local bulk, the SELL path's
+# matrix; and a tenth of it for the programs of phase 4.
+DENSE_ROWS = dict(n=1_000_000, base_nnz=8, num_dense=16, dense_nnz=125_000,
+                  seed=0)
+DENSE_ROWS_CLI = dict(n=100_000, base_nnz=8, num_dense=16, dense_nnz=12_500,
+                      seed=0)
 # The dot kernel against math.fsum, of sum |x*y|: its tree of fp64 sums
 # errs by about log2(n) ulps of that sum at most; twice that against the
 # plain version, which errs as much again.
@@ -479,7 +509,7 @@ def _run_cli(args, label, program="ellspmv", expect=0):
     return proc
 
 
-def phase_cli(mesh_n: int = 512, device: str = "cuda"):
+def phase_cli(mesh_n: int = 256, device: str = "cuda"):
     import io
 
     import torch
@@ -1663,12 +1693,455 @@ def stream_breakdown(prof, host_ms, calls, prec, per_call):
         log(f"    device: {us / count:9.2f} us x {count:4d}  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# CSR and SELL: the sliced ELL on K1 (csrspmv, --format=sell, the chooser's
+# SELL branch)
+# ---------------------------------------------------------------------------
+
+def row_oracle(coo, x64, y64=None):
+    """The oracle's y and each row's sum |a*x| (+ |y|), in fp64."""
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.ops.reference import coo_spmv_numpy
+    want = coo_spmv_numpy(coo, x64, y64)
+    scale = coo_spmv_numpy(
+        CooMatrix(coo.num_rows, coo.num_columns, coo.rowidx, coo.colidx,
+                  np.abs(coo.values), coo.symmetry),
+        np.abs(x64), None if y64 is None else np.abs(y64))
+    return want, scale
+
+
+def _row_err(got, want, scale) -> float:
+    return float(np.max(np.abs(np.asarray(got, np.float64) - want)
+                        / np.maximum(scale, 1e-300), initial=0.0))
+
+
+def bucket_lines(sm):
+    """Each bucket of `sm` as (rows, width, column layout)."""
+    return [(b.padded_rows, b.rowsize, "narrow" if b.lcol is not None
+             else "wide") for b in sm.buckets]
+
+
+def phase_sell_vs_plain(device="cuda"):
+    """`sell_spmv` and `csr_spmv` on the card against the same calls on CPU
+    copies (K1's plain version and the same reassembly), per row relative
+    to sum |a*x| + |y|, on the layouts of every reassembly branch: a CSR
+    tail, the long-row split, the length sort with and without it, a
+    symmetric file, a rectangular one, and the trivial one-bucket CSR
+    repack with and without its split diagonal."""
+    import torch
+
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.formats.csr import csr_from_coo
+    from ellspmv_tpu_torch.formats.sell import kernel_launches, sell_from_coo
+    from ellspmv_tpu_torch.models.generators import (dense_rows,
+                                                     fem_mesh_2d, power_law)
+    from ellspmv_tpu_torch.ops import ell_cuda
+    from ellspmv_tpu_torch.ops.csr import to_sell
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    sym = spread_coo(3000, 3000, 6, 4)
+    lower = sym.rowidx >= sym.colidx
+    sym = CooMatrix(3000, 3000, sym.rowidx[lower], sym.colidx[lower],
+                    sym.values[lower], "symmetric")
+    cases = [
+        ("sell power_law(3000,8) tail", power_law(3000, 8, seed=1),
+         dict(slice_rows=256, tail_cap=16, split_rows=False)),
+        ("sell dense_rows(4096,4,3,2000) split", dense_rows(4096, 4, 3, 2000,
+                                                            seed=2),
+         dict(slice_rows=256, tail_cap=32)),
+        ("sell power_law(2000,8) length sort", power_law(2000, 8, seed=6),
+         dict(slice_rows=128, tail_cap=2048, length_sort=True,
+              split_rows=False)),
+        ("sell dense_rows(20000,8,4,2500) sort+split",
+         dense_rows(20000, 8, 4, 2500), dict(length_sort=True)),
+        ("sell symmetric(3000)", sym, dict(slice_rows=128)),
+        ("sell spread(3000x200000,8)", spread_coo(3000, 200_000, 8, 6), {}),
+        ("csr fem_mesh_2d(64)", fem_mesh_2d(64), None),
+        ("csr fem_mesh_2d(64) separate diagonal", fem_mesh_2d(64), "diag"),
+    ]
+    before = ell_cuda.launches
+    calls = 0
+    for label, coo, kw in cases:
+        rng = np.random.RandomState(4)
+        x64 = rng.rand(coo.num_columns)
+        y64 = rng.randn(coo.num_rows)
+        for prec in ("float64", "float32"):
+            dt = value_dtype(prec)
+            if isinstance(kw, dict):
+                mat = sell_from_coo(coo, value_dtype=prec, device=device,
+                                    **kw)
+                launches = kernel_launches(mat)
+            else:
+                mat = csr_from_coo(coo, separate_diagonal=kw == "diag",
+                                   value_dtype=prec, device=device)
+                launches = kernel_launches(to_sell(mat))
+            x = torch.from_numpy(x64).to(device).to(dt)
+            for y64_ in (None, y64):
+                y = None if y64_ is None else torch.from_numpy(y64_).to(
+                    device).to(dt)
+                mark = ell_cuda.launches
+                got = spmv(mat, x, y)
+                grew = ell_cuda.launches - mark
+                check(device != "cuda" or grew == launches,
+                      f"{label} {prec}: {grew} K1 launches, expected "
+                      f"{launches}")
+                plain = spmv(mat.to("cpu"), x.cpu(),
+                             None if y is None else y.cpu())
+                want, scale = row_oracle(coo, x64, y64_)
+                err = _row_err(got.double().cpu().numpy(),
+                               plain.double().numpy(), scale)
+                oracle_err = _row_err(got.double().cpu().numpy(), want,
+                                      scale)
+                _agree(f"{label:43s} {prec:8s} y={int(y is not None)} "
+                       f"against plain (oracle {oracle_err:.1e})", prec,
+                       max(err, oracle_err))
+                calls += 1
+    log(f"SELL and CSR against plain: {calls} calls agree; "
+        f"{ell_cuda.launches - before} K1 launches")
+
+
+def phase_sell_csr_cli(device="cuda"):
+    """The `csrspmv` program (plain, --separate-diagonal,
+    --partition-nonzeros) and `ellspmv --format=sell|auto`: exact stdout on
+    examples/test.mtx, then on a dense_rows(100,000, 8, 16, 12,500) file
+    each y against the oracle and each label; auto must choose SELL."""
+    import io
+
+    from ellspmv_tpu_torch.io.mtx import read_vector, write_matrix
+    from ellspmv_tpu_torch.models.generators import dense_rows
+    dev = f"--device={device}"
+    proc = _run_cli([dev, "-v", "examples/test.mtx"], "-v examples/test.mtx",
+                    "csrspmv")
+    check(proc.stdout == EXPECTED_TEST_MTX and "csrgemv:" in proc.stderr,
+          f"csrspmv examples/test.mtx printed {proc.stdout!r}")
+    log("cli: csrspmv examples/test.mtx -> y = [3, 1, 3, 6], stdout exact")
+    coo = dense_rows(**DENSE_ROWS_CLI)
+    want, scale = row_oracle(coo, np.ones(coo.num_columns))
+    runs = [("csrspmv", ["-v"], "csrgemv:"),
+            ("csrspmv", ["-v", "--separate-diagonal"], "csrgemvsd:"),
+            ("csrspmv", ["-v", "--partition-nonzeros"], "csrgemvnz:"),
+            ("ellspmv", ["--format=sell", "-v"], "gemv_sell:"),
+            ("ellspmv", ["--format=auto", "-v"], "gemv_sell:")]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dense_rows.mtx")
+        write_matrix(path, coo)
+        log(f"cli: wrote {path} ({coo.num_rows:,} rows, "
+            f"{coo.num_nonzeros:,} nonzeros)")
+        for program, flags, label in runs:
+            proc = _run_cli([dev, *flags, path], " ".join(flags), program)
+            y = read_vector(io.BytesIO(proc.stdout.encode()))
+            err = _row_err(y, want, scale)
+            log(f"cli: {program} {' '.join(flags)} on dense_rows: y of "
+                f"{len(y):,} rows, max err {err:.3e} of sum|a*x| against "
+                "the oracle (printed with %.15g)")
+            check(len(y) == coo.num_rows and err <= TOLERANCE["float64"],
+                  f"{program} {' '.join(flags)}: y disagrees with the "
+                  f"oracle: {err:.3e}")
+            check(label in proc.stderr,
+                  f"{program} {' '.join(flags)} printed no {label} line")
+            if "--format=auto" in flags:
+                check("auto_from_coo [sell]" in proc.stderr,
+                      "--format=auto did not choose SELL on dense_rows")
+
+
+def phase_csr_path(coo, x64, want, scale, device="cuda"):
+    """csrspmv's path at fem_mesh_2d(1440): csr_from_coo, its SELL repack,
+    benchmark_spmv per_iter in fp64 and f32, every row held against the
+    oracle, the launch counts of the path."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.harness import benchmark_spmv
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.formats.csr import csr_from_coo
+    from ellspmv_tpu_torch.formats.sell import kernel_launches
+    from ellspmv_tpu_torch.ops.csr import to_sell
+    n = coo.num_rows
+    runs, counts = {}, {}
+    for prec in ("float64", "float32"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        csr = csr_from_coo(coo, value_dtype=prec, device=device)
+        _sync(device)
+        t_csr = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sm = to_sell(csr)
+        _sync(device)
+        log(f"  CSR {prec}: csr_from_coo to {device} in {t_csr:.2f} s "
+            f"({csr.rowsize_min} to {csr.rowsize_max} entries a row); its "
+            f"SELL repack in {time.perf_counter() - t0:.2f} s: buckets "
+            f"(rows, width, columns) {bucket_lines(sm)}, trivial "
+            f"reassembly {sm.trivial_reassembly}, {sm.sellsize:,} slots")
+        x = torch.from_numpy(x64).to(device).to(value_dtype(prec))
+        res = benchmark_spmv(None, csr, x, None, repeat=REPEAT,
+                             warmup=WARMUP)
+        grew = _counts()
+        for line in res.iteration_lines():
+            log(f"  CSR {prec} csrgemv: {line}")
+        per_call = kernel_launches(sm)
+        calls = 2 + WARMUP + REPEAT
+        log(f"  CSR {prec} best: {res.best:.6f} s, {res.gnz_per_s():.3f} "
+            f"Gnz/s, physical {res.actual_gb_per_s():.1f} GB/s "
+            f"({res.actual_bytes:,} bytes per multiply); {per_call} K1 "
+            f"launch(es) per call; launches {grew}")
+        check(device != "cuda" or grew["ell_spmv"] == per_call * calls,
+              f"CSR {prec}: {grew['ell_spmv']} K1 launches, expected "
+              f"{per_call * calls}")
+        iters = WARMUP + REPEAT
+        got = res.y.double().cpu().numpy()
+        _all_rows_check(f"CSR {prec} per_iter", res.y, n, got,
+                        _row_err(got, iters * want, iters * scale),
+                        TOLERANCE[prec])
+        counts[prec] = _counts()
+        check(device != "cuda" or counts[prec]["ell_spmv"] > 0,
+              f"the CSR path did not launch K1: {counts[prec]}")
+        runs[prec] = (csr, x)
+    return runs, counts
+
+
+def phase_sell_path(coo, x64, want, scale, device="cuda"):
+    """The SELL path at dense_rows(1,000,000, 8, 16, 125,000): `ellspmv
+    --format=sell`'s build (sell_from_coo with sorted rows and the length
+    sort) and `--format=auto`'s (the chooser, its choice and both prices),
+    each timed on the host and run per_iter in fp64 and f32, every row
+    held against the oracle, with the launch counts of the path."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.harness import benchmark_spmv
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.formats.auto import auto_from_coo
+    from ellspmv_tpu_torch.formats.sell import (SellMatrix, kernel_launches,
+                                                sell_from_coo)
+    n = coo.num_rows
+    runs, counts, chosen = {}, {}, {}
+    iters = WARMUP + REPEAT
+    calls = 2 + iters
+    for prec in ("float64", "float32"):
+        _reset_counts()
+        x = torch.from_numpy(x64).to(device).to(value_dtype(prec))
+        t0 = time.perf_counter()
+        sm = sell_from_coo(coo, sort_rows=True, length_sort=True,
+                           value_dtype=prec, device=device)
+        _sync(device)
+        t_sell = time.perf_counter() - t0
+        extra = 0 if sm.extra_rows is None else int(sm.extra_rows.shape[0])
+        log(f"  SELL {prec}: sell_from_coo to {device} in {t_sell:.2f} s: "
+            f"buckets (rows, width, columns) {bucket_lines(sm)}, "
+            f"{sm.sellsize:,} slots, {sm.num_sub_rows or n:,} sub-rows "
+            f"({extra:,} extra), tail {sm.tailsize}, trivial reassembly "
+            f"{sm.trivial_reassembly}")
+        t0 = time.perf_counter()
+        am = auto_from_coo(coo, sort_rows=True, value_dtype=prec,
+                           device=device)
+        _sync(device)
+        t_auto = time.perf_counter() - t0
+        log(f"  SELL {prec}: auto_from_coo [{am._auto_choice}] to {device} "
+            f"in {t_auto:.2f} s: {am._auto_reason}")
+        chosen[prec] = am._auto_choice
+        for label, mat in (("--format=sell", sm), ("--format=auto", am)):
+            mark = _counts()
+            res = benchmark_spmv(None, mat, x, None, repeat=REPEAT,
+                                 warmup=WARMUP)
+            grew = {k: v - mark[k] for k, v in _counts().items()}
+            for line in res.iteration_lines()[:2]:
+                log(f"  SELL {prec} {label} gemv: {line}")
+            log(f"  SELL {prec} {label} best: {res.best:.6f} s, "
+                f"{res.gnz_per_s():.3f} Gnz/s, physical "
+                f"{res.actual_gb_per_s():.1f} GB/s ({res.actual_bytes:,} "
+                f"bytes per multiply); launches {grew}")
+            if isinstance(mat, SellMatrix):
+                check(device != "cuda" or grew["ell_spmv"]
+                      == kernel_launches(mat) * calls,
+                      f"SELL {prec} {label}: {grew['ell_spmv']} K1 "
+                      f"launches, expected {kernel_launches(mat) * calls}")
+            got = res.y.double().cpu().numpy()
+            _all_rows_check(f"SELL {prec} {label} per_iter", res.y, n, got,
+                            _row_err(got, iters * want, iters * scale),
+                            TOLERANCE[prec])
+        counts[prec] = _counts()
+        check(device != "cuda" or counts[prec]["ell_spmv"] > 0,
+              f"the SELL path did not launch K1: {counts[prec]}")
+        runs[prec] = (sm, x)
+    return runs, counts, chosen
+
+
+def _versus(label, fns, timer):
+    """`fns` (name -> call) timed by `timer` in turns, first to last and
+    back: the mean of each name's two times."""
+    names = list(fns)
+    ms = {k: [] for k in names}
+    for k in names + names[::-1]:
+        ms[k].append(timer(fns[k]))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"  {label}: " + ", ".join(f"{k} {'/'.join(f'{t:.4f}' for t in ms[k])}"
+                                   f" ms" for k in names))
+    return mean
+
+
+def _buckets_vs_plain(label, sm, x, prec):
+    """K1 on every bucket of `sm` against its plain version, every row."""
+    from ellspmv_tpu_torch.ops import ell_cuda
+    worst = 0.0
+    for b in sm.buckets:
+        got, want = ell_cuda.ell_spmv(b, x), ell_cuda.ell_spmv_torch(b, x)
+        worst = max(worst, ell_row_errors(b, x, None, got, want))
+    _agree(f"{label}: K1 on its {len(sm.buckets)} bucket(s), every row, "
+           "against plain", prec, worst)
+
+
+def k1_split(label, fn, sm, device, calls: int = 10):
+    """Device time per call of `fn` (one SpMV on the SELL matrix `sm`, or
+    on a CSR through it) under the profiler, split into K1 and the rest
+    (the plain reassembly passes), each kernel listed: (K1 ms, rest ms).
+    The profiler may drop a call's events, so each kernel's time per call
+    is its mean launch times its launches per call: K1 on narrow columns
+    once per narrow bucket, on wide ones once per wide bucket, every other
+    kernel once."""
+    from torch.profiler import ProfilerActivity, profile
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        _sync(device)
+    times = device_times_us(prof)
+    narrow = sum(b.lcol is not None for b in sm.buckets)
+    k1 = rest = 0.0
+    for key, (count, us) in times.items():
+        if "ell_spmv_kernel" in key:
+            per_call = narrow if "unsigned short" in key else \
+                len(sm.buckets) - narrow
+            k1 += us / count * per_call / 1e3
+        else:
+            rest += us / count / 1e3
+    log(f"  {label} under the profiler: K1 {k1:.4f} ms, the rest "
+        f"{rest:.4f} ms per call")
+    for key, (count, us) in sorted(times.items(), key=lambda t: -t[1][1]):
+        log(f"    device: {us / count:9.2f} us x {count:4d}  {key[:90]}")
+    return k1, rest
+
+
+def phase_csr_timing(coo, csr_runs, ell_runs, peak_bw):
+    """At fem_mesh_2d(1440): csr_spmv (its one bucket of width 32 on K1)
+    in a CUDA graph against K1 on the 21-wide ELL, in turns, eagerly, and
+    beside cuSPARSE, against its bytes bound."""
+    from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
+    from ellspmv_tpu_torch.ops import ell_cuda
+    from ellspmv_tpu_torch.ops.csr import to_sell
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    for prec, (csr, x) in csr_runs.items():
+        ell, xe = ell_runs[prec]
+        sm = to_sell(csr)
+        lib = cusparse_of(coo, x.dtype, x.device)
+        graph = _versus(f"csr_spmv {prec} against K1 on the {ell.rowsize}-"
+                        "wide ELL (CUDA graph, per call)",
+                        {"csr_spmv": lambda: spmv(csr, x),
+                         "ELL": lambda: ell_cuda.ell_spmv(ell, xe)},
+                        graph_ms)
+        eager = _versus(f"csr_spmv {prec} against K1 on the ELL and "
+                        "cuSPARSE (eager, CUDA events over 20 calls)",
+                        {"csr_spmv": lambda: spmv(csr, x),
+                         "ELL": lambda: ell_cuda.ell_spmv(ell, xe),
+                         "cuSPARSE": lambda: lib @ x}, time_ms)
+        _buckets_vs_plain(f"csr_spmv {prec}", sm, x, prec)
+        k1_split(f"csr_spmv {prec}", lambda: spmv(csr, x), sm,
+                 x.device.type)
+        nbytes = estimate_actual_bytes(csr, with_y=False)
+        bound_ms, bound_by = _bound(nbytes, 2 * sm.sellsize, prec, peak_bw)
+        g = graph["csr_spmv"]
+        log(f"  csr_spmv {prec}: {g:.4f} ms on the device, "
+            f"{eager['csr_spmv']:.4f} ms eager; K1 on the {ell.rowsize}-wide "
+            f"ELL {graph['ELL']:.4f} ms on the device "
+            f"(csr/ELL {g / graph['ELL']:.3f}); cuSPARSE "
+            f"{eager['cuSPARSE']:.4f} ms eager (csr/cuSPARSE "
+            f"{g / eager['cuSPARSE']:.3f}); bound {bound_ms:.4f} ms "
+            f"({nbytes:,} bytes, {bound_by}), {100 * bound_ms / g:.1f}% of "
+            f"it; {len(sm.buckets)} K1 launch(es) per call")
+
+
+def phase_sell_timing(coo, sell_runs, peak_bw):
+    """At dense_rows(1,000,000, 8, 16, 125,000): sell_spmv in a CUDA graph
+    and eagerly, its launches per call, K1's share under the profiler, its
+    bound, cuSPARSE's time, and the stream path's on the same matrix."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.traffic import (estimate_actual_bytes,
+                                                 sell_bytes)
+    from ellspmv_tpu_torch.formats.stream import stream_from_coo
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    for prec, (sm, x) in sell_runs.items():
+        lib = cusparse_of(coo, x.dtype, x.device)
+        t0 = time.perf_counter()
+        st = stream_from_coo(coo, value_dtype=prec, device=x.device)
+        _sync(x.device.type)
+        t_stream = time.perf_counter() - t0
+        graph = _versus(f"sell_spmv {prec} against the stream path on the "
+                        "same matrix (CUDA graph, per call)",
+                        {"sell_spmv": lambda: spmv(sm, x),
+                         "stream_spmv": lambda: spmv(st, x)}, graph_ms)
+        eager = _versus(f"sell_spmv {prec} and cuSPARSE (eager, CUDA events "
+                        "over 20 calls)",
+                        {"sell_spmv": lambda: spmv(sm, x),
+                         "cuSPARSE": lambda: lib @ x}, time_ms)
+        before = _counts()
+        got = spmv(sm, x)
+        per_call = {k: v - before[k] for k, v in _counts().items()
+                    if v != before[k]}
+        check(torch.allclose(got.double(), spmv(st, x).double(),
+                             rtol=TOLERANCE[prec], atol=TOLERANCE[prec]
+                             * float(got.double().abs().max())),
+              f"sell_spmv {prec}: disagrees with the stream path")
+        _buckets_vs_plain(f"sell_spmv {prec}", sm, x, prec)
+        nbytes = sell_bytes(sm, with_y=False)
+        bound_ms, bound_by = _bound(nbytes, 2 * sm.sellsize, prec, peak_bw)
+        st_bytes = estimate_actual_bytes(st, with_y=False)
+        k1, rest = k1_split(f"sell_spmv {prec}", lambda: spmv(sm, x), sm,
+                            x.device.type)
+        g = graph["sell_spmv"]
+        log(f"  sell_spmv {prec}: {g:.4f} ms on the device, "
+            f"{eager['sell_spmv']:.4f} ms eager; launches per call "
+            f"{per_call}; under the profiler K1 {k1:.4f} ms, the "
+            f"reassembly {rest:.4f} ms per call; cuSPARSE "
+            f"{eager['cuSPARSE']:.4f} ms eager; the stream path "
+            f"{graph['stream_spmv']:.4f} ms on the device ({st_bytes:,} "
+            f"bytes; built in {t_stream:.2f} s); bound {bound_ms:.4f} ms "
+            f"({nbytes:,} bytes, {bound_by}), {100 * bound_ms / g:.1f}% of "
+            "it")
+        del st
+
+
+def probe_floor():
+    """K7 against an empty kernel launched the same way (one block, the
+    same arguments, ``fma_probe_empty_f32``), each 20 launches in a CUDA
+    graph, in turns: the floor of one launch."""
+    import torch
+
+    from ellspmv_tpu_torch.ops import _build, ell_cuda
+    a, b = ell_cuda.probe_inputs("cuda")
+    out = torch.empty_like(a)
+    empty, _ = _build.entry("fma_probe_empty_f32", ell_cuda._PROBE_ARGS)
+
+    def launch_empty():
+        err = empty(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+                    torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the empty kernel's launch failed: error {err}")
+    ms = _versus("K7 against an empty launch (CUDA graph, per launch)",
+                 {"fma_probe": lambda: ell_cuda.fma_probe(a, b),
+                  "empty": launch_empty}, graph_ms)
+    ratio = ms["fma_probe"] / ms["empty"]
+    log(f"  fma probe: {ms['fma_probe']:.4f} ms a launch on the device, an "
+        f"empty kernel {ms['empty']:.4f} ms (probe/empty {ratio:.2f}: "
+        f"{'within' if ratio <= 2 else 'beyond'} 2x the floor of one "
+        "launch)")
+    return ms
+
+
 def main() -> int:
     import torch
 
     from ellspmv_tpu_torch.config import hbm_peak_bytes_per_s
     from ellspmv_tpu_torch.formats.coo import CooMatrix
-    from ellspmv_tpu_torch.models.generators import fem_mesh_2d, power_law
+    from ellspmv_tpu_torch.models.generators import (dense_rows, fem_mesh_2d,
+                                                     power_law)
     from ellspmv_tpu_torch.ops.reference import coo_spmv_numpy
     t_start = time.perf_counter()
     phase_device()
@@ -1684,9 +2157,11 @@ def main() -> int:
     phase_probe_vs_plain()
     phase_dot_vs_plain()
     phase_stream_vs_plain()
-    log("phase 4: the ellspmv and cgsolve programs")
+    phase_sell_vs_plain()
+    log("phase 4: the ellspmv, cgsolve and csrspmv programs")
     phase_cli()
     phase_stream_cli()
+    phase_sell_csr_cli()
     log("phase 5: full size")
     t0 = time.perf_counter()
     coo = fem_mesh_2d(1440)
@@ -1705,6 +2180,12 @@ def main() -> int:
     log(f"solver path: launches {cg_counts}")
     phase_headline_program()
     t0 = time.perf_counter()
+    fem_want, fem_scale = row_oracle(coo, x64)
+    log(f"fem_mesh_2d(1440): the oracle over all rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    csr_runs, csr_counts = phase_csr_path(coo, x64, fem_want, fem_scale)
+    del fem_want, fem_scale
+    t0 = time.perf_counter()
     pl_coo = power_law(*CONFIG3, seed=0)
     pl_x64 = np.random.RandomState(2).rand(pl_coo.num_columns)
     pl_want = coo_spmv_numpy(pl_coo, pl_x64)
@@ -1717,12 +2198,26 @@ def main() -> int:
         f"oracle in {time.perf_counter() - t0:.1f} s")
     stream_runs, stream_counts = phase_stream_path(pl_coo, pl_x64, pl_want,
                                                    pl_scale)
+    t0 = time.perf_counter()
+    dr_coo = dense_rows(**DENSE_ROWS)
+    dr_x64 = np.random.RandomState(3).rand(dr_coo.num_columns)
+    dr_want, dr_scale = row_oracle(dr_coo, dr_x64)
+    log(f"full size: dense_rows({DENSE_ROWS}): {dr_coo.num_rows:,} rows, "
+        f"{dr_coo.num_nonzeros:,} nonzeros, longest row "
+        f"{int(np.bincount(dr_coo.rowidx).max()):,}; generated with its "
+        f"oracle in {time.perf_counter() - t0:.1f} s")
+    sell_runs, sell_counts, _ = phase_sell_path(dr_coo, dr_x64, dr_want,
+                                                dr_scale)
     log("phase 6: timing")
     timing = phase_timing(coo, ell_runs, dia_runs, peak_bw)
     timing.update(phase_stream_timing(pl_coo, stream_runs, peak_bw))
+    phase_csr_timing(coo, csr_runs, ell_runs, peak_bw)
+    phase_sell_timing(dr_coo, sell_runs, peak_bw)
+    probe_floor()
     window_verdict()
     paths = [ell_counts, dia_counts, *cg_counts.values(),
-             *stream_counts.values()]
+             *stream_counts.values(), *csr_counts.values(),
+             *sell_counts.values()]
     launches = {name: sum(c[name] for c in paths)
                 for name in ("ell_spmv", "dia_spmv", "fma_probe", "permute",
                              "stream_sum", "stream_sum_src")}

@@ -15,6 +15,15 @@ diagonal value takes part and no column index is read:
     flops = 2*diasize, min_bytes = rows*sv + cols*sv + diasize*sv,
     max_bytes = rows*sv + 2*diasize*sv
 
+CSR (csrspmv.c:2882-2887): the ELL formulas over csrsize, plus rowptr
+((rows+1)*si in min_bytes, rows*si in max_bytes).
+
+SELL (the JAX package's accounting): every stored slot, padding included,
+and every tail entry counted as a 4-byte index and a value:
+
+    flops = 2*work, min_bytes = rows*sv + cols*sv + work*(4 + sv),
+    max_bytes = rows*sv + work*(4 + 2*sv), work = sellsize + tailsize
+
 Stream (the JAX package's accounting; sv is the compute type's size, 4 for
 bfloat16): each stored entry is moved as a 4-byte position and a value:
 
@@ -55,8 +64,10 @@ import torch
 
 from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
 from ellspmv_tpu_torch.config import hbm_peak_bytes_per_s
+from ellspmv_tpu_torch.formats.csr import CsrMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.sell import SellMatrix
 from ellspmv_tpu_torch.formats.stream import StreamMatrix
 
 # The chained protocol's carry scale: small enough that ||A||*scale < 1 for
@@ -86,6 +97,27 @@ class SpmvMetrics:
                            + diagsize * sv),
                 max_bytes=(n * sv + ellsize * sv + ellsize * si
                            + ellsize * sv + diagsize * sv + diagsize * sv))
+        if isinstance(matrix, CsrMatrix):
+            sv = matrix.values.element_size()
+            si = matrix.rowptr.element_size()
+            n, m = matrix.num_rows, matrix.num_columns
+            csrsize, diagsize = matrix.csrsize, matrix.diagsize
+            return SpmvMetrics(
+                num_nonzeros=matrix.num_nonzeros,
+                num_flops=2 * (csrsize + diagsize),
+                min_bytes=(n * sv + m * sv + (n + 1) * si + csrsize * si
+                           + csrsize * sv + diagsize * sv),
+                max_bytes=(n * sv + csrsize * sv + n * si + csrsize * si
+                           + csrsize * sv + diagsize * sv + diagsize * sv))
+        if isinstance(matrix, SellMatrix):
+            sv = matrix.values.element_size()
+            n, m = matrix.num_rows, matrix.num_columns
+            work = matrix.sellsize + matrix.tailsize
+            return SpmvMetrics(
+                num_nonzeros=matrix.num_nonzeros,
+                num_flops=2 * work,
+                min_bytes=n * sv + m * sv + work * (4 + sv),
+                max_bytes=n * sv + work * (4 + 2 * sv))
         if isinstance(matrix, DiaMatrix):
             sv = matrix.data.element_size()
             n, m = matrix.num_rows, matrix.num_columns

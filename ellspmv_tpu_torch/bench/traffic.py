@@ -25,15 +25,32 @@ must move, so that every report can also carry the physical share (at most
   (`sum_bytes`: the live elements read, and on the deeper levels their map
   entries, the outputs written, the table); the final gather
   (`gather_bytes`: its map, the live elements read, every row written);
-  the diagonal and y, read once each.
+  the diagonal and y, read once each;
+- the SELL format (``formats/sell.py``): K1 per bucket without x (values,
+  column indices at the width it reads them, the bucket's output
+  written), x once for all of them, and the plain reassembly passes that
+  `sell_spmv` runs where there is more than one bucket or anything to put
+  back: the concatenation (each bucket output read and written again), the
+  gather of the tiles into their order (read, written, the order), the
+  tail (its three arrays, x gathered and the products per entry, the
+  partial sums read, summed and written), the unpermutation (an 8-byte
+  index, a read and a write per sub-row), the extra sub-rows' sums (the
+  zeroed sums, the extras and their indices read, then the rows' sums read
+  and written with them), and y as a pass of its own (read, the result
+  read and written);
+- CSR (``ops/csr.csr_spmv``): its cached SELL repack, the split diagonal's
+  epilogue (the diagonal, x and the result read, the result written) and y
+  as a pass of its own.
 
 x is counted once: the kernels rely on L1/L2 for its re-reads.
 """
 
 from __future__ import annotations
 
+from ellspmv_tpu_torch.formats.csr import CsrMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import LBLOCK, EllMatrix
+from ellspmv_tpu_torch.formats.sell import SellMatrix
 from ellspmv_tpu_torch.formats.stream import StreamMatrix
 from ellspmv_tpu_torch.ops.permute import BLOCK
 
@@ -74,10 +91,53 @@ def stream_bytes_estimate(nnz: int, num_rows: int, num_columns: int,
             + num_columns * value_bytes)
 
 
+def sell_bytes(sm: SellMatrix, with_y: bool = True) -> int:
+    """Bytes one `sell_spmv` on `sm` moves (the module's docstring), y read
+    and added when `with_y`."""
+    sv = sm.values.element_size()
+    n = sm.num_rows
+    total = sm.num_columns * sv                   # x, once for all buckets
+    for b in sm.buckets:
+        total += b.rowsize * b.padded_rows * sv + b.index_bytes \
+            + b.num_rows * sv
+    if not sm.trivial_reassembly:
+        tiles = sum(b.num_rows for b in sm.buckets)
+        if len(sm.buckets) > 1:
+            total += 2 * tiles * sv               # the concatenation
+        total += 2 * tiles * sv + 8 * int(sm.order.shape[0])
+        if sm.tail is not None:
+            t = sm.tail
+            total += sum(a.numel() * a.element_size()
+                         for a in (t.rowids, t.colidx, t.values))
+            total += 2 * t.csrsize * sv + 3 * t.num_rows * sv
+        if sm.row_unperm is not None:
+            total += int(sm.row_unperm.shape[0]) * (8 + 2 * sv)
+        if sm.extra_rows is not None:
+            extra = int(sm.extra_rows.shape[0])
+            total += n * sv + extra * (8 + sv) + 3 * n * sv
+    return total + (3 * n * sv if with_y else 0)
+
+
+def csr_bytes(csr: CsrMatrix, with_y: bool = True) -> int:
+    """Bytes one `csr_spmv` on `csr` moves: its SELL repack (built and
+    cached if it is not yet), the split diagonal's epilogue, y."""
+    from ellspmv_tpu_torch.ops.csr import to_sell
+    sv = csr.values.element_size()
+    total = sell_bytes(to_sell(csr), with_y=False)
+    if csr.diag is not None:
+        total += 4 * min(csr.num_rows, csr.num_columns) * sv
+    return total + (3 * csr.num_rows * sv if with_y else 0)
+
+
 def estimate_actual_bytes(matrix, with_y: bool = True) -> int:
     """Bytes one kernel call on `matrix` reads and writes, with y read when
     `with_y` (as in every accumulating call of the benchmark). For the
-    stream format, the bytes of all its kernels in one SpMV."""
+    stream, SELL and CSR formats, the bytes of all the passes of one
+    SpMV."""
+    if isinstance(matrix, SellMatrix):
+        return sell_bytes(matrix, with_y)
+    if isinstance(matrix, CsrMatrix):
+        return csr_bytes(matrix, with_y)
     if isinstance(matrix, StreamMatrix):
         sv = matrix.values.element_size()
         plan = matrix.ddsum

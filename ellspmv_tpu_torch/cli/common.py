@@ -1,11 +1,16 @@
-"""The `ellspmv` program on PyTorch: the counterpart of
-``ellspmv_tpu.cli.common`` for the ELLPACK, DIA and stream formats, the auto
-chooser (DIA, ELL or stream), both timing protocols and ``--reorder=rcm``.
+"""The `ellspmv` and `csrspmv` programs on PyTorch: the counterpart of
+``ellspmv_tpu.cli.common`` for the ELLPACK, DIA, SELL, stream and CSR
+formats, the auto chooser (DIA, ELL, SELL or stream), both timing protocols
+and ``--reorder=rcm``.
 
 Flag-compatible with the JAX package's parser, which follows the
 reference's (parse_program_options, ellspmv.c:465-611): ``--opt=v`` and
 ``--opt v`` forms, the ``--`` terminator, up to three positional Matrix
-Market paths ``A [x] [y]``, and the same error texts. One flag is new:
+Market paths ``A [x] [y]``, and the same error texts. `csrspmv` takes the
+reference's CSR options (csrspmv.c:667-899): the partition flags are
+accepted and name the kernel in the report, as the JAX program does on one
+device, and the A64FX placement flags are accepted and ignored. One flag is
+new:
 ``--device=cuda|cpu`` (default cuda), because PyTorch does not pick a
 platform by itself. With the default and no card the program exits 1; it
 never moves to the CPU by itself.
@@ -65,9 +70,17 @@ class Options:
         self.reorder = "none"
         self.format = None
         self.device = "cuda"
+        # csrspmv: the partition flags (one device: they name the kernel)
+        # and the A64FX placement flags (accepted, ignored)
+        self.partition = "rows"
+        self.precompute_partition = False
+        self.rows_per_thread = None
+        self.columns_per_thread = None
+        self.l1_prefetch_distance = None
+        self.l2_prefetch_distance = None
 
 
-def print_help(program: str, f=None):
+def print_help(program: str, csr: bool = False, f=None):
     f = f or sys.stdout
     f.write(f"Usage: {program} [OPTION..] A [x] [y]\n\n")
     f.write(" Multiply a matrix by a vector: y := A*x + y.\n\n")
@@ -79,6 +92,14 @@ def print_help(program: str, f=None):
     f.write("  -z, --gzip, --gunzip, --ungzip    filter files through gzip\n")
     f.write("  --separate-diagonal       store diagonal nonzeros separately\n")
     f.write("  --sort-rows               sort nonzeros by column within each row\n")
+    if csr:
+        f.write("  --partition-rows          partition rows evenly among devices (default)\n")
+        f.write("  --partition-nonzeros      partition nonzeros evenly among devices\n")
+        f.write("  --precompute-partition    perform per-device partitioning once as a precomputation\n")
+        f.write("  --rows-per-thread=N..     comma-separated list of rows assigned to devices\n")
+        f.write("  --columns-per-thread=N..  accepted for compatibility (ignored)\n")
+        f.write("  --l1-prefetch-distance=N  accepted for compatibility (A64FX only; ignored)\n")
+        f.write("  --l2-prefetch-distance=N  accepted for compatibility (A64FX only; ignored)\n")
     f.write("  --repeat=N                repeat matrix-vector multiplication N times\n")
     f.write("  --warmup=N                perform N additional warmup iterations\n")
     f.write("  -q, --quiet               do not print Matrix Market output\n")
@@ -91,13 +112,15 @@ def print_help(program: str, f=None):
     f.write("  --backend=B               auto (default) or pallas: the hand-written\n")
     f.write("                            kernel of the format\n")
     f.write("  --protocol=P              per_iter (default) or chained timing\n")
-    f.write("  --format=F                ell (default), auto (DIA, ELL or stream,\n")
-    f.write("                            whichever moves fewest bytes), dia (stencil\n")
-    f.write("                            diagonals) or stream (for power-law matrices)\n")
+    if not csr:
+        f.write("  --format=F                ell (default), auto (DIA, ELL, SELL or stream,\n")
+        f.write("                            whichever moves fewest bytes), dia (stencil\n")
+        f.write("                            diagonals), sell (sliced ELL, for a few long\n")
+        f.write("                            rows) or stream (for power-law matrices)\n")
     f.write("  --reorder=R               none (default) or rcm: reverse Cuthill-McKee\n")
     f.write("                            inside; x, y and the output keep their order\n\n")
     f.write(" Not yet ported (accepted, then refused with exit code 1):\n")
-    f.write("  --format=sell|hybrid, --devices=N>1,\n")
+    f.write(("" if csr else "  --format=hybrid, ") + "--devices=N>1,\n")
     f.write("  --papi-event-*, --trace=DIR, --backend=xla\n\n")
     f.write("  -h, --help                display this help and exit\n")
     f.write("  --version                 display version information and exit\n")
@@ -116,7 +139,7 @@ def print_version(program: str, f=None):
         f.write("devices: no CUDA device\n")
 
 
-def parse_args(argv: list[str], program: str) -> Options:
+def parse_args(argv: list[str], program: str, csr: bool = False) -> Options:
     opts = Options(program)
     positional = []
     i = 0
@@ -142,7 +165,7 @@ def parse_args(argv: list[str], program: str) -> Options:
             i += 1
             continue
         if arg in ("-h", "--help"):
-            print_help(program)
+            print_help(program, csr)
             raise SystemExit(0)
         if arg == "--version":
             print_version(program)
@@ -163,6 +186,22 @@ def parse_args(argv: list[str], program: str) -> Options:
             opts.repeat = int(need_value(v, "--repeat"))
         elif (v := _split_eq(arg, "--warmup")) is not False:
             opts.warmup = int(need_value(v, "--warmup"))
+        elif csr and arg == "--partition-rows":
+            opts.partition = "rows"
+        elif csr and arg == "--partition-nonzeros":
+            opts.partition = "nonzeros"
+        elif csr and arg == "--precompute-partition":
+            opts.precompute_partition = True
+        elif csr and (v := _split_eq(arg, "--rows-per-thread")) is not False:
+            v = need_value(v, "--rows-per-thread")
+            opts.rows_per_thread = [int(s) for s in v.split(",") if s]
+        elif csr and (v := _split_eq(arg, "--columns-per-thread")) is not False:
+            v = need_value(v, "--columns-per-thread")
+            opts.columns_per_thread = [int(s) for s in v.split(",") if s]
+        elif csr and (v := _split_eq(arg, "--l1-prefetch-distance")) is not False:
+            opts.l1_prefetch_distance = int(need_value(v, "--l1-prefetch-distance"))
+        elif csr and (v := _split_eq(arg, "--l2-prefetch-distance")) is not False:
+            opts.l2_prefetch_distance = int(need_value(v, "--l2-prefetch-distance"))
         elif (v := _split_eq(arg, "--papi-event-file")) is not False:
             need_value(v, "--papi-event-file")
             opts.papi_flags.append("--papi-event-file")
@@ -192,7 +231,7 @@ def parse_args(argv: list[str], program: str) -> Options:
             opts.devices = int(need_value(v, "--devices"))
         elif (v := _split_eq(arg, "--trace")) is not False:
             opts.trace_dir = need_value(v, "--trace")
-        elif (v := _split_eq(arg, "--format")) is not False:
+        elif not csr and (v := _split_eq(arg, "--format")) is not False:
             opts.format = need_value(v, "--format")
             if opts.format not in ("auto", "ell", "dia", "sell", "hybrid",
                                    "stream"):
@@ -237,8 +276,8 @@ def card_missing(program: str, device: str) -> bool:
 
 def unported_option(opts: Options) -> str | None:
     """The first given option that this port does not have yet, or None."""
-    if opts.format in ("sell", "hybrid"):
-        return f"--format={opts.format}"
+    if opts.format == "hybrid":
+        return "--format=hybrid"
     if opts.devices > 1:
         return f"--devices={opts.devices}"
     if opts.papi_flags:
@@ -250,14 +289,24 @@ def unported_option(opts: Options) -> str | None:
     return None
 
 
-def kernel_name(opts: Options, mat) -> str:
+def kernel_name(opts: Options, mat, csr: bool = False) -> str:
     """Kernel label in the reference's naming (gemv/gemvsd/gemv16,
-    README:133), and gemv_dia or gemv_stream for DIA or the stream format,
-    as in the JAX program."""
+    README:133; csrgemv/csrgemvsd/csrgemvnz/csrgemvrp, csrspmv.c:2851-2868),
+    and gemv_dia, gemv_sell or gemv_stream for DIA, SELL or the stream
+    format, as in the JAX program."""
     from ellspmv_tpu_torch.formats.dia import DiaMatrix
+    from ellspmv_tpu_torch.formats.sell import SellMatrix
     from ellspmv_tpu_torch.formats.stream import StreamMatrix
+    if csr:
+        if opts.partition == "nonzeros":
+            return "csrgemvnz"
+        if opts.rows_per_thread:
+            return "csrgemvrp"
+        return "csrgemvsd" if opts.separate_diagonal else "csrgemv"
     if isinstance(mat, DiaMatrix):
         return "gemv_dia"
+    if isinstance(mat, SellMatrix):
+        return "gemv_sell"
     if isinstance(mat, StreamMatrix):
         return "gemv_stream"
     if opts.separate_diagonal and mat.rowsize == 16:
@@ -265,10 +314,18 @@ def kernel_name(opts: Options, mat) -> str:
     return "gemvsd" if opts.separate_diagonal else "gemv"
 
 
-def _convert(coo, opts: Options, index_dtype, device):
-    """The matrix in the format `opts` asks for, on `device`, with the name
-    and the tail of the verbose conversion line (ellspmv_tpu.cli.common
-    ._convert)."""
+def _convert(coo, opts: Options, index_dtype, device, csr: bool = False):
+    """The matrix in the format `opts` asks for (CSR for `csrspmv`), on
+    `device`, with the name and the tail of the verbose conversion line
+    (ellspmv_tpu.cli.common._convert)."""
+    if csr:
+        from ellspmv_tpu_torch.formats.csr import csr_from_coo
+        mat = csr_from_coo(coo, separate_diagonal=opts.separate_diagonal,
+                           sort_rows=opts.sort_rows,
+                           value_dtype=opts.precision,
+                           index_dtype=index_dtype, device=device)
+        return (mat, "csr_from_coo", f", {mat.rowsize_min} to "
+                f"{mat.rowsize_max} nonzeros per row")
     if opts.format == "auto":
         from ellspmv_tpu_torch.formats.auto import auto_from_coo
         mat = auto_from_coo(coo, separate_diagonal=opts.separate_diagonal,
@@ -284,6 +341,12 @@ def _convert(coo, opts: Options, index_dtype, device):
             raise CliError("--format=dia: matrix has too many distinct "
                            "diagonals for DIA")
         return mat, "dia_from_coo", f", {mat.num_diags} diagonals"
+    if opts.format == "sell":
+        from ellspmv_tpu_torch.formats.sell import sell_from_coo
+        mat = sell_from_coo(coo, sort_rows=True, length_sort=True,
+                            value_dtype=opts.precision,
+                            index_dtype=index_dtype, device=device)
+        return mat, "sell_from_coo", f", {len(mat.buckets)} slice buckets"
     if opts.format == "stream":
         from ellspmv_tpu_torch.formats.stream import stream_from_coo
         mat = stream_from_coo(coo, separate_diagonal=opts.separate_diagonal,
@@ -297,10 +360,10 @@ def _convert(coo, opts: Options, index_dtype, device):
     return mat, "ell_from_coo", f", {mat.rowsize} nonzeros per row"
 
 
-def run(argv: list[str], program: str) -> int:
-    """The program's main body."""
+def run(argv: list[str], program: str, csr: bool = False) -> int:
+    """The program's main body; `csr` makes it `csrspmv`."""
     try:
-        opts = parse_args(argv, program)
+        opts = parse_args(argv, program, csr)
     except (CliError, ValueError) as e:
         sys.stderr.write(f"{program}: {e}\n")
         return 1
@@ -321,9 +384,14 @@ def run(argv: list[str], program: str) -> int:
     device = torch.device(opts.device)
     log = sys.stderr
     index_dtype = f"int{opts.index_width}" if opts.index_width else None
-    if opts.separate_diagonal and opts.format == "dia" and opts.verbose:
-        log.write(f"{program}: note: --format=dia stores the diagonal "
-                  "inline; --separate-diagonal ignored\n")
+    if (opts.columns_per_thread or opts.l1_prefetch_distance
+            or opts.l2_prefetch_distance) and opts.verbose:
+        log.write(f"{program}: note: NUMA/A64FX placement options have no "
+                  "analogue on a CUDA card; ignored\n")
+    if (opts.separate_diagonal and opts.format in ("dia", "sell")
+            and opts.verbose):
+        log.write(f"{program}: note: --format={opts.format} stores the "
+                  "diagonal inline; --separate-diagonal ignored\n")
     if opts.format == "auto" and opts.verbose:
         if not opts.sort_rows:
             log.write(f"{program}: note: --format=auto implies sorted rows "
@@ -370,7 +438,8 @@ def run(argv: list[str], program: str) -> int:
     # the copy to the device (and, for ELL, the slot-major transpose there).
     t0 = time.perf_counter()
     try:
-        mat, convert_name, per_row = _convert(coo, opts, index_dtype, device)
+        mat, convert_name, per_row = _convert(coo, opts, index_dtype, device,
+                                              csr)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     except (MemoryError, torch.cuda.OutOfMemoryError) as e:
@@ -430,7 +499,7 @@ def run(argv: list[str], program: str) -> int:
         sys.stderr.write(f"{program}: benchmark failed: {e}\n")
         return 1
     if opts.verbose:
-        name = kernel_name(opts, mat)
+        name = kernel_name(opts, mat, csr)
         for line in res.iteration_lines():
             log.write(f"{name}: {line}\n")
         if res.warning:

@@ -1,10 +1,12 @@
-"""Automatic format selection between DIA, ELL and the stream format, the
-counterpart of ``ellspmv_tpu.formats.auto.auto_from_coo``.
+"""Automatic format selection between DIA, ELL, the SELL split and the
+stream format, the counterpart of ``ellspmv_tpu.formats.auto.auto_from_coo``.
 
 The gates are the JAX chooser's:
 
 - where ELLPACK padding blows up (more than 4x the nonzeros and over 1M
-  slots), the stream format;
+  slots), the SELL split (``sell_from_coo`` with sorted rows and the
+  length sort) or the stream format, whichever moves fewer bytes (SELL
+  where they tie);
 - else DIA when the matrix has at least 3 nonzeros per row, the diagonal is
   not split, DIA is allowed, the matrix has at most 32 distinct diagonals
   (``dia_from_coo``'s limit, within the kernel's 64) and the diagonals are
@@ -21,6 +23,9 @@ matrix is built on `device`:
   indices at the width K1 will read them
   (``formats/ell.index_bytes_estimate``: 2 bytes a slot where the narrow
   layout holds, else the index type's);
+- SELL: ``bench/traffic.sell_bytes`` of the SELL split built on the host
+  (its buckets' slots and columns at the width K1 reads them, and the
+  reassembly passes), moved to `device` only when chosen;
 - stream: ``bench/traffic.stream_bytes_estimate``, its products' indices
   by the same rule. The products lie in the sum plan's position order, so
   their layout is known only once the plan is built: where the stream
@@ -32,11 +37,8 @@ matrix is built on `device`:
 
 The rate cancels in the comparisons; it only turns bytes into the estimated
 milliseconds shown in ``_auto_reason``. No TPU constant of the JAX chooser
-or its calibration is used.
-
-Not yet ported: where the padding blows up, the JAX chooser also prices the
-SELL split against the stream format; the port takes the stream format
-there (ROADMAP.md, Queue 1 item 6).
+or its calibration is used, so the two may choose differently near a line
+(ROADMAP.md, F8).
 """
 
 from __future__ import annotations
@@ -61,16 +63,19 @@ def _cost(nbytes: int, rate: float | None) -> str:
 def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
                   sort_rows: bool = True, value_dtype=None,
                   index_dtype=None, allow_dia: bool = True, device="cpu"):
-    """Return DIA, ELL or the stream format on `device`, whichever moves the
-    fewest bytes per SpMV within the JAX chooser's gates.
+    """Return DIA, ELL, the SELL split or the stream format on `device`,
+    whichever moves the fewest bytes per SpMV within the JAX chooser's
+    gates.
 
     The decision is recorded on the returned matrix as `_auto_choice`
-    ('dia', 'ell' or 'stream') with `_auto_reason` for verbose reporting.
-    Only the chosen matrix is built on `device`."""
-    from ellspmv_tpu_torch.bench.traffic import stream_bytes_estimate
+    ('dia', 'ell', 'sell' or 'stream') with `_auto_reason` for verbose
+    reporting. Only the chosen matrix is built on `device`."""
+    from ellspmv_tpu_torch.bench.traffic import (sell_bytes,
+                                                 stream_bytes_estimate)
     from ellspmv_tpu_torch.formats.dia import dia_from_coo
     from ellspmv_tpu_torch.formats.ell import (ell_from_coo,
                                                index_bytes_estimate)
+    from ellspmv_tpu_torch.formats.sell import sell_from_coo
     from ellspmv_tpu_torch.formats.stream import (compute_dtype,
                                                   stream_from_layout,
                                                   stream_layout)
@@ -107,12 +112,25 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
         return sm
 
     if ellsize > MAX_PAD_RATIO * nnz and ellsize > 1 << 20:
+        # ELLPACK is out (rows x longest row, ellspmv.c:955). The SELL
+        # split (a few long rows over a local bulk) against the stream
+        # format (no column locality), both built on the host and priced
+        # by their bytes
+        blow = f"ELL padding blowup ({ellsize:,} slots for {nnz:,} nonzeros)"
         layout, price = stream_on_host()
-        return pick_stream(
-            layout, f"ELL padding blowup ({ellsize:,} slots for {nnz:,} "
-            f"nonzeros); stream ({_cost(price, rate)}); the SELL split, "
-            "which the JAX chooser prices against it here, is not yet "
-            "ported")
+        sell = sell_from_coo(coo, sort_rows=True, length_sort=True,
+                             value_dtype=dtype, index_dtype=index_dtype)
+        sell_price = sell_bytes(sell, with_y=False)
+        if sell_price <= price:
+            sell = sell.to(device)
+            sell._auto_choice = "sell"
+            sell._auto_reason = (f"{blow}; SELL split "
+                                 f"({_cost(sell_price, rate)}) <= stream "
+                                 f"({_cost(price, rate)})")
+            return sell
+        return pick_stream(layout, f"{blow}; stream ({_cost(price, rate)}) "
+                                   f"< SELL split "
+                                   f"({_cost(sell_price, rate)})")
 
     vb = torch.empty(0, dtype=dtype).element_size()
     ib = np.dtype(config.select_index_dtype(n, m, nnz, index_dtype)).itemsize

@@ -11,7 +11,9 @@ its swapped-argument call-site bug, SURVEY §2.1 E12):
 - the split diagonal accumulates duplicates (ellspmv.c:1100);
 - ``sort_rows`` orders each row's entries by column;
 - symmetric files are expanded;
-- rows are padded to a multiple of 8.
+- rows are padded to a multiple of `row_tile` (8 by default; a SELL
+  bucket's slice of 1024), and ``rowsize`` may be forced wider than the
+  longest row (a SELL bucket's power-of-two width).
 
 The arrays are stored slot-major, ``(rowsize, padded_rows)``: slot ``s`` of
 consecutive rows is contiguous, so a warp that handles 32 consecutive rows
@@ -213,13 +215,20 @@ def ell_from_row_major(colidx: np.ndarray, values: np.ndarray,
 
 def ell_from_coo(coo, separate_diagonal: bool = False,
                  sort_rows: bool = False, value_dtype=None,
-                 index_dtype=None,
-                 device="cpu") -> EllMatrix:
+                 index_dtype=None, device="cpu", row_tile: int = ROW_TILE,
+                 rowsize: int | None = None) -> EllMatrix:
     """Convert a CooMatrix to ELLPACK on `device`.
 
     `value_dtype` is a ``--precision`` name or a torch type (default: the
     COO's values' type); `index_dtype` is int32, int64 or None for auto.
+    Rows are padded to a multiple of `row_tile`, which must be a multiple
+    of `ROW_TILE` (K1 reads rows in pairs, with 16-byte loads). `rowsize`
+    may be forced larger than the longest row (the SELL buckets' widths);
+    a smaller one raises ValueError.
     """
+    if row_tile <= 0 or row_tile % ROW_TILE:
+        raise ValueError(f"row_tile {row_tile} is not a positive multiple "
+                         f"of {ROW_TILE}")
     coo = coo.expand_symmetry()
     n, m = coo.num_rows, coo.num_columns
     nnz_total = coo.num_nonzeros
@@ -229,7 +238,12 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
         coo, diag = coo.split_diagonal()
 
     counts = np.bincount(coo.rowidx, minlength=n) if n else np.zeros(0, int)
-    rowsize = int(counts.max()) if n and counts.size else 0
+    natural_rowsize = int(counts.max()) if n and counts.size else 0
+    if rowsize is None:
+        rowsize = natural_rowsize
+    elif rowsize < natural_rowsize:
+        raise ValueError(f"requested rowsize {rowsize} < max row occupancy "
+                         f"{natural_rowsize}")
 
     idx_dt = config.select_index_dtype(n, m, max(nnz_total, 1), index_dtype)
     dtype = config.value_dtype(coo.values.dtype if value_dtype is None
@@ -238,7 +252,7 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
     host_dt = (np.dtype(np.float64) if dtype == torch.bfloat16
                else torch.empty(0, dtype=dtype).numpy().dtype)
 
-    n_pad = max(_round_up(n, ROW_TILE), ROW_TILE)
+    n_pad = max(_round_up(n, row_tile), row_tile)
     pad_col = np.minimum(np.arange(n_pad, dtype=idx_dt),
                          max(m - 1, 0)).astype(idx_dt)
     colidx = np.broadcast_to(pad_col[:, None], (n_pad, rowsize)).copy()

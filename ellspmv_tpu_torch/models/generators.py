@@ -8,7 +8,9 @@ no large files on disk. Each gives arrays identical to its counterpart in
 - `fem_mesh_2d`: jittered-mesh FEM matrix in banded node order, the stand-in
   for the reference's published Lynx68_reordered.mtx (README:130);
 - `power_law`: skewed rows and hub columns, the webbase-1M class that the
-  stream format serves (BASELINE.json configs[3]).
+  stream format serves (BASELINE.json configs[3]);
+- `dense_rows`: a few long random rows over a local bulk, the class that
+  the SELL length sort and long-row split serve.
 """
 
 from __future__ import annotations
@@ -127,6 +129,35 @@ def power_law(n: int, avg_nnz_per_row: int, alpha: float = 1.8,
     popularity = 1.0 / np.arange(1, n + 1) ** 0.8
     popularity /= popularity.sum()
     cols = rng.choice(n, size=len(rows), p=popularity)
+    _, keep = np.unique(rows * n + cols, return_index=True)
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.randn(len(rows)).astype(value_dtype)
+    idx_dt = _index_dtype(n)
+    return CooMatrix(n, n, rows.astype(idx_dt), cols.astype(idx_dt), vals)
+
+
+def dense_rows(n: int, base_nnz: int, num_dense: int, dense_nnz: int,
+               bandwidth: int | None = None, seed: int = 0,
+               value_dtype=np.float64) -> CooMatrix:
+    """Mostly-local matrix with a few very long random rows: constraint
+    rows (Lagrange multipliers, normalisation or boundary conditions) over
+    a banded FEM-like bulk. Plain ELLPACK pads every row to `dense_nnz`
+    (ellspmv.c:955); the SELL length sort and long-row split keep the bulk
+    narrow and cut the long rows into bounded sub-rows.
+
+    `bandwidth` bounds the bulk rows' column offsets (default
+    32*base_nnz); the `num_dense` long rows draw columns uniformly;
+    duplicate (row, col) pairs are dropped."""
+    rng = np.random.RandomState(seed)
+    if bandwidth is None:
+        bandwidth = 32 * base_nnz
+    rows = np.repeat(np.arange(n, dtype=np.int64), base_nnz)
+    off = rng.randint(-bandwidth, bandwidth + 1, size=len(rows))
+    cols = np.clip(rows + off, 0, n - 1)
+    drows = rng.choice(n, num_dense, replace=False)
+    rows = np.concatenate([rows, np.repeat(drows, dense_nnz)])
+    cols = np.concatenate([cols,
+                           rng.randint(0, n, num_dense * dense_nnz)])
     _, keep = np.unique(rows * n + cols, return_index=True)
     rows, cols = rows[keep], cols[keep]
     vals = rng.randn(len(rows)).astype(value_dtype)

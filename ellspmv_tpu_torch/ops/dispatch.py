@@ -3,10 +3,13 @@
 
 from __future__ import annotations
 
+from ellspmv_tpu_torch.formats.csr import CsrMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.sell import SellMatrix, sell_spmv
 from ellspmv_tpu_torch.formats.stream import StreamMatrix, stream_spmv
 from ellspmv_tpu_torch.ops import dia_cuda, ell_cuda
+from ellspmv_tpu_torch.ops.csr import csr_spmv
 
 
 def spmv(matrix, x, y=None):
@@ -18,7 +21,12 @@ def spmv(matrix, x, y=None):
         return ell_cuda.ell_spmv(matrix, x, y)
     if isinstance(matrix, StreamMatrix):
         return stream_spmv(matrix, x, y)
+    if isinstance(matrix, SellMatrix):
+        return sell_spmv(matrix, x, y)
+    if isinstance(matrix, CsrMatrix):
+        # the sliced-ELL repack on K1, the JAX package's route on the TPU
+        return csr_spmv(matrix, x, y)
     raise NotImplementedError(
         f"spmv: {type(matrix).__name__} is not yet ported; only EllMatrix, "
-        "DiaMatrix and StreamMatrix are (see ROADMAP.md, Queue 1 items 5-6: "
-        "CSR, SELL and hybrid)")
+        "DiaMatrix, StreamMatrix, SellMatrix and CsrMatrix are (see "
+        "ROADMAP.md, Queue 1: the hybrid format)")

@@ -137,7 +137,7 @@ def test_dispatch_warning_as_jax(round_trip, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,shown", [
-    (["--format=sell"], "--format=sell"),
+    (["--format=hybrid", "--separate-diagonal"], "--format=hybrid"),
     (["--format=hybrid"], "--format=hybrid"),
     (["--format=hybrid", "--protocol=chained"], "--format=hybrid"),
     (["--devices=2", "--protocol=chained"], "--devices=2"),

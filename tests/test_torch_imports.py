@@ -57,6 +57,13 @@ solved = cg(lambda v: ell_cuda.ell_spmv(ell, v),
             torch.ones(16, dtype=torch.float64))
 streamed = stream_spmv(stream_from_coo(poisson2d(4)),
                        torch.ones(16, dtype=torch.float64))
+from ellspmv_tpu_torch.formats.csr import csr_from_coo
+from ellspmv_tpu_torch.formats.sell import sell_from_coo, sell_spmv
+from ellspmv_tpu_torch.ops.csr import csr_spmv
+sold = sell_spmv(sell_from_coo(poisson2d(4), length_sort=True),
+                 torch.ones(16, dtype=torch.float64))
+csred = csr_spmv(csr_from_coo(poisson2d(4), separate_diagonal=True),
+                 torch.ones(16, dtype=torch.float64))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
                                     "ellspmv_tpu"))
@@ -67,6 +74,7 @@ print(json.dumps({"modules": names, "bad": bad,
                   "dot_launches": dot_cuda.launches,
                   "cg_iterations": solved.iterations,
                   "streamed": streamed.tolist(),
+                  "sold": sold.tolist(), "csred": csred.tolist(),
                   "stream_launches": permute.launches + stream_sum.launches,
                   "chosen": dia._auto_choice,
                   "probe_launches": ell_cuda.probe_launches,
@@ -105,7 +113,11 @@ def test_port_imports_no_jax(child):
                 "ellspmv_tpu_torch.cli.cgsolve",
                 "ellspmv_tpu_torch.formats.stream",
                 "ellspmv_tpu_torch.ops.stream_sum",
-                "ellspmv_tpu_torch.ops.permute"}
+                "ellspmv_tpu_torch.ops.permute",
+                "ellspmv_tpu_torch.formats.csr",
+                "ellspmv_tpu_torch.formats.sell",
+                "ellspmv_tpu_torch.ops.csr",
+                "ellspmv_tpu_torch.cli.csrspmv"}
     assert expected <= set(child["modules"])
 
 
@@ -119,6 +131,8 @@ def test_import_without_nvcc_builds_nothing(child):
     assert child["stream_launches"] == 0
     assert child["streamed"] == [2.0, 1.0, 1.0, 2.0, 1.0, 0.0, 0.0, 1.0,
                                  1.0, 0.0, 0.0, 1.0, 2.0, 1.0, 1.0, 2.0]
+    # so do the SELL and CSR formats, through K1's plain version
+    assert child["sold"] == child["csred"] == child["streamed"]
     # the fp64 path probes only a card; the CPU runs the plain versions
     assert child["probe_launches"] == 0 and child["probed"] == 0
 
@@ -131,16 +145,25 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
-# Stands in for nvcc: records its arguments and the times it ran, writes
-# its -o file, takes 0.3 s per compile, and fails on a source named in
-# $FAKE_NVCC_FAIL.
+# Stands in for nvcc: records its arguments, writes its -o file, and fails
+# on a source named in $FAKE_NVCC_FAIL. Each compile marks its start in the
+# directory $FAKE_NVCC_STARTED, then waits until $FAKE_NVCC_COMPILES
+# compiles have started there, or 20 s have passed, and records whether it
+# saw them all: a barrier, so that the test checks that the compiles ran
+# together without racing a clock.
 _FAKE_NVCC = r"""#!{python}
 import json, os, sys, time
-t0 = time.time()
 args = sys.argv[1:]
 out = args[args.index("-o") + 1]
+together = None
 if "-c" in args:
-    time.sleep(0.3)
+    started = os.environ["FAKE_NVCC_STARTED"]
+    open(os.path.join(started, str(os.getpid())), "w").close()
+    want = int(os.environ["FAKE_NVCC_COMPILES"])
+    deadline = time.monotonic() + 20
+    while len(os.listdir(started)) < want and time.monotonic() < deadline:
+        time.sleep(0.01)
+    together = len(os.listdir(started)) >= want
     if os.environ.get("FAKE_NVCC_FAIL", "!") in args[-1]:
         sys.stderr.write("error: fake failure\n")
         sys.exit(2)
@@ -148,7 +171,7 @@ if "-c" in args:
 with open(out, "w") as f:
     f.write("built")
 with open(os.environ["FAKE_NVCC_LOG"], "a") as f:
-    f.write(json.dumps({{"args": args, "t0": t0, "t1": time.time()}}) + "\n")
+    f.write(json.dumps({{"args": args, "together": together}}) + "\n")
 """
 
 
@@ -159,7 +182,11 @@ def test_build_compiles_each_source_in_parallel(fail, monkeypatch,
     nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
     nvcc.chmod(0o755)
     log = tmp_path / "calls.jsonl"
+    started = tmp_path / "started"
+    started.mkdir()
     monkeypatch.setenv("FAKE_NVCC_LOG", str(log))
+    monkeypatch.setenv("FAKE_NVCC_STARTED", str(started))
+    monkeypatch.setenv("FAKE_NVCC_COMPILES", str(len(_build.sources())))
     if fail:
         monkeypatch.setenv("FAKE_NVCC_FAIL", "dia_spmv.cu")
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
@@ -171,15 +198,15 @@ def test_build_compiles_each_source_in_parallel(fail, monkeypatch,
         return
     out = _build.build()
     calls = [json.loads(line) for line in log.read_text().splitlines()]
+    # each compile logs as it ends, the link last
     compiles, link = calls[:-1], calls[-1]
     assert sorted(c["args"][-1] for c in compiles) == \
         [str(p) for p in _build.sources()]
     assert all("-c" in c["args"] and "sm_90a" in " ".join(c["args"])
                for c in compiles)
-    # all started before the first one ended, and linked after the last
-    assert max(c["t0"] for c in compiles) < min(c["t1"] for c in compiles)
-    assert "-shared" in link["args"]
-    assert link["t0"] >= max(c["t1"] for c in compiles)
+    # every compile saw all the others start before it ended
+    assert all(c["together"] for c in compiles)
+    assert "-shared" in link["args"] and link["together"] is None
     assert out == _build.library_path() and out.read_text() == "built"
     assert sorted(p.name for p in out.parent.iterdir()) == \
         sorted([out.name, out.with_suffix(".log").name])
