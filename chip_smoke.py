@@ -10,7 +10,10 @@ Phases, each of which exits non-zero on failure:
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles ``ellspmv_tpu_torch/csrc/*.cu`` with nvcc for sm_90a,
    one nvcc per source, all started together;
-3. each kernel against its plain PyTorch version on the card, the error
+3. the ``cuda`` tests by name (``python -m pytest --noconftest -m cuda
+   tests/test_torch_card.py tests/test_torch_imports.py``, each test's
+   name and outcome printed; any failure, or none run, fails the script);
+   each kernel against its plain PyTorch version on the card, the error
    taken per row relative to sum |a*x| (+ |d*x| + |y|): fp64 1e-13, f32
    1e-5, bf16 1e-2. The ELL kernel for {fp64, f32, bf16} x {int32, int64}
    x {diag, no diag} x {y, no y} on poisson2d(64),
@@ -33,8 +36,17 @@ Phases, each of which exits non-zero on failure:
    same calls on CPU copies on every reassembly branch (a CSR tail, the
    long-row split, the length sort with and without it, a symmetric and a
    rectangular matrix, the one-bucket CSR repack with and without its split
-   diagonal), with y and without, one K1 launch per bucket;
-4. the ``ellspmv`` program: exact stdout on examples/test.mtx, then on a
+   diagonal), with y and without, one K1 launch per bucket; ``hybrid_spmv``
+   likewise on every branch of the hybrid (a hub over split rows, a hub of
+   short rows, no hub for uniform degrees or a hub as wide as the matrix,
+   an empty matrix) in fp64, f32 and bf16, one gather and one K1 launch per
+   bucket; K1's round latency on short launches (ROADMAP F8: the slope of
+   its time over its rounds of loads, the chooser's constant) and F8's two
+   small cases timed both ways beside the chooser's pick, which at the
+   blowup gate must be the faster;
+4. the programs, their ``main`` run in this process (but for one
+   ``python -m`` run each of ``ellspmv`` and ``csrspmv``, in their own
+   processes): ``ellspmv``: exact stdout on examples/test.mtx, then on a
    fem_mesh_2d(256) file (65,536 rows) ``-v --sort-rows``,
    ``--format=dia``, ``--format=auto -v`` (which must choose DIA) and
    ``--reorder=rcm -v``, their y held against the NumPy oracle, and
@@ -47,9 +59,14 @@ Phases, each of which exits non-zero on failure:
    choose the stream format) on a power_law(100,000, 8) file, their y held
    against the oracle; the ``csrspmv`` program on examples/test.mtx
    (exact stdout), then ``csrspmv -v``, ``--separate-diagonal`` and
-   ``--partition-nonzeros`` and ``ellspmv --format=sell|auto -v`` (which
-   must choose SELL) on a dense_rows(100,000, 8, 16, 12,500) file, their y
-   held against the oracle and their labels checked;
+   ``--partition-nonzeros`` and ``ellspmv --format=sell|auto -v`` (auto
+   must choose the stream format) on a dense_rows(100,000, 8, 16, 12,500)
+   file, their y held against the oracle and their labels checked;
+   ``ellspmv --format=hybrid`` with ``--papi-event-file``,
+   ``--papi-event-summary`` and ``--trace=DIR``, the same with
+   ``--backend=xla`` and the CSV reports, and ``csrspmv --backend=xla``, on
+   a power_law(20,000, 8) file: y against the oracle, the reports' lines,
+   a trace written;
 5. full size, fem_mesh_2d(1440) (2,073,600 rows, about 32.3M nonzeros, the
    class of the reference's Lynx68 matrix): the ELL main path (ell_from_coo,
    benchmark_spmv per_iter, repeat 10, warmup 2), the headline path
@@ -61,8 +78,8 @@ Phases, each of which exits non-zero on failure:
    once under ``torch.profiler``, whose device times split an iteration
    into K1, the dot kernel and the rest against the host clock), with the
    kernels' launch counts set to 0 before each path and read after it;
-   then the headline program (``python -m ellspmv_tpu_torch.bench.headline``)
-   once, its JSON line echoed; then the stream path at config3's full width,
+   then the headline program once (its ``main``, as ``python -m
+   ellspmv_tpu_torch.bench.headline`` runs it), its JSON line echoed; then the stream path at config3's full width,
    power_law(1,000,000, 8) (7,049,701 nonzeros, the webbase-1M class):
    ``stream_from_coo``'s host seconds and plan, ``benchmark_spmv`` per_iter
    and chained in fp64 and f32, every row held against the oracle, and the
@@ -75,7 +92,9 @@ Phases, each of which exits non-zero on failure:
    dense_rows(1,000,000, 8, 16, 125,000): ``sell_from_coo`` (``ellspmv
    --format=sell``'s) and ``auto_from_coo`` (``--format=auto``'s, its
    choice and both prices), their host seconds and buckets, each run
-   per_iter in fp64 and f32 with every row held against the oracle;
+   per_iter in fp64 and f32 with every row held against the oracle; and
+   the hybrid path at config3 (``hybrid_from_coo``, per_iter in fp64 and
+   f32, every row against the oracle, the launches of each call);
 6. timing: each kernel beside its plain version at the main paths' shapes,
    in turns (plain, kernel, kernel, plain), and beside one library call as
    a yardstick (cuSPARSE, ``torch.sparse_csr_tensor(...) @ x``, for the
@@ -103,9 +122,22 @@ Phases, each of which exits non-zero on failure:
    config-dense-rows in a CUDA graph against the stream path on the same
    matrix, eagerly beside cuSPARSE, its launches per call, K1's share of
    its device time under the profiler, and its bound; K1 on every bucket of
-   both held against its plain version on every row; and the FMA probe
-   against an empty kernel launched the same way, in turns, in a CUDA
-   graph: the floor of one launch.
+   both held against its plain version on every row, and each SELL bucket
+   alone beside its price; the chooser's pick at config-dense-rows, which
+   must be the format the card runs faster there in both types (F8);
+   ``hybrid_spmv`` at config3 in a CUDA graph beside the stream path,
+   eagerly beside cuSPARSE, split by the profiler into K1, the gather and
+   the reassembly, against its bound; and the FMA probe against an empty
+   kernel launched the same way, in turns, in a CUDA graph: the floor of
+   one launch;
+7. the benchmark suite (``python -m ellspmv_tpu_torch.bench.suite --json``,
+   run in this process): every row at full scale, each timed row's y held
+   against the oracle on every row (fp64, 1e-13 of sum |a*x|), the triad
+   beside the data sheet, config3-10x's normwise error beside the JAX
+   package's.
+
+Each phase's seconds are printed after it, and all of them before the
+summary.
 
 The line before the last is a JSON summary of the kernels (time, plain
 time, bound, library time, launches on the main paths); the last line is
@@ -229,6 +261,7 @@ def phase_device():
     check(smi.returncode == 0 and smi.stdout.strip() != "",
           f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    CARD[0] = card
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s), "
@@ -494,16 +527,36 @@ def phase_dot_vs_plain():
                                  "move by two per case")
 
 
-def _run_cli(args, label, program="ellspmv", expect=0):
-    cmd = [sys.executable, "-m", f"ellspmv_tpu_torch.cli.{program}", *args]
+def _run_cli(args, label, program="ellspmv", expect=0, process=False):
+    """Run a program of the port on `args`: its ``main`` in this process
+    with stdout and stderr captured (the programs' ``python -m`` entry
+    calls the same ``main``; it spares each run the ~8 s a new process
+    takes to reach the card), or, with `process`, as ``python -m`` in a
+    process of its own. Returns (returncode, stdout, stderr) as
+    ``subprocess.CompletedProcess``."""
+    import contextlib
+    import importlib
+    import io
+    module = f"ellspmv_tpu_torch.cli.{program}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=900)
+    if process:
+        proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                              capture_output=True, text=True, timeout=900)
+    else:
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                rc = importlib.import_module(module).main(list(args))
+            except SystemExit as e:
+                rc = e.code
+        proc = subprocess.CompletedProcess(args, rc, out.getvalue(),
+                                           err.getvalue())
     check(proc.returncode == expect,
           f"{program} {label} exited {proc.returncode}, not {expect}: "
           f"{proc.stderr}")
     log(f"cli: {program} {label}: exit {expect} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s"
+        f"{' (its own process)' if process else ''}")
     for line in proc.stderr.splitlines():
         log(f"  {line}")
     return proc
@@ -521,7 +574,8 @@ def phase_cli(mesh_n: int = 256, device: str = "cuda"):
     from ellspmv_tpu_torch.ops.dia_cuda import dia_spmv_torch
     from ellspmv_tpu_torch.ops.reference import coo_spmv_numpy
     dev = f"--device={device}"
-    proc = _run_cli([dev, "examples/test.mtx"], "examples/test.mtx")
+    proc = _run_cli([dev, "examples/test.mtx"], "examples/test.mtx",
+                    process=True)
     check(proc.stdout == EXPECTED_TEST_MTX,
           f"ellspmv examples/test.mtx printed {proc.stdout!r}")
     log("cli: examples/test.mtx -> y = [3, 1, 3, 6], stdout exact")
@@ -924,14 +978,27 @@ def cg_iteration_breakdown(prof, ell, iterations, seconds, peak_bw):
 
 
 def phase_headline_program(device="cuda", rows=None):
-    env = dict(os.environ)
-    if rows is not None:
-        env["BENCH_ROWS"] = str(rows)
+    """The headline program's ``main`` in this process (its stdout and
+    stderr captured), as ``python -m ellspmv_tpu_torch.bench.headline``
+    runs it; `rows` sets ``BENCH_ROWS`` for the run."""
+    import contextlib
+    import io
+
+    from ellspmv_tpu_torch.bench import headline
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "ellspmv_tpu_torch.bench.headline",
-         f"--device={device}"], cwd=REPO, env=env, capture_output=True,
-        text=True, timeout=900)
+    out, err = io.StringIO(), io.StringIO()
+    saved = os.environ.get("BENCH_ROWS")
+    if rows is not None:
+        os.environ["BENCH_ROWS"] = str(rows)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = headline.main([f"--device={device}"])
+    finally:
+        if rows is not None:
+            os.environ.pop("BENCH_ROWS")
+            if saved is not None:
+                os.environ["BENCH_ROWS"] = saved
+    proc = subprocess.CompletedProcess([], rc, out.getvalue(), err.getvalue())
     check(proc.returncode == 0, f"the headline program failed: "
                                 f"{proc.stderr}")
     lines = proc.stdout.strip().splitlines()
@@ -1804,14 +1871,15 @@ def phase_sell_csr_cli(device="cuda"):
     """The `csrspmv` program (plain, --separate-diagonal,
     --partition-nonzeros) and `ellspmv --format=sell|auto`: exact stdout on
     examples/test.mtx, then on a dense_rows(100,000, 8, 16, 12,500) file
-    each y against the oracle and each label; auto must choose SELL."""
+    each y against the oracle and each label; auto must choose the stream
+    format (SELL's short sub-row buckets priced by their rounds, F8)."""
     import io
 
     from ellspmv_tpu_torch.io.mtx import read_vector, write_matrix
     from ellspmv_tpu_torch.models.generators import dense_rows
     dev = f"--device={device}"
     proc = _run_cli([dev, "-v", "examples/test.mtx"], "-v examples/test.mtx",
-                    "csrspmv")
+                    "csrspmv", process=True)
     check(proc.stdout == EXPECTED_TEST_MTX and "csrgemv:" in proc.stderr,
           f"csrspmv examples/test.mtx printed {proc.stdout!r}")
     log("cli: csrspmv examples/test.mtx -> y = [3, 1, 3, 6], stdout exact")
@@ -1821,7 +1889,7 @@ def phase_sell_csr_cli(device="cuda"):
             ("csrspmv", ["-v", "--separate-diagonal"], "csrgemvsd:"),
             ("csrspmv", ["-v", "--partition-nonzeros"], "csrgemvnz:"),
             ("ellspmv", ["--format=sell", "-v"], "gemv_sell:"),
-            ("ellspmv", ["--format=auto", "-v"], "gemv_sell:")]
+            ("ellspmv", ["--format=auto", "-v"], "gemv_stream:")]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "dense_rows.mtx")
         write_matrix(path, coo)
@@ -1840,8 +1908,9 @@ def phase_sell_csr_cli(device="cuda"):
             check(label in proc.stderr,
                   f"{program} {' '.join(flags)} printed no {label} line")
             if "--format=auto" in flags:
-                check("auto_from_coo [sell]" in proc.stderr,
-                      "--format=auto did not choose SELL on dense_rows")
+                check("auto_from_coo [stream]" in proc.stderr,
+                      "--format=auto did not choose the stream format on "
+                      "dense_rows")
 
 
 def phase_csr_path(coo, x64, want, scale, device="cuda"):
@@ -1901,7 +1970,9 @@ def phase_csr_path(coo, x64, want, scale, device="cuda"):
 def phase_sell_path(coo, x64, want, scale, device="cuda"):
     """The SELL path at dense_rows(1,000,000, 8, 16, 125,000): `ellspmv
     --format=sell`'s build (sell_from_coo with sorted rows and the length
-    sort) and `--format=auto`'s (the chooser, its choice and both prices),
+    sort) and `--format=auto`'s (the chooser, which takes the stream format
+    there since K1's short launches are priced by their rounds; its choice
+    and both prices),
     each timed on the host and run per_iter in fp64 and f32, every row
     held against the oracle, with the launch counts of the path."""
     import torch
@@ -2058,11 +2129,15 @@ def phase_csr_timing(coo, csr_runs, ell_runs, peak_bw):
             f"it; {len(sm.buckets)} K1 launch(es) per call")
 
 
-def phase_sell_timing(coo, sell_runs, peak_bw):
+def phase_sell_timing(coo, sell_runs, peak_bw, chosen):
     """At dense_rows(1,000,000, 8, 16, 125,000): sell_spmv in a CUDA graph
-    and eagerly, its launches per call, K1's share under the profiler, its
-    bound, cuSPARSE's time, and the stream path's on the same matrix."""
+    and eagerly, its launches per call, K1's share under the profiler and on
+    each bucket beside its price, its bound, cuSPARSE's time, and the
+    stream path's on the same matrix. The chooser's pick there (`chosen`,
+    by precision) must be the format the card runs faster (ROADMAP F8)."""
     import torch
+
+    from ellspmv_tpu_torch import config
 
     from ellspmv_tpu_torch.bench.traffic import (estimate_actual_bytes,
                                                  sell_bytes)
@@ -2096,6 +2171,16 @@ def phase_sell_timing(coo, sell_runs, peak_bw):
         st_bytes = estimate_actual_bytes(st, with_y=False)
         k1, rest = k1_split(f"sell_spmv {prec}", lambda: spmv(sm, x), sm,
                             x.device.type)
+        sell_bucket_times(f"sell_spmv {prec}", sm, x, peak_bw,
+                          *config.k1_geometry(x.device))
+        fast = min(("sell", "stream"), key=lambda k: graph[f"{k}_spmv"])
+        log(f"  F8 config-dense-rows {prec}: the card runs {fast} faster "
+            f"(SELL {graph['sell_spmv']:.4f} ms, stream "
+            f"{graph['stream_spmv']:.4f} ms); the chooser took "
+            f"{chosen[prec]}")
+        check(chosen[prec] == fast,
+              f"F8: at config-dense-rows {prec} the chooser took "
+              f"{chosen[prec]}, the card runs {fast} faster")
         g = graph["sell_spmv"]
         log(f"  sell_spmv {prec}: {g:.4f} ms on the device, "
             f"{eager['sell_spmv']:.4f} ms eager; launches per call "
@@ -2135,6 +2220,540 @@ def probe_floor():
     return ms
 
 
+# ---------------------------------------------------------------------------
+# F8: K1's launch geometry in the chooser's price
+# ---------------------------------------------------------------------------
+
+# Short K1 launches for the round-latency probe: row counts whose blocks of
+# 512 rows stay under the card's SMs, and widths (slots a row); columns
+# random over a million (wide columns, as in the SELL split's sub-row
+# buckets).
+K1_PROBE_ROWS = (2048, 16384, 49152)
+K1_PROBE_WIDTHS = (4, 16, 32, 64, 128)
+K1_PROBE_COLUMNS = 1_000_000
+
+
+def _probe_ell(rows, width, prec, device):
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.formats.ell import ell_from_row_major
+    rng = np.random.RandomState(rows + width)
+    cols = rng.randint(0, K1_PROBE_COLUMNS, (rows, width)).astype(np.int32)
+    vals = rng.rand(rows, width)
+    return ell_from_row_major(cols, vals, None, rows, K1_PROBE_COLUMNS,
+                              rows * width, value_dtype(prec), device)
+
+
+def probe_k1_geometry(device="cuda"):
+    """K1 on short launches (fewer blocks than the card has SMs) at several
+    widths, each in a CUDA graph: the time against the rounds of
+    ``kSlotBatch`` slots each thread walks, and the least-squares line
+    through them. Its slope is one round's latency, the ``L`` of the
+    chooser's K1 price (``config.k1_round_seconds``). Returns {prec: L in
+    seconds}."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.traffic import k1_rounds
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.ops import ell_cuda
+    sms = torch.cuda.get_device_properties(0).multi_processor_count \
+        if device == "cuda" else 132
+    timer = graph_ms if device == "cuda" else _host_ms
+    fits = {}
+    for prec in ("float64", "float32"):
+        points = []
+        x = torch.from_numpy(np.random.RandomState(5).rand(
+            K1_PROBE_COLUMNS)).to(device).to(value_dtype(prec))
+        for rows in K1_PROBE_ROWS:
+            blocks = -(-rows // 512)
+            check(blocks < sms, f"probe rows {rows}: {blocks} blocks fill "
+                                f"the {sms} SMs")
+            line = []
+            for width in K1_PROBE_WIDTHS:
+                ell = _probe_ell(rows, width, prec, device)
+                check(ell.lcol is None, "the probe's columns must be wide")
+                ms = timer(lambda: ell_cuda.ell_spmv(ell, x))
+                points.append((k1_rounds(width), ms))
+                line.append(f"{width}: {ms:.4f}")
+            log(f"  K1 probe {prec}, {rows:,} rows ({blocks} blocks of "
+                f"{sms} SMs), ms by width: {', '.join(line)}")
+        r = np.array([p[0] for p in points], np.float64)
+        t = np.array([p[1] for p in points], np.float64)
+        slope, icept = np.polyfit(r, t, 1)
+        resid = np.abs(t - (icept + slope * r)).max()
+        fits[prec] = slope * 1e-3
+        log(f"  K1 probe {prec}: t = {icept:.4f} ms + {slope * 1e3:.3f} us "
+            f"x rounds (rounds = ceil(width / 4)); worst residual "
+            f"{resid * 1e3:.2f} us over {len(points)} launches")
+    return fits
+
+
+def _host_ms(fn, iters: int = 3) -> float:
+    """Host-clock ms per call, for rehearsals on the CPU."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def sell_bucket_times(label, sm, x, peak_bw, round_s, sms):
+    """Each bucket of `sm` alone on K1 (CUDA graph) beside its price:
+    bytes over the peak, and the rounds' latency where its blocks do not
+    fill the card."""
+    from ellspmv_tpu_torch.bench.traffic import k1_launch_seconds
+    from ellspmv_tpu_torch.ops import ell_cuda
+    timer = graph_ms if x.device.type == "cuda" else _host_ms
+    total = priced = 0.0
+    for b in sm.buckets:
+        ms = timer(lambda: ell_cuda.ell_spmv(b, x))
+        nbytes = (b.rowsize * b.padded_rows * b.values.element_size()
+                  + b.index_bytes + b.num_rows * b.values.element_size())
+        price = k1_launch_seconds(b.num_rows, b.rowsize, nbytes, peak_bw,
+                                  round_s, sms) * 1e3
+        total += ms
+        priced += price
+        log(f"  {label} bucket {b.num_rows:,} rows x {b.rowsize} "
+            f"({'narrow' if b.lcol is not None else 'wide'}, "
+            f"{-(-b.num_rows // 512)} blocks): {ms:.4f} ms on the device, "
+            f"priced {price:.4f} ms (bytes alone {nbytes / peak_bw * 1e3:.4f})")
+    log(f"  {label}: K1 over its {len(sm.buckets)} buckets {total:.4f} ms on "
+        f"the device, priced {priced:.4f} ms")
+    return total, priced
+
+
+def f8_small_cases():
+    """ROADMAP F8's two small cases, as the chooser's tests build them:
+    name -> (COO, the two formats the chooser weighs there)."""
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    n = 20_000
+    rng = np.random.RandomState(0)
+    rows = np.concatenate([np.repeat(np.arange(n), 16), np.zeros(63 - 16)])
+    cols = rng.randint(0, n, len(rows))
+    near = CooMatrix(n, n, rows.astype(np.int32), cols.astype(np.int32),
+                     rng.randn(len(rows)))
+    rows = np.concatenate([np.arange(n), np.zeros(299, np.int64)])
+    cols = np.concatenate([np.arange(n), np.arange(1, 300)])
+    blowup = CooMatrix(n, n, rows.astype(np.int32), cols.astype(np.int32),
+                       np.ones(len(rows)))
+    return {"20,000 rows of 16 and one of 63": (near, ("ell", "stream")),
+            "20,000 rows of one and one of 300": (blowup,
+                                                  ("sell", "stream"))}
+
+
+def _format_of(name, coo, prec, device):
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.formats.sell import sell_from_coo
+    from ellspmv_tpu_torch.formats.stream import stream_from_coo
+    if name == "ell":
+        return ell_from_coo(coo, sort_rows=True, value_dtype=prec,
+                            device=device)
+    if name == "sell":
+        return sell_from_coo(coo, sort_rows=True, length_sort=True,
+                             value_dtype=prec, device=device)
+    return stream_from_coo(coo, value_dtype=prec, device=device)
+
+
+def f8_timed_both_ways(label, coo, names, device="cuda"):
+    """The formats `names` of `coo` in turns in a CUDA graph, fp64 and f32,
+    and the chooser's pick: {prec: (ms by name, chosen)}."""
+    import torch
+
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.formats.auto import auto_from_coo
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    timer = graph_ms if device == "cuda" else _host_ms
+    out = {}
+    for prec in ("float64", "float32"):
+        x = torch.from_numpy(np.random.RandomState(6).rand(
+            coo.num_columns)).to(device).to(value_dtype(prec))
+        mats = {k: _format_of(k, coo, prec, device) for k in names}
+        ms = _versus(f"F8 {label} {prec} (CUDA graph, per call)",
+                     {k: (lambda m=m: spmv(m, x)) for k, m in mats.items()},
+                     timer)
+        chosen = auto_from_coo(coo, sort_rows=True, value_dtype=prec,
+                               device=device)
+        fast = min(ms, key=ms.get)
+        log(f"  F8 {label} {prec}: the card runs {fast} faster "
+            f"({' against '.join(f'{k} {v:.4f} ms' for k, v in ms.items())}"
+            f"); the chooser takes {chosen._auto_choice}: "
+            f"{chosen._auto_reason}")
+        out[prec] = (ms, chosen._auto_choice)
+    return out
+
+
+def phase_f8(device="cuda"):
+    """ROADMAP F8: K1's round latency measured on short launches (the
+    chooser's ``L``), printed beside the card's name and power limit and
+    the constant in ``config.py``; and F8's two small cases timed both ways
+    in a CUDA graph, fp64 and f32, beside the chooser's pick. At the blowup
+    gate (the second case) the pick must be the faster format."""
+    import torch
+
+    from ellspmv_tpu_torch import config
+    fits = probe_k1_geometry(device)
+    stored, sms = config.k1_geometry(device)
+    card = (torch.cuda.get_device_name(0) if device == "cuda"
+            else "host CPU")
+    log(f"  K1 round latency on {CARD[0] or card}: {fits['float64'] * 1e6:.3f}"
+        f" us fp64, {fits['float32'] * 1e6:.3f} us f32 measured; config.py "
+        f"prices {stored * 1e6:.3f} us on {sms} SMs")
+    for label, (coo, names) in f8_small_cases().items():
+        both = f8_timed_both_ways(label, coo, names, device)
+        if "sell" in names:
+            for prec, (ms, chosen) in both.items():
+                check(device != "cuda" or chosen == min(ms, key=ms.get),
+                      f"F8 {label} {prec}: the chooser took {chosen}, the "
+                      f"card runs {min(ms, key=ms.get)} faster ({ms})")
+    return fits
+
+
+# ---------------------------------------------------------------------------
+# The hub-column hybrid: the gather (K4's counterpart), then K1 per bucket of
+# its two SELL parts
+# ---------------------------------------------------------------------------
+
+def hybrid_cases():
+    """(label, COO, hybrid_from_coo keywords) on every branch of the
+    hybrid: a hub over both parts' long-row split and reassembly, a hub of
+    short rows, none for uniform degrees, none where the hub would hold
+    every column, an empty matrix. (No CSR tail arises: the split leaves no
+    row longer than the tail's cap.)"""
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.models.generators import power_law
+    empty = CooMatrix(300, 200, np.zeros(0, np.int32), np.zeros(0, np.int32),
+                      np.zeros(0))
+    return [
+        ("hub, split", power_law(20_000, 8, seed=2), {}),
+        ("hub, short rows", power_law(4000, 3, alpha=2.5, seed=1),
+         dict(hub_width=512, slice_rows=256)),
+        ("no hub (uniform)", spread_coo(2000, 2000, 4, 7),
+         dict(hub_width=128)),
+        ("no hub (H >= m)", spread_coo(400, 100, 5, 8), {}),
+        ("empty", empty, {}),
+    ]
+
+
+def phase_hybrid_vs_plain(device="cuda"):
+    """`hybrid_spmv` on the card against the same call on a CPU copy (the
+    plain gather, K1's plain version, the same reassembly) and against the
+    oracle, per row relative to sum |a*x| + |y|, on every branch, in fp64,
+    f32 and bf16 (whose x the gather moves as 16-bit patterns), with y and
+    without; one gather and one K1 launch per bucket of both parts."""
+    import torch
+
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.formats.hybrid import (hybrid_from_coo,
+                                                  hybrid_spmv,
+                                                  kernel_launches)
+    from ellspmv_tpu_torch.ops import ell_cuda, permute
+    calls = 0
+    for label, coo, kw in hybrid_cases():
+        rng = np.random.RandomState(9)
+        x64 = rng.rand(coo.num_columns)
+        y64 = rng.randn(coo.num_rows)
+        for prec in ("float64", "float32", "bfloat16"):
+            dt = value_dtype(prec)
+            hm = hybrid_from_coo(coo, value_dtype=prec, device=device, **kw)
+            want_launches = kernel_launches(hm)
+            x = torch.from_numpy(x64).to(device).to(dt)
+            host = hm.to("cpu")
+            for y64_ in (None, y64):
+                y = None if y64_ is None else torch.from_numpy(y64_).to(
+                    device).to(dt)
+                mark = (ell_cuda.launches, permute.launches)
+                got = hybrid_spmv(hm, x, y)
+                grew = {"ell_spmv": ell_cuda.launches - mark[0],
+                        "permute": permute.launches - mark[1]}
+                check(device != "cuda" or grew == want_launches,
+                      f"hybrid {label} {prec}: launches {grew}, expected "
+                      f"{want_launches}")
+                plain = hybrid_spmv(host, x.cpu(),
+                                    None if y is None else y.cpu())
+                want, scale = row_oracle(coo, x.double().cpu().numpy(),
+                                         None if y is None else
+                                         y.double().cpu().numpy())
+                got64 = got.double().cpu().numpy()
+                err = max(_row_err(got64, plain.double().numpy(), scale),
+                          _row_err(got64, want, scale))
+                _agree(f"hybrid {label:18s} {prec:8s} y={int(y is not None)}"
+                       f" (hub {hm.hub_nnz_fraction:.2f}, launches "
+                       f"{want_launches}) against plain and the oracle",
+                       prec, err)
+                calls += 1
+    log(f"hybrid against plain: {calls} calls agree")
+
+
+def phase_hybrid_cli(device="cuda"):
+    """`ellspmv --format=hybrid` (with ``--papi-event-file`` and
+    ``--papi-event-summary`` and ``--trace=DIR``), the same with
+    ``--backend=xla`` (the reports in CSV), and `csrspmv --backend=xla`, on a
+    power_law(20,000, 8) file: exit 0, y against the oracle, the reports'
+    lines, and a trace written into DIR."""
+    import io
+
+    from ellspmv_tpu_torch.io.mtx import read_vector, write_matrix
+    from ellspmv_tpu_torch.models.generators import power_law
+    coo = power_law(20_000, 8, seed=0)
+    want, scale = row_oracle(coo, np.ones(coo.num_columns))
+    papi = ["--papi-event-file=examples/tpu_membw.metrics",
+            "--papi-event-summary"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "power_law_20000.mtx")
+        write_matrix(path, coo)
+        trace = os.path.join(tmp, "trace")
+        runs = [("ellspmv", ["--format=hybrid", "-v", *papi,
+                             f"--trace={trace}"], "gemv_hybrid:"),
+                ("ellspmv", ["--format=hybrid", "--backend=xla", "-v", *papi,
+                             "--papi-event-format=csv"], "gemv_hybrid:"),
+                ("csrspmv", ["--backend=xla", "-v"], "csrgemv:")]
+        for program, flags, label in runs:
+            proc = _run_cli([f"--device={device}", *flags, path],
+                            " ".join(flags), program)
+            y = read_vector(io.BytesIO(proc.stdout.encode()))
+            err = _row_err(y, want, scale)
+            log(f"cli: {program} {' '.join(flags)} on power_law(20000, 8): "
+                f"y of {len(y):,} rows, max err {err:.3e} of sum|a*x| "
+                "against the oracle (printed with %.15g)")
+            check(len(y) == coo.num_rows and err <= TOLERANCE["float64"],
+                  f"{program} {' '.join(flags)}: y disagrees with the "
+                  f"oracle: {err:.3e}")
+            check(label in proc.stderr,
+                  f"{program} {' '.join(flags)} printed no {label} line")
+            if "--format=hybrid" in flags:
+                check("hybrid_from_coo:" in proc.stderr
+                      and "hub fraction" in proc.stderr,
+                      "--format=hybrid -v printed no hybrid_from_coo line")
+            if "--backend=xla" in flags:
+                check("backend: xla" in proc.stderr,
+                      f"{program} --backend=xla -v did not name its backend")
+            if papi[0] in flags:
+                check("Throughput" in proc.stderr and "Roofline" in
+                      proc.stderr, "the event file's report is missing")
+                check(("region,repeat,time" in proc.stderr)
+                      == ("--papi-event-format=csv" in flags),
+                      "the summary's format is not the one asked for")
+                check("HBM roofline:" in proc.stderr
+                      or "--papi-event-format=csv" in flags,
+                      "the plain summary printed no roofline")
+        files = os.listdir(trace) if os.path.isdir(trace) else []
+        size = sum(os.path.getsize(os.path.join(trace, f)) for f in files)
+        check(size > 0, f"--trace={trace} wrote nothing")
+        log(f"cli: --trace wrote {files} ({size:,} bytes)")
+
+
+def phase_hybrid_path(coo, x64, want, scale, device="cuda"):
+    """`ellspmv --format=hybrid`'s path at config3's full width:
+    hybrid_from_coo, benchmark_spmv per_iter in fp64 and f32, every row held
+    against the oracle, one gather and one K1 launch per bucket per call."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.harness import benchmark_spmv
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.formats.hybrid import (hybrid_from_coo,
+                                                  kernel_launches)
+    n = coo.num_rows
+    runs, counts = {}, {}
+    calls = 2 + WARMUP + REPEAT
+    for prec in ("float64", "float32"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        hm = hybrid_from_coo(coo, value_dtype=prec, device=device)
+        _sync(device)
+        host_s = time.perf_counter() - t0
+        x = torch.from_numpy(x64).to(device).to(value_dtype(prec))
+        per_call = kernel_launches(hm)
+        log(f"  hybrid {prec}: hybrid_from_coo to {device} in {host_s:.2f} s,"
+            f" hub {int(hm.hub_cols.shape[0]):,} columns holding "
+            f"{hm.hub_nnz_fraction:.3f} of the slots; hub buckets (rows, "
+            f"width, columns) {bucket_lines(hm.hub)}; rest buckets "
+            f"{bucket_lines(hm.rest)}; launches per call {per_call}")
+        res = benchmark_spmv(None, hm, x, None, repeat=REPEAT, warmup=WARMUP)
+        grew = _counts()
+        for line in res.iteration_lines()[:2]:
+            log(f"  hybrid {prec} gemv_hybrid: {line}")
+        log(f"  hybrid {prec} best: {res.best:.6f} s, {res.gnz_per_s():.3f} "
+            f"Gnz/s, physical {res.actual_gb_per_s():.1f} GB/s "
+            f"({res.actual_bytes:,} bytes per multiply); launches {grew}")
+        for k, c in per_call.items():
+            check(device != "cuda" or grew[k] == c * calls,
+                  f"hybrid {prec}: {grew[k]} {k} launches, expected "
+                  f"{c * calls}")
+        iters = WARMUP + REPEAT
+        got = res.y.double().cpu().numpy()
+        _all_rows_check(f"hybrid {prec} per_iter", res.y, n, got,
+                        _row_err(got, iters * want, iters * scale),
+                        TOLERANCE[prec])
+        counts[prec] = _counts()
+        runs[prec] = (hm, x)
+    return runs, counts
+
+
+def phase_hybrid_timing(coo, runs, stream_runs, peak_bw):
+    """At config3: hybrid_spmv in a CUDA graph beside the stream path on the
+    same matrix, in turns, and eagerly beside cuSPARSE; its device time
+    split by the profiler into K1, the gather and the reassembly; K1 on
+    every bucket of both parts against its plain version; its bound. The
+    hybrid's row of the PERF.md table."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    out = {}
+    for prec, (hm, x) in runs.items():
+        st, xs = stream_runs[prec]
+        lib = cusparse_of(coo, x.dtype, x.device)
+        graph = _versus(f"hybrid_spmv {prec} against the stream path "
+                        "(CUDA graph, per call)",
+                        {"hybrid_spmv": lambda: spmv(hm, x),
+                         "stream_spmv": lambda: spmv(st, xs)}, graph_ms)
+        eager = _versus(f"hybrid_spmv {prec} and cuSPARSE (eager, CUDA "
+                        "events over 20 calls)",
+                        {"hybrid_spmv": lambda: spmv(hm, x),
+                         "cuSPARSE": lambda: lib @ x}, time_ms)
+        _buckets_vs_plain(f"hybrid_spmv {prec} hub", hm.hub,
+                          x[hm.hub_cols.long()], prec)
+        _buckets_vs_plain(f"hybrid_spmv {prec} rest", hm.rest, x, prec)
+        calls = 10
+        _sync(x.device.type)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                spmv(hm, x)
+            _sync(x.device.type)
+        times = device_times_us(prof)
+        buckets = {"narrow": 0, "wide": 0}
+        for part in (hm.hub, hm.rest):
+            for b in part.buckets:
+                buckets["narrow" if b.lcol is not None else "wide"] += 1
+        split = {"K1": 0.0, "gather": 0.0, "reassembly": 0.0}
+        for key, (count, us) in times.items():
+            if "ell_spmv_kernel" in key:
+                per_call = buckets["narrow" if "unsigned short" in key
+                                   else "wide"]
+                split["K1"] += us / count * per_call / 1e3
+            elif "permute_kernel" in key:
+                split["gather"] += us / count / 1e3
+            else:
+                split["reassembly"] += us / calls / 1e3
+        nbytes = estimate_actual_bytes(hm, with_y=False)
+        work = sum(p.sellsize for p in (hm.hub, hm.rest))
+        bound_ms, bound_by = _bound(nbytes, 2 * work, prec, peak_bw)
+        g = graph["hybrid_spmv"]
+        log(f"  hybrid_spmv {prec}: {g:.4f} ms on the device, "
+            f"{eager['hybrid_spmv']:.4f} ms eager; under the profiler K1 "
+            f"{split['K1']:.4f} ms ({buckets} launches), the gather "
+            f"{split['gather']:.4f}, the reassembly {split['reassembly']:.4f}"
+            f" per call; the stream path {graph['stream_spmv']:.4f} ms on "
+            f"the device; cuSPARSE {eager['cuSPARSE']:.4f} ms eager; bound "
+            f"{bound_ms:.4f} ms ({nbytes:,} bytes, {bound_by}), "
+            f"{100 * bound_ms / g:.1f}% of it")
+        for key, (count, us) in sorted(times.items(), key=lambda t: -t[1][1]):
+            log(f"    device: {us / count:9.2f} us x {count:4d}  {key[:90]}")
+        out[prec] = g
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The suite, and the card tests by name
+# ---------------------------------------------------------------------------
+
+# The JAX package's stream path at config3-10x, normwise against the oracle
+# (VERDICT weak 2; double-double on the TPU): the range F2 names.
+JAX_10X_ERR = (3.6e-14, 4.4e-14)
+
+
+def phase_suite(timing, peak_bw):
+    """``python -m ellspmv_tpu_torch.bench.suite --json``, in this process
+    so that the launch counts are read: every row at full scale, each timed
+    row's y held against the oracle (fp64, 1e-13 of sum |a*x| per row);
+    config3-10x's normwise error beside the JAX package's; the triad beside
+    the data sheet, and K1's and K2's bytes at fem_mesh_2d(1440) over it.
+    Returns the rows and the counts."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.suite import run_suite
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+
+    def hold(name, coo, matrix, x64):
+        t0 = time.perf_counter()
+        got = spmv(matrix, torch.from_numpy(x64).cuda())
+        want, scale = row_oracle(coo, x64)
+        err = _row_err(got.double().cpu().numpy(), want, scale)
+        log(f"  suite {name}: all {coo.num_rows:,} rows against the oracle: "
+            f"max err {err:.3e} of sum|a*x| (tol 1e-13; "
+            f"{time.perf_counter() - t0:.1f} s)")
+        check(err <= TOLERANCE["float64"],
+              f"suite {name}: rows disagree with the oracle: {err:.3e}")
+
+    class Log:
+        def write(self, text):
+            for line in text.rstrip("\n").split("\n"):
+                log(f"  suite: {line}")
+
+    _reset_counts()
+    rows = run_suite(quick=False, as_json=True, stream=Log(), device="cuda",
+                     check=hold)
+    counts = _counts()
+    log(f"  suite: launches {counts}")
+    by = {r["config"]: r for r in rows}
+    err10 = by["config3-10x stream oracle"]["normwise_err"]
+    log(f"  suite: config3-10x normwise error {err10:.3e} (the JAX package: "
+        f"{JAX_10X_ERR[0]:.1e}-{JAX_10X_ERR[1]:.1e}, ROADMAP F2)")
+    peak = by["hbm_peak"]
+    triad = peak["measured_gb_per_s"]
+    log(f"  suite: triad {triad:.1f} GB/s against the data sheet's "
+        f"{peak_bw / 1e9:.1f} ({100 * triad * 1e9 / peak_bw:.1f}%); "
+        f"source {peak['source']}")
+    for name in ("ell_spmv", "dia_spmv"):
+        t = timing[name, "float64"]
+        rate = t["bound_ms"] * peak_bw / t["ms"] / 1e9
+        log(f"  suite: {name} at fem_mesh_2d(1440) fp64 moves {rate:.1f} GB/s"
+            f", {100 * rate / triad:.1f}% of the triad")
+    return rows, counts
+
+
+CARD_TESTS = ["tests/test_torch_card.py", "tests/test_torch_imports.py"]
+
+
+def phase_card_tests():
+    """The ``cuda`` tests by name: pytest on the card, without the JAX
+    package's conftest. Fails if any fails or none ran."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p",
+           "no:cacheprovider", "-m", "cuda", *CARD_TESTS, "-q", "-rA"]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    outcomes = re.findall(r"^(PASSED|FAILED|ERROR|SKIPPED)\s+(\S+)",
+                          proc.stdout, re.M)
+    for outcome, name in outcomes:
+        log(f"  card test {outcome}: {name}")
+    summary = proc.stdout.strip().splitlines()[-1:] or ["(no output)"]
+    log(f"  card tests: {summary[0]} (exit {proc.returncode})")
+    failed = [n for o, n in outcomes if o in ("FAILED", "ERROR")]
+    if proc.returncode != 0 or failed:
+        for line in (proc.stdout + proc.stderr).splitlines()[-80:]:
+            log(f"  pytest: {line}")
+    check(proc.returncode == 0 and not failed,
+          f"card tests failed: {failed or 'see the pytest lines above'}")
+    passed = sum(o == "PASSED" for o, _ in outcomes)
+    check(passed > 0, "no card test ran")
+    return passed
+
+
+CARD = [None]    # the nvidia-smi line: the card's name and power limit
+
+
+PHASE_SECONDS = {}
+
+
+def timed(label, fn, *args, **kw):
+    """Run one phase, log its seconds and keep them for the summary."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[label] = time.perf_counter() - t0
+    log(f"[{label}: {PHASE_SECONDS[label]:.1f} s]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2150,18 +2769,23 @@ def main() -> int:
                                f"{torch.cuda.get_device_name(0)} in "
                                "ellspmv_tpu_torch/config.py (set "
                                "HBM_PEAK_GBPS)")
-    phase_build()
-    log("phase 3: kernels against their plain versions")
-    phase_kernel_vs_plain()
-    phase_dia_vs_plain()
-    phase_probe_vs_plain()
-    phase_dot_vs_plain()
-    phase_stream_vs_plain()
-    phase_sell_vs_plain()
+    timed("build", phase_build)
+    log("phase 3: the card tests by name, and each kernel against its plain "
+        "version")
+    timed("card tests", phase_card_tests)
+    timed("K1 vs plain", phase_kernel_vs_plain)
+    timed("K2 vs plain", phase_dia_vs_plain)
+    timed("K7 vs plain", phase_probe_vs_plain)
+    timed("K6 vs plain", phase_dot_vs_plain)
+    timed("stream vs plain", phase_stream_vs_plain)
+    timed("SELL and CSR vs plain", phase_sell_vs_plain)
+    timed("hybrid vs plain", phase_hybrid_vs_plain)
+    timed("F8 probe", phase_f8)
     log("phase 4: the ellspmv, cgsolve and csrspmv programs")
-    phase_cli()
-    phase_stream_cli()
-    phase_sell_csr_cli()
+    timed("programs: ELL, DIA, CG", phase_cli)
+    timed("programs: stream", phase_stream_cli)
+    timed("programs: SELL and CSR", phase_sell_csr_cli)
+    timed("programs: hybrid, xla, papi, trace", phase_hybrid_cli)
     log("phase 5: full size")
     t0 = time.perf_counter()
     coo = fem_mesh_2d(1440)
@@ -2172,18 +2796,21 @@ def main() -> int:
     x64 = rng.rand(n)
     sample = np.sort(rng.choice(n, 1000, replace=False))
     torch.cuda.reset_peak_memory_stats()
-    ell_runs, ell_counts = phase_ell_path(coo, x64, sample)
-    dia_runs, dia_counts = phase_headline_path(coo, x64, sample)
+    ell_runs, ell_counts = timed("ELL path", phase_ell_path, coo, x64,
+                                 sample)
+    dia_runs, dia_counts = timed("headline path", phase_headline_path, coo,
+                                 x64, sample)
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated():,} "
         "bytes")
-    cg_counts = phase_cg_path(coo, peak_bw)
+    cg_counts = timed("solver path", phase_cg_path, coo, peak_bw)
     log(f"solver path: launches {cg_counts}")
-    phase_headline_program()
+    timed("headline program", phase_headline_program)
     t0 = time.perf_counter()
     fem_want, fem_scale = row_oracle(coo, x64)
     log(f"fem_mesh_2d(1440): the oracle over all rows in "
         f"{time.perf_counter() - t0:.1f} s")
-    csr_runs, csr_counts = phase_csr_path(coo, x64, fem_want, fem_scale)
+    csr_runs, csr_counts = timed("CSR path", phase_csr_path, coo, x64,
+                                 fem_want, fem_scale)
     del fem_want, fem_scale
     t0 = time.perf_counter()
     pl_coo = power_law(*CONFIG3, seed=0)
@@ -2196,8 +2823,11 @@ def main() -> int:
         f"{pl_coo.num_nonzeros:,} nonzeros, longest row "
         f"{int(np.bincount(pl_coo.rowidx).max()):,}; generated with its "
         f"oracle in {time.perf_counter() - t0:.1f} s")
-    stream_runs, stream_counts = phase_stream_path(pl_coo, pl_x64, pl_want,
-                                                   pl_scale)
+    stream_runs, stream_counts = timed("stream path", phase_stream_path,
+                                       pl_coo, pl_x64, pl_want, pl_scale)
+    hybrid_runs, hybrid_counts = timed("hybrid path", phase_hybrid_path,
+                                       pl_coo, pl_x64, pl_want, pl_scale)
+    del pl_want, pl_scale
     t0 = time.perf_counter()
     dr_coo = dense_rows(**DENSE_ROWS)
     dr_x64 = np.random.RandomState(3).rand(dr_coo.num_columns)
@@ -2206,18 +2836,28 @@ def main() -> int:
         f"{dr_coo.num_nonzeros:,} nonzeros, longest row "
         f"{int(np.bincount(dr_coo.rowidx).max()):,}; generated with its "
         f"oracle in {time.perf_counter() - t0:.1f} s")
-    sell_runs, sell_counts, _ = phase_sell_path(dr_coo, dr_x64, dr_want,
-                                                dr_scale)
+    sell_runs, sell_counts, chosen = timed("SELL path", phase_sell_path,
+                                           dr_coo, dr_x64, dr_want, dr_scale)
+    del dr_want, dr_scale
     log("phase 6: timing")
-    timing = phase_timing(coo, ell_runs, dia_runs, peak_bw)
-    timing.update(phase_stream_timing(pl_coo, stream_runs, peak_bw))
-    phase_csr_timing(coo, csr_runs, ell_runs, peak_bw)
-    phase_sell_timing(dr_coo, sell_runs, peak_bw)
-    probe_floor()
+    timing = timed("ELL and DIA timing", phase_timing, coo, ell_runs,
+                   dia_runs, peak_bw)
+    timing.update(timed("stream timing", phase_stream_timing, pl_coo,
+                        stream_runs, peak_bw))
+    timed("CSR timing", phase_csr_timing, coo, csr_runs, ell_runs, peak_bw)
+    timed("SELL timing", phase_sell_timing, dr_coo, sell_runs, peak_bw,
+          chosen)
+    timed("hybrid timing", phase_hybrid_timing, pl_coo, hybrid_runs,
+          stream_runs, peak_bw)
+    timed("K7 floor", probe_floor)
     window_verdict()
+    del ell_runs, dia_runs, csr_runs, stream_runs, hybrid_runs, sell_runs
+    del coo, pl_coo, dr_coo
+    log("phase 7: the benchmark suite")
+    _, suite_counts = timed("suite", phase_suite, timing, peak_bw)
     paths = [ell_counts, dia_counts, *cg_counts.values(),
              *stream_counts.values(), *csr_counts.values(),
-             *sell_counts.values()]
+             *sell_counts.values(), *hybrid_counts.values(), suite_counts]
     launches = {name: sum(c[name] for c in paths)
                 for name in ("ell_spmv", "dia_spmv", "fma_probe", "permute",
                              "stream_sum", "stream_sum_src")}
@@ -2233,6 +2873,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **timing[name, key]})
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in PHASE_SECONDS.items()))
     log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

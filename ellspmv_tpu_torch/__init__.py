@@ -1,10 +1,11 @@
 """ellspmv_tpu_torch: the PyTorch and CUDA port of ``ellspmv_tpu``.
 
 The JAX package beside it is the reference. This package reads Matrix Market
-files, converts them to ELLPACK, DIA or the stream format (or lets
-``auto_from_coo`` choose), and computes ``y := A*x + y`` with hand-written
-CUDA kernels for Hopper (``csrc/*.cu``), timed with the reference's
-protocols and metrics, and solves with CG. Module names mirror the JAX
+files, converts them to ELLPACK, DIA, CSR, sliced ELL (SELL), the hub-column
+hybrid or the stream format (or lets ``auto_from_coo`` choose), and computes
+``y := A*x + y`` with hand-written CUDA kernels for Hopper (``csrc/*.cu``),
+timed with the reference's protocols and metrics, runs the benchmark suite
+(``bench/suite.py``), and solves with CG. Module names mirror the JAX
 package's.
 
 Importing the package builds nothing: the kernels are compiled with

@@ -24,6 +24,9 @@ and every tail entry counted as a 4-byte index and a value:
     flops = 2*work, min_bytes = rows*sv + cols*sv + work*(4 + sv),
     max_bytes = rows*sv + work*(4 + 2*sv), work = sellsize + tailsize
 
+The hybrid: the SELL formulas over the work of both parts, the hub's and
+the rest's.
+
 Stream (the JAX package's accounting; sv is the compute type's size, 4 for
 bfloat16): each stored entry is moved as a 4-byte position and a value:
 
@@ -67,6 +70,7 @@ from ellspmv_tpu_torch.config import hbm_peak_bytes_per_s
 from ellspmv_tpu_torch.formats.csr import CsrMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.hybrid import HybridMatrix
 from ellspmv_tpu_torch.formats.sell import SellMatrix
 from ellspmv_tpu_torch.formats.stream import StreamMatrix
 
@@ -109,10 +113,12 @@ class SpmvMetrics:
                            + csrsize * sv + diagsize * sv),
                 max_bytes=(n * sv + csrsize * sv + n * si + csrsize * si
                            + csrsize * sv + diagsize * sv + diagsize * sv))
-        if isinstance(matrix, SellMatrix):
+        if isinstance(matrix, (SellMatrix, HybridMatrix)):
             sv = matrix.values.element_size()
             n, m = matrix.num_rows, matrix.num_columns
-            work = matrix.sellsize + matrix.tailsize
+            parts = ([matrix] if isinstance(matrix, SellMatrix) else
+                     [p for p in (matrix.hub, matrix.rest) if p is not None])
+            work = sum(p.sellsize + p.tailsize for p in parts)
             return SpmvMetrics(
                 num_nonzeros=matrix.num_nonzeros,
                 num_flops=2 * work,

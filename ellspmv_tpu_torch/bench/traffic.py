@@ -40,7 +40,11 @@ must move, so that every report can also carry the physical share (at most
   read and written);
 - CSR (``ops/csr.csr_spmv``): its cached SELL repack, the split diagonal's
   epilogue (the diagonal, x and the result read, the result written) and y
-  as a pass of its own.
+  as a pass of its own;
+- the hybrid (``formats/hybrid.hybrid_spmv``): the hub's gather of x
+  (`gather_bytes` by `hub_cols`), the hub's SELL without y, the rest's
+  SELL with the hub's result as its y, and y as a pass of its own: the
+  JAX package's sum of the two parts and the hub gather.
 
 x is counted once: the kernels rely on L1/L2 for its re-reads.
 """
@@ -50,9 +54,35 @@ from __future__ import annotations
 from ellspmv_tpu_torch.formats.csr import CsrMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import LBLOCK, EllMatrix
+from ellspmv_tpu_torch.formats.hybrid import HybridMatrix
 from ellspmv_tpu_torch.formats.sell import SellMatrix
 from ellspmv_tpu_torch.formats.stream import StreamMatrix
 from ellspmv_tpu_torch.ops.permute import BLOCK
+
+
+#: K1's launch geometry (``csrc/ell_spmv.cu``): the rows of one block (256
+#: threads, two rows each), and the slots whose loads a thread issues
+#: together (``kSlotBatch``), one dependent round of loads and gathers.
+K1_BLOCK_ROWS = 512
+K1_SLOT_BATCH = 4
+
+
+def k1_rounds(width: int) -> int:
+    """The rounds of loads each K1 thread walks over rows of `width`."""
+    return -(-width // K1_SLOT_BATCH)
+
+
+def k1_launch_seconds(rows: int, width: int, nbytes: int, rate: float,
+                      round_s: float, sms: int) -> float:
+    """The time one K1 launch over `rows` rows of `width` slots takes by
+    its geometry as well as its bytes: `nbytes` at `rate`, and where its
+    blocks do not fill the card's `sms`, at least its rounds of dependent
+    loads at `round_s` each (``config.k1_round_seconds``), which no block
+    can overlap with another's."""
+    seconds = nbytes / rate
+    if -(-rows // K1_BLOCK_ROWS) < sms:
+        seconds = max(seconds, k1_rounds(width) * round_s)
+    return seconds
 
 
 def gather_bytes(src, value_bytes: int) -> int:
@@ -91,6 +121,39 @@ def stream_bytes_estimate(nnz: int, num_rows: int, num_columns: int,
             + num_columns * value_bytes)
 
 
+def stream_seconds_estimate(nnz: int, num_rows: int, num_columns: int,
+                            value_bytes: int, narrow: bool, rate: float,
+                            round_s: float, sms: int) -> float:
+    """`stream_bytes_estimate` as seconds at `rate`, with K1 over the
+    products (one slot a row over the padded products) priced by its
+    geometry (`k1_launch_seconds`)."""
+    slots = max(-(-nnz // BLOCK) * BLOCK, BLOCK)
+    index = 2 * slots + 4 * (slots // LBLOCK) if narrow else 4 * slots
+    k1 = 2 * slots * value_bytes + index
+    rest = stream_bytes_estimate(nnz, num_rows, num_columns, value_bytes,
+                                 narrow) - k1
+    return rest / rate + k1_launch_seconds(slots, 1, k1, rate, round_s, sms)
+
+
+def _bucket_bytes(b: EllMatrix) -> int:
+    """K1's bytes on one SELL bucket without x: its slots' values, their
+    columns at the width it reads them, its output."""
+    sv = b.values.element_size()
+    return b.rowsize * b.padded_rows * sv + b.index_bytes + b.num_rows * sv
+
+
+def sell_seconds(sm: SellMatrix, rate: float, round_s: float,
+                 sms: int) -> float:
+    """`sell_bytes` (without y) as seconds at `rate`, with K1 on each
+    bucket priced by its geometry (`k1_launch_seconds`)."""
+    seconds = sell_bytes(sm, with_y=False) / rate
+    for b in sm.buckets:
+        k1 = _bucket_bytes(b)
+        seconds += k1_launch_seconds(b.num_rows, b.rowsize, k1, rate,
+                                     round_s, sms) - k1 / rate
+    return seconds
+
+
 def sell_bytes(sm: SellMatrix, with_y: bool = True) -> int:
     """Bytes one `sell_spmv` on `sm` moves (the module's docstring), y read
     and added when `with_y`."""
@@ -98,8 +161,7 @@ def sell_bytes(sm: SellMatrix, with_y: bool = True) -> int:
     n = sm.num_rows
     total = sm.num_columns * sv                   # x, once for all buckets
     for b in sm.buckets:
-        total += b.rowsize * b.padded_rows * sv + b.index_bytes \
-            + b.num_rows * sv
+        total += _bucket_bytes(b)
     if not sm.trivial_reassembly:
         tiles = sum(b.num_rows for b in sm.buckets)
         if len(sm.buckets) > 1:
@@ -129,6 +191,18 @@ def csr_bytes(csr: CsrMatrix, with_y: bool = True) -> int:
     return total + (3 * csr.num_rows * sv if with_y else 0)
 
 
+def hybrid_bytes(hm: HybridMatrix, with_y: bool = True) -> int:
+    """Bytes one `hybrid_spmv` on `hm` moves (the module's docstring), y
+    read and added when `with_y`."""
+    sv = hm.values.element_size()
+    y_pass = 3 * hm.num_rows * sv if with_y else 0
+    if hm.hub is None:
+        return sell_bytes(hm.rest, with_y=False) + y_pass
+    return (gather_bytes(hm.hub_cols, hm.hub.values.element_size())
+            + sell_bytes(hm.hub, with_y=False)
+            + sell_bytes(hm.rest, with_y=True) + y_pass)
+
+
 def estimate_actual_bytes(matrix, with_y: bool = True) -> int:
     """Bytes one kernel call on `matrix` reads and writes, with y read when
     `with_y` (as in every accumulating call of the benchmark). For the
@@ -136,6 +210,8 @@ def estimate_actual_bytes(matrix, with_y: bool = True) -> int:
     SpMV."""
     if isinstance(matrix, SellMatrix):
         return sell_bytes(matrix, with_y)
+    if isinstance(matrix, HybridMatrix):
+        return hybrid_bytes(matrix, with_y)
     if isinstance(matrix, CsrMatrix):
         return csr_bytes(matrix, with_y)
     if isinstance(matrix, StreamMatrix):

@@ -1,7 +1,8 @@
 """The `ellspmv` and `csrspmv` programs on PyTorch: the counterpart of
-``ellspmv_tpu.cli.common`` for the ELLPACK, DIA, SELL, stream and CSR
-formats, the auto chooser (DIA, ELL, SELL or stream), both timing protocols
-and ``--reorder=rcm``.
+``ellspmv_tpu.cli.common`` for the ELLPACK, DIA, SELL, hybrid, stream and
+CSR formats, the auto chooser (DIA, ELL, SELL or stream), both timing
+protocols, ``--reorder=rcm``, ``--backend=xla``, the ``--papi-event-*``
+reports and ``--trace=DIR``, on one device.
 
 Flag-compatible with the JAX package's parser, which follows the
 reference's (parse_program_options, ellspmv.c:465-611): ``--opt=v`` and
@@ -15,9 +16,9 @@ new:
 platform by itself. With the default and no card the program exits 1; it
 never moves to the CPU by itself.
 
-Options the JAX package has and this port does not yet have are parsed and
-then refused with exit code 1 and ``<program>: <option> is not yet ported
-(see ROADMAP.md)``.
+``--devices=N`` with N > 1, the one option of the JAX package this port
+does not yet have, is parsed and then refused with exit code 1 and
+``<program>: --devices=N is not yet ported (see ROADMAP.md)``.
 
 Output protocol as in the reference: stderr is the log channel, stdout the
 data channel (y as a Matrix Market vector, suppressed by ``-q``,
@@ -60,7 +61,11 @@ class Options:
         self.warmup = 0
         self.quiet = False
         self.verbose = 0
-        self.papi_flags = []             # given --papi-* flags (not ported)
+        # --papi-*: the derived-metric and roofline reports
+        self.papi_event_file = None
+        self.papi_event_format = "plain"
+        self.papi_event_per_thread = False
+        self.papi_event_summary = False
         self.precision = "float64"
         self.index_width = None          # None=auto, 32, 64
         self.backend = "auto"
@@ -104,24 +109,33 @@ def print_help(program: str, csr: bool = False, f=None):
     f.write("  --warmup=N                perform N additional warmup iterations\n")
     f.write("  -q, --quiet               do not print Matrix Market output\n")
     f.write("  -v, --verbose             be more verbose\n\n")
+    f.write(" Options for performance monitoring are:\n")
+    f.write("  --papi-event-file=FILE    derived-metric definition file (formulas over\n")
+    f.write("                            time/flops/bytes; see examples/tpu_membw.metrics)\n")
+    f.write("  --papi-event-format=FMT   output format for metrics: plain or csv. [plain]\n")
+    f.write("  --papi-event-per-thread   display metrics per device\n")
+    f.write("  --papi-event-summary      display summary of performance monitoring\n\n")
     f.write(" Device options are:\n")
     f.write("  --device=D                cuda (default) or cpu; cuda fails when no\n")
     f.write("                            card is present\n")
     f.write("  --precision=DTYPE         float64 (default), float32 or bfloat16\n")
     f.write("  --index-width=N           32 or 64 (default: auto; IDXTYPEWIDTH analogue)\n")
     f.write("  --backend=B               auto (default) or pallas: the hand-written\n")
-    f.write("                            kernel of the format\n")
+    f.write("                            kernels; xla: their plain PyTorch versions\n")
+    f.write("                            for ELL, CSR, SELL and hybrid\n")
     f.write("  --protocol=P              per_iter (default) or chained timing\n")
+    f.write("  --trace=DIR               write a torch.profiler trace of the benchmark\n")
+    f.write("                            loop to DIR (PAPI-region analogue)\n")
     if not csr:
         f.write("  --format=F                ell (default), auto (DIA, ELL, SELL or stream,\n")
-        f.write("                            whichever moves fewest bytes), dia (stencil\n")
-        f.write("                            diagonals), sell (sliced ELL, for a few long\n")
-        f.write("                            rows) or stream (for power-law matrices)\n")
+        f.write("                            whichever the card runs fastest by its\n")
+        f.write("                            price), dia (stencil diagonals), sell (sliced\n")
+        f.write("                            ELL, for a few long rows), hybrid (hub columns\n")
+        f.write("                            + sliced ELL) or stream (for power-law matrices)\n")
     f.write("  --reorder=R               none (default) or rcm: reverse Cuthill-McKee\n")
     f.write("                            inside; x, y and the output keep their order\n\n")
     f.write(" Not yet ported (accepted, then refused with exit code 1):\n")
-    f.write(("" if csr else "  --format=hybrid, ") + "--devices=N>1,\n")
-    f.write("  --papi-event-*, --trace=DIR, --backend=xla\n\n")
+    f.write("  --devices=N>1\n\n")
     f.write("  -h, --help                display this help and exit\n")
     f.write("  --version                 display version information and exit\n")
 
@@ -203,14 +217,15 @@ def parse_args(argv: list[str], program: str, csr: bool = False) -> Options:
         elif csr and (v := _split_eq(arg, "--l2-prefetch-distance")) is not False:
             opts.l2_prefetch_distance = int(need_value(v, "--l2-prefetch-distance"))
         elif (v := _split_eq(arg, "--papi-event-file")) is not False:
-            need_value(v, "--papi-event-file")
-            opts.papi_flags.append("--papi-event-file")
+            opts.papi_event_file = need_value(v, "--papi-event-file")
         elif (v := _split_eq(arg, "--papi-event-format")) is not False:
-            if need_value(v, "--papi-event-format") not in ("plain", "csv"):
+            opts.papi_event_format = need_value(v, "--papi-event-format")
+            if opts.papi_event_format not in ("plain", "csv"):
                 raise CliError("--papi-event-format must be plain or csv")
-            opts.papi_flags.append("--papi-event-format")
-        elif arg in ("--papi-event-per-thread", "--papi-event-summary"):
-            opts.papi_flags.append(arg)
+        elif arg == "--papi-event-per-thread":
+            opts.papi_event_per_thread = True
+        elif arg == "--papi-event-summary":
+            opts.papi_event_summary = True
         elif (v := _split_eq(arg, "--precision")) is not False:
             opts.precision = need_value(v, "--precision")
             if opts.precision not in ("float64", "float32", "bfloat16"):
@@ -275,26 +290,20 @@ def card_missing(program: str, device: str) -> bool:
 
 
 def unported_option(opts: Options) -> str | None:
-    """The first given option that this port does not have yet, or None."""
-    if opts.format == "hybrid":
-        return "--format=hybrid"
+    """The given option that this port does not have yet (more than one
+    device), or None."""
     if opts.devices > 1:
         return f"--devices={opts.devices}"
-    if opts.papi_flags:
-        return opts.papi_flags[0]
-    if opts.trace_dir is not None:
-        return "--trace"
-    if opts.backend == "xla":
-        return "--backend=xla"
     return None
 
 
 def kernel_name(opts: Options, mat, csr: bool = False) -> str:
     """Kernel label in the reference's naming (gemv/gemvsd/gemv16,
     README:133; csrgemv/csrgemvsd/csrgemvnz/csrgemvrp, csrspmv.c:2851-2868),
-    and gemv_dia, gemv_sell or gemv_stream for DIA, SELL or the stream
-    format, as in the JAX program."""
+    and gemv_dia, gemv_sell, gemv_hybrid or gemv_stream for DIA, SELL, the
+    hybrid or the stream format, as in the JAX program."""
     from ellspmv_tpu_torch.formats.dia import DiaMatrix
+    from ellspmv_tpu_torch.formats.hybrid import HybridMatrix
     from ellspmv_tpu_torch.formats.sell import SellMatrix
     from ellspmv_tpu_torch.formats.stream import StreamMatrix
     if csr:
@@ -307,11 +316,64 @@ def kernel_name(opts: Options, mat, csr: bool = False) -> str:
         return "gemv_dia"
     if isinstance(mat, SellMatrix):
         return "gemv_sell"
+    if isinstance(mat, HybridMatrix):
+        return "gemv_hybrid"
     if isinstance(mat, StreamMatrix):
         return "gemv_stream"
     if opts.separate_diagonal and mat.rowsize == 16:
         return "gemv16"
     return "gemvsd" if opts.separate_diagonal else "gemv"
+
+
+def metrics_report(res, opts: Options, log):
+    """The roofline summary that stands in for the PAPI region report
+    (papi_util.c:424-494), plain or CSV
+    (``ellspmv_tpu.cli.common._metrics_report``, its lines). On the CPU,
+    which has no device memory, the roofline fields read "not measured"
+    (CSV: empty)."""
+    m = res.metrics
+    t = res.best
+    act = res.actual_gb_per_s()
+    peak = res.hbm_peak
+    if opts.papi_event_format == "csv":
+        log.write("region,repeat,time,nonzeros,flops,min_bytes,max_bytes,"
+                  "gnz_per_s,gflop_per_s,min_gb_per_s,max_gb_per_s,"
+                  "hbm_peak_gb_per_s,roofline_fraction,"
+                  "actual_bytes,actual_gb_per_s,physical_roofline\n")
+        roof = ("," if peak is None else
+                f"{peak / 1e9:.1f},{res.roofline_fraction():.4f}")
+        phys = ("" if peak is None else f"{res.physical_roofline():.4f}")
+        log.write(f"gemv,{len(res.times)},{t:.9f},{m.num_nonzeros},"
+                  f"{m.num_flops},{m.min_bytes},{m.max_bytes},"
+                  f"{res.gnz_per_s():.3f},{res.gflop_per_s():.3f},"
+                  f"{res.min_gb_per_s():.3f},{res.max_gb_per_s():.3f},"
+                  f"{roof},"
+                  + ("," if act is None else
+                     f"{res.actual_bytes},{act:.3f},{phys}") + "\n")
+        return
+    log.write("Region: gemv\n")
+    log.write(f"  iterations: {len(res.times)}\n")
+    log.write(f"  best time: {t:.6f} s\n")
+    log.write(f"  nonzeros: {m.num_nonzeros:,}  flops/iter: {m.num_flops:,}\n")
+    log.write(f"  bytes/iter: {m.min_bytes:,} (x once) to {m.max_bytes:,} "
+              "(x per nonzero)\n")
+    log.write(f"  throughput: {res.gnz_per_s():.3f} Gnz/s, "
+              f"{res.gflop_per_s():.3f} Gflop/s\n")
+    log.write(f"  effective bandwidth: {res.min_gb_per_s():.1f} to "
+              f"{res.max_gb_per_s():.1f} GB/s\n")
+    if peak is None:
+        log.write("  HBM roofline: not measured (no device memory on the "
+                  "CPU)\n")
+    else:
+        log.write(f"  HBM roofline: {peak / 1e9:.1f} GB/s peak -> "
+                  f"{100 * res.roofline_fraction():.1f}% of peak "
+                  "(min-bytes model; formats that store less than ELLPACK "
+                  "can exceed 100%)\n")
+    if act is not None:
+        share = ("not measured" if peak is None else
+                 f"{100 * res.physical_roofline():.1f}% of raw HBM")
+        log.write(f"  physical traffic: {res.actual_bytes:,} bytes/iter "
+                  f"(device plan) -> {act:.1f} GB/s = {share}\n")
 
 
 def _convert(coo, opts: Options, index_dtype, device, csr: bool = False):
@@ -347,6 +409,12 @@ def _convert(coo, opts: Options, index_dtype, device, csr: bool = False):
                             value_dtype=opts.precision,
                             index_dtype=index_dtype, device=device)
         return mat, "sell_from_coo", f", {len(mat.buckets)} slice buckets"
+    if opts.format == "hybrid":
+        from ellspmv_tpu_torch.formats.hybrid import hybrid_from_coo
+        mat = hybrid_from_coo(coo, value_dtype=opts.precision,
+                              index_dtype=index_dtype, device=device)
+        return (mat, "hybrid_from_coo",
+                f", hub fraction {mat.hub_nnz_fraction:.2f}")
     if opts.format == "stream":
         from ellspmv_tpu_torch.formats.stream import stream_from_coo
         mat = stream_from_coo(coo, separate_diagonal=opts.separate_diagonal,
@@ -388,7 +456,7 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
             or opts.l2_prefetch_distance) and opts.verbose:
         log.write(f"{program}: note: NUMA/A64FX placement options have no "
                   "analogue on a CUDA card; ignored\n")
-    if (opts.separate_diagonal and opts.format in ("dia", "sell")
+    if (opts.separate_diagonal and opts.format in ("dia", "sell", "hybrid")
             and opts.verbose):
         log.write(f"{program}: note: --format={opts.format} stores the "
                   "diagonal inline; --separate-diagonal ignored\n")
@@ -456,6 +524,9 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
         name = (torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "host CPU")
         log.write(f"device: {device} ({name})\n")
+        if opts.backend == "xla":
+            log.write("backend: xla (the plain PyTorch versions of the ELL, "
+                      "CSR, SELL and hybrid kernels, on the device)\n")
 
     # Phase 4: vectors
     try:
@@ -490,20 +561,41 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
         y = torch.from_numpy(y).to(device).to(dtype)
 
     # Phase 5: benchmark (warmup + timed loop, ellspmv.c:1745-1876, or the
-    # chained slope). --backend=auto and --backend=pallas both run the
-    # hand-written kernel.
+    # chained slope), traced with --trace. --backend=auto and
+    # --backend=pallas both run the hand-written kernels.
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    from ellspmv_tpu_torch.utils.trace import device_trace
+
+    def spmv_fn(m, xv, yv):
+        return spmv(m, xv, yv, backend=opts.backend)
+    name = kernel_name(opts, mat, csr)
     try:
-        res = benchmark_spmv(None, mat, x, y, repeat=opts.repeat,
-                             warmup=opts.warmup, protocol=opts.protocol)
+        with device_trace(opts.trace_dir):
+            res = benchmark_spmv(spmv_fn, mat, x, y, repeat=opts.repeat,
+                                 warmup=opts.warmup, protocol=opts.protocol)
     except Exception as e:
         sys.stderr.write(f"{program}: benchmark failed: {e}\n")
         return 1
     if opts.verbose:
-        name = kernel_name(opts, mat, csr)
         for line in res.iteration_lines():
             log.write(f"{name}: {line}\n")
         if res.warning:
             log.write(f"{program}: warning: {res.warning}\n")
+    if opts.papi_event_file:
+        from ellspmv_tpu_torch.bench import metrics as metrics_mod
+        try:
+            mfile = metrics_mod.read_metrics_file(opts.papi_event_file)
+            metrics_mod.report(mfile, metrics_mod.base_events(res), log,
+                               fmt=opts.papi_event_format, region=name)
+        except (OSError, metrics_mod.MetricsError) as e:
+            sys.stderr.write(f"{program}: {opts.papi_event_file}: {e}\n")
+            return 1
+    if opts.papi_event_summary:
+        metrics_report(res, opts, log)
+    if opts.papi_event_per_thread:
+        log.write(f"{program}: note: --papi-event-per-thread with one "
+                  "device: the whole-matrix region IS the per-device row "
+                  "(use --devices=N for a breakdown)\n")
 
     # Phase 6: write y to stdout (ellspmv.c:1898-1912)
     if not opts.quiet:

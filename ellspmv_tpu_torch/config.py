@@ -66,6 +66,61 @@ HBM_PEAK_BYTES_PER_S = {
 }
 
 
+# Streaming multiprocessors of each card (its data sheet; on a card the
+# device's own properties are read instead).
+SM_COUNT = {
+    "NVIDIA H100 80GB HBM3": 132,
+    "NVIDIA H100 PCIe": 114,
+    "NVIDIA H100 NVL": 132,
+}
+
+# One round of K1 (csrc/ell_spmv.cu): a thread's batch of four slots' loads,
+# then their gathers of x, which a launch with fewer blocks than SMs cannot
+# hide behind other blocks. Measured by chip_smoke.probe_k1_geometry, the
+# slope of K1's time over its rounds on short launches (4 to 96 blocks,
+# widths 4 to 128, fp64, random columns over 1M) in a CUDA graph: NVIDIA
+# H100 80GB HBM3 at a 700 W power limit (f32 read 1.49 us there).
+K1_ROUND_SECONDS = {
+    "NVIDIA H100 80GB HBM3": 1.67e-6,
+}
+
+# The card the chooser prices for where it runs without one (tests, and
+# --device=cpu): the card the port is built and measured on.
+HOST_PRICED_CARD = "NVIDIA H100 80GB HBM3"
+
+
+def card_name(device="cuda") -> str:
+    """The card `device` names, or `HOST_PRICED_CARD` off a card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return HOST_PRICED_CARD
+
+
+def k1_geometry(device="cuda") -> tuple[float, int]:
+    """(K1's round latency in seconds, SMs) of the card `device` names, or
+    of `HOST_PRICED_CARD` off a card: what the chooser prices K1's short
+    launches by (``bench/traffic.k1_launch_seconds``)."""
+    device = torch.device(device)
+    name = card_name(device)
+    if device.type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    else:
+        sms = SM_COUNT[name]
+    return K1_ROUND_SECONDS.get(name, K1_ROUND_SECONDS[HOST_PRICED_CARD]), sms
+
+
+def pricing_rate(device="cuda") -> float:
+    """The device-memory rate the chooser prices by: `hbm_peak_bytes_per_s`
+    of `device`, or off a card the data-sheet peak of `HOST_PRICED_CARD`
+    (``HBM_PEAK_GBPS`` overrides both)."""
+    rate = hbm_peak_bytes_per_s(device)
+    if rate is None:
+        rate = HBM_PEAK_BYTES_PER_S.get(card_name(device),
+                                        HBM_PEAK_BYTES_PER_S[HOST_PRICED_CARD])
+    return rate
+
+
 def hbm_peak_bytes_per_s(device="cuda") -> float | None:
     """The data-sheet device-memory peak of the card `device` names, or
     None for a card not in the table and for the CPU, which has no device

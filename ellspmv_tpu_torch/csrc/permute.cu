@@ -31,7 +31,9 @@
 // gather, through the read-only path. Each output is written exactly once,
 // so no atomics and no ordering are needed.
 //
-// Binding: plain C entry points, one per payload type, loaded with ctypes.
+// Binding: plain C entry points, one per payload width (fp64, f32, and one
+// 16-bit instance that moves bf16 bit patterns, for the hybrid format's
+// gather of a bf16 x), loaded with ctypes.
 // Each launches on the stream it is given, does not synchronise, and returns
 // cudaGetLastError().
 
@@ -79,4 +81,9 @@ extern "C" int permute_f64(const void* src, const void* in, void* out,
 extern "C" int permute_f32(const void* src, const void* in, void* out,
                            int64_t n_out, void* stream) {
   return launch<float>(src, in, out, n_out, stream);
+}
+
+extern "C" int permute_b16(const void* src, const void* in, void* out,
+                           int64_t n_out, void* stream) {
+  return launch<unsigned short>(src, in, out, n_out, stream);
 }

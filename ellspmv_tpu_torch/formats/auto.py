@@ -35,9 +35,16 @@ matrix is built on `device`:
   layout the products take; the format is finished on `device` from that
   layout only when chosen.
 
-The rate cancels in the comparisons; it only turns bytes into the estimated
-milliseconds shown in ``_auto_reason``. No TPU constant of the JAX chooser
-or its calibration is used, so the two may choose differently near a line
+At the blowup gate each K1 launch is priced by its geometry as well
+(``bench/traffic.k1_launch_seconds``): a launch whose blocks do not fill
+the card's SMs takes at least its rounds of dependent loads at the card's
+measured round latency (``config.k1_geometry``), whatever its bytes. That
+prices every SELL bucket and the stream's K1 over its products alike; the
+SELL split's short wide buckets are what it catches. Elsewhere the rate
+cancels in the comparisons; it only turns bytes into the estimated
+milliseconds shown in ``_auto_reason``. Without a card the prices are
+those of ``config.HOST_PRICED_CARD``. No TPU constant of the JAX chooser or
+its calibration is used, so the two may choose differently near a line
 (ROADMAP.md, F8).
 """
 
@@ -54,10 +61,12 @@ from ellspmv_tpu_torch.formats.coo import CooMatrix
 MAX_PAD_RATIO = 4.0
 
 
-def _cost(nbytes: int, rate: float | None) -> str:
-    if rate is None:
-        return f"{nbytes:,} bytes"
-    return f"est {nbytes / rate * 1e3:.3f} ms"
+def _cost(nbytes: int, rate: float) -> str:
+    return _ms(nbytes / rate)
+
+
+def _ms(seconds: float) -> str:
+    return f"est {seconds * 1e3:.3f} ms"
 
 
 def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
@@ -70,8 +79,9 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
     The decision is recorded on the returned matrix as `_auto_choice`
     ('dia', 'ell', 'sell' or 'stream') with `_auto_reason` for verbose
     reporting. Only the chosen matrix is built on `device`."""
-    from ellspmv_tpu_torch.bench.traffic import (sell_bytes,
-                                                 stream_bytes_estimate)
+    from ellspmv_tpu_torch.bench.traffic import (sell_seconds,
+                                                 stream_bytes_estimate,
+                                                 stream_seconds_estimate)
     from ellspmv_tpu_torch.formats.dia import dia_from_coo
     from ellspmv_tpu_torch.formats.ell import (ell_from_coo,
                                                index_bytes_estimate)
@@ -91,13 +101,11 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
 
     dtype = config.value_dtype(expanded.values.dtype if value_dtype is None
                                else value_dtype)
-    rate = config.hbm_peak_bytes_per_s(device)
+    rate = config.pricing_rate(device)
+    stream_vb = torch.empty(0, dtype=compute_dtype(dtype)).element_size()
 
     def stream_bytes(narrow: bool) -> int:
-        return stream_bytes_estimate(
-            nnz, n, m,
-            torch.empty(0, dtype=compute_dtype(dtype)).element_size(),
-            narrow)
+        return stream_bytes_estimate(nnz, n, m, stream_vb, narrow)
 
     def stream_on_host():
         """The stream format's plan and position-order products on the
@@ -117,20 +125,21 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
         # format (no column locality), both built on the host and priced
         # by their bytes
         blow = f"ELL padding blowup ({ellsize:,} slots for {nnz:,} nonzeros)"
-        layout, price = stream_on_host()
+        geometry = (rate, *config.k1_geometry(device))
+        layout = stream_layout(coo, separate_diagonal=separate_diagonal)
+        price = stream_seconds_estimate(nnz, n, m, stream_vb,
+                                        layout.products_narrow(), *geometry)
         sell = sell_from_coo(coo, sort_rows=True, length_sort=True,
                              value_dtype=dtype, index_dtype=index_dtype)
-        sell_price = sell_bytes(sell, with_y=False)
+        sell_price = sell_seconds(sell, *geometry)
         if sell_price <= price:
             sell = sell.to(device)
             sell._auto_choice = "sell"
-            sell._auto_reason = (f"{blow}; SELL split "
-                                 f"({_cost(sell_price, rate)}) <= stream "
-                                 f"({_cost(price, rate)})")
+            sell._auto_reason = (f"{blow}; SELL split ({_ms(sell_price)}) "
+                                 f"<= stream ({_ms(price)})")
             return sell
-        return pick_stream(layout, f"{blow}; stream ({_cost(price, rate)}) "
-                                   f"< SELL split "
-                                   f"({_cost(sell_price, rate)})")
+        return pick_stream(layout, f"{blow}; stream ({_ms(price)}) < SELL "
+                                   f"split ({_ms(sell_price)})")
 
     vb = torch.empty(0, dtype=dtype).element_size()
     ib = np.dtype(config.select_index_dtype(n, m, nnz, index_dtype)).itemsize

@@ -272,18 +272,32 @@ def kernel_launches(sm: SellMatrix) -> int:
     return len(sm.buckets)
 
 
+def bucket_spmv(backend: str):
+    """The ELL SpMV that runs each bucket under `backend`: K1's wrapper for
+    ``auto`` and ``pallas``, its plain PyTorch version for ``xla`` (the JAX
+    package's XLA route, asked for by the user)."""
+    if backend in ("auto", "pallas"):
+        return ell_cuda.ell_spmv
+    if backend == "xla":
+        return ell_cuda.ell_spmv_torch
+    raise ValueError(f"unknown backend {backend!r}")
+
+
 def sell_spmv(sm: SellMatrix, x: torch.Tensor,
-              y: torch.Tensor | None = None) -> torch.Tensor:
-    """y := A*x + y: K1 per bucket, then the JAX package's reassembly (the
-    tiles in `order`, the tail, `row_unperm`, the extra sub-rows summed
-    with ``index_add_`` and added to their rows, y), in the values' type."""
+              y: torch.Tensor | None = None,
+              backend: str = "auto") -> torch.Tensor:
+    """y := A*x + y: K1 per bucket (`bucket_spmv` of `backend`), then the
+    JAX package's reassembly (the tiles in `order`, the tail, `row_unperm`,
+    the extra sub-rows summed with ``index_add_`` and added to their rows,
+    y), in the values' type."""
     dtype = sm.values.dtype
     x = x.to(dtype)
     n = sm.num_rows
+    ell_spmv = bucket_spmv(backend)
     if sm.trivial_reassembly:
-        out = ell_cuda.ell_spmv(sm.buckets[0], x)[:n]
+        out = ell_spmv(sm.buckets[0], x)[:n]
         return out if y is None else out + y.to(dtype)
-    parts = [ell_cuda.ell_spmv(b, x) for b in sm.buckets]
+    parts = [ell_spmv(b, x) for b in sm.buckets]
     flat = parts[0] if len(parts) == 1 else torch.cat(parts)
     out = flat.view(-1, sm.slice_rows)[sm.order].reshape(-1)
     if sm.tail is not None:                  # the tail's rows are padded

@@ -69,7 +69,8 @@ def csr_spmv(csr: CsrMatrix, x: torch.Tensor,
              y: torch.Tensor | None = None) -> torch.Tensor:
     """y := A*x + y through the cached sliced-ELL repack (K1 per bucket on
     a card, the plain version on the CPU), then the split diagonal and y,
-    in the values' type."""
+    in the values' type. (``--backend=xla`` runs `csr_spmv_segment`
+    instead, as the JAX package runs ``csr_xla`` there.)"""
     from ellspmv_tpu_torch.formats.sell import sell_spmv
     x = x.to(csr.values.dtype)
     out = _add_diagonal(csr, x, sell_spmv(to_sell(csr), x))

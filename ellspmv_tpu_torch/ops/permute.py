@@ -37,7 +37,8 @@ launches = 0
 # its product stream to a multiple of it, as the JAX package does.
 BLOCK = 128 * 128
 
-_VALUE_TAGS = {torch.float64: "f64", torch.float32: "f32"}
+_VALUE_TAGS = {torch.float64: "f64", torch.float32: "f32",
+               torch.bfloat16: "b16"}
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) + (ctypes.c_void_p,)
 
 
@@ -93,7 +94,8 @@ def _check(src: torch.Tensor, payload: torch.Tensor):
 
 def apply_permute(src: torch.Tensor, payload: torch.Tensor) -> torch.Tensor:
     """``out[j] = payload[src[j]]`` (0 where ``src[j] < 0``), a new vector of
-    src's length in the payload's type (float64 or float32). Every src entry
+    src's length in the payload's type (float64, float32 or bfloat16, whose
+    bits the kernel moves as they are). Every src entry
     must index inside the payload: `gather_from_targets` builds such maps,
     and the caller checks the payload's length against its plan."""
     global launches

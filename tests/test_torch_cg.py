@@ -177,24 +177,6 @@ def test_vdot_refuses(case):
         dot_cuda.vdot(x, y)
 
 
-@pytest.mark.cuda
-def test_dot_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    for n in (1, 1023, 1024, 1025, 262_144):
-        x, y = (torch.from_numpy(v).cuda() for v in _vectors(n))
-        before = dot_cuda.launches
-        got, again = dot_cuda.vdot(x, y), dot_cuda.vdot(x, y)
-        torch.cuda.synchronize()
-        assert dot_cuda.launches == before + 2
-        assert torch.equal(got, again)
-        want = math.fsum((x * y).cpu().numpy())
-        scale = float((x * y).abs().sum())
-        assert abs(float(got) - want) <= 1e-14 * scale
-        assert abs(float(got) - float(dot_cuda.vdot_torch(x, y))) \
-            <= 2e-14 * scale
-
-
 # -- CG -------------------------------------------------------------------
 
 CG_MATRICES = {"poisson2d(12)": lambda: poisson2d(12),

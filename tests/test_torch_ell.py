@@ -242,25 +242,3 @@ def test_plain_on_narrow_layout_against_jax_kernel(precision, index_dtype):
     scale = max(float(np.max(np.abs(want))), 1.0)
     np.testing.assert_allclose(got, want.astype(got.dtype), rtol=tol,
                                atol=tol * scale)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["narrow", "wide"])
-def test_narrow_kernel_matches_plain_on_card(layout):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    import dataclasses
-
-    from ellspmv_tpu_torch.formats.ell import ell_from_coo
-    from ellspmv_tpu_torch.ops import ell_cuda
-    ell = ell_from_coo(port_coo_of_jax(banded_random(5000, 9, 64)),
-                       device="cuda")
-    assert ell.lcol is not None
-    if layout == "wide":
-        ell = dataclasses.replace(ell, lbase=None, lcol=None)
-    x = torch.from_numpy(np.random.RandomState(0).rand(5000)).cuda()
-    got = ell_cuda.ell_spmv(ell, x)
-    torch.cuda.synchronize()
-    want = ell_cuda.ell_spmv_torch(ell, x)
-    torch.testing.assert_close(got, want, rtol=1e-13,
-                               atol=1e-13 * float(want.abs().max()))

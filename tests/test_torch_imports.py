@@ -64,6 +64,9 @@ sold = sell_spmv(sell_from_coo(poisson2d(4), length_sort=True),
                  torch.ones(16, dtype=torch.float64))
 csred = csr_spmv(csr_from_coo(poisson2d(4), separate_diagonal=True),
                  torch.ones(16, dtype=torch.float64))
+from ellspmv_tpu_torch.formats.hybrid import hybrid_from_coo, hybrid_spmv
+hub = hybrid_from_coo(poisson2d(4), hub_width=8)
+hybrid = hybrid_spmv(hub, torch.ones(16, dtype=torch.float64))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
                                     "ellspmv_tpu"))
@@ -75,6 +78,7 @@ print(json.dumps({"modules": names, "bad": bad,
                   "cg_iterations": solved.iterations,
                   "streamed": streamed.tolist(),
                   "sold": sold.tolist(), "csred": csred.tolist(),
+                  "hybrid": hybrid.tolist(), "hub": hub.hub is not None,
                   "stream_launches": permute.launches + stream_sum.launches,
                   "chosen": dia._auto_choice,
                   "probe_launches": ell_cuda.probe_launches,
@@ -117,7 +121,13 @@ def test_port_imports_no_jax(child):
                 "ellspmv_tpu_torch.formats.csr",
                 "ellspmv_tpu_torch.formats.sell",
                 "ellspmv_tpu_torch.ops.csr",
-                "ellspmv_tpu_torch.cli.csrspmv"}
+                "ellspmv_tpu_torch.cli.csrspmv",
+                "ellspmv_tpu_torch.formats.hybrid",
+                "ellspmv_tpu_torch.bench.metrics",
+                "ellspmv_tpu_torch.bench.stream",
+                "ellspmv_tpu_torch.bench.suite",
+                "ellspmv_tpu_torch.utils.trace",
+                "ellspmv_tpu_torch.utils.timing"}
     assert expected <= set(child["modules"])
 
 
@@ -131,8 +141,10 @@ def test_import_without_nvcc_builds_nothing(child):
     assert child["stream_launches"] == 0
     assert child["streamed"] == [2.0, 1.0, 1.0, 2.0, 1.0, 0.0, 0.0, 1.0,
                                  1.0, 0.0, 0.0, 1.0, 2.0, 1.0, 1.0, 2.0]
-    # so do the SELL and CSR formats, through K1's plain version
+    # so do the SELL and CSR formats, through K1's plain version, and the
+    # hybrid, its gather of x the plain one too
     assert child["sold"] == child["csred"] == child["streamed"]
+    assert child["hub"] and child["hybrid"] == child["streamed"]
     # the fp64 path probes only a card; the CPU runs the plain versions
     assert child["probe_launches"] == 0 and child["probed"] == 0
 

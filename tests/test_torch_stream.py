@@ -40,8 +40,12 @@ from ellspmv_tpu_torch.formats.stream import (StreamMatrix,
 from ellspmv_tpu_torch.models.generators import power_law
 from ellspmv_tpu_torch.ops import permute, stream_sum
 from ellspmv_tpu_torch.ops.dispatch import spmv
-from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv, ell_spmv_torch
+from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
 from tests.conftest import random_coo
+from torch_cases import (PLAN_CASES, PRODUCT_CASES, SPMV_CASES,
+                               dest_long_rows, dest_random,
+                               gather_pipeline_spmv, general_targets,
+                               rng_coo, spmv_inputs)
 
 # Per-row tolerance of stream_spmv against the oracle, relative to
 # sum |a*x| + |d*x| + |y|: fp64 is native (summation order alone differs),
@@ -92,77 +96,6 @@ def test_power_law_bit_equal(args, kw):
 # The sum plan
 # --------------------------------------------------------------------------
 
-def _pad(dest):
-    e_pad = -(-len(dest) // 1024) * 1024
-    return np.pad(dest, (0, e_pad - len(dest)), constant_values=-1)
-
-
-def _dest_random():
-    rng = np.random.RandomState(0)
-    dest = rng.randint(0, 300, 5000).astype(np.int64)
-    dest[rng.rand(5000) < 0.05] = -1
-    return _pad(dest), 300, 128, None
-
-
-def _dest_long_rows():
-    # two rows over the cap (a second level) and background
-    rng = np.random.RandomState(1)
-    dest = np.concatenate([np.full(1500, 7), np.full(400, 200),
-                           rng.randint(0, 500, 3000)]).astype(np.int64)
-    return _pad(rng.permutation(dest)), 500, 128, None
-
-
-def _dest_deep():
-    # a row of 5000 over cap 16: sub-rows of sub-rows, four levels
-    rng = np.random.RandomState(2)
-    dest = np.concatenate([np.full(5000, 3), rng.randint(0, 90, 600)])
-    return _pad(rng.permutation(dest.astype(np.int64))), 90, 16, None
-
-
-def _dest_empty_rows():
-    rng = np.random.RandomState(3)
-    dest = rng.randint(0, 200, 900).astype(np.int64) * 7   # 6 rows in 7 empty
-    return _pad(dest), 1400, 128, None
-
-
-def _dest_folded():
-    # 40,000 one-entry rows: an S=1 bucket of 40 tiles folds 16 per step
-    # (two steps and a tail of 8), and a few heavier rows
-    rng = np.random.RandomState(4)
-    dest = np.concatenate([np.arange(40_000), np.repeat(
-        rng.choice(40_000, 30, replace=False), 9)]).astype(np.int64)
-    return _pad(rng.permutation(dest)), 40_000, 128, None
-
-
-def _dest_chunked(C):
-    def make():
-        rng = np.random.RandomState(5 + C)
-        dest = np.concatenate([np.full(900, 7), np.full(800, 200),
-                               rng.randint(0, 250, 2500)]).astype(np.int64)
-        dest = _pad(rng.permutation(dest))      # rows >= 250 but 7 empty
-        cuts = np.sort(rng.choice(np.arange(1, len(dest)), C - 1,
-                                  replace=False))
-        return dest, 500, 128, [0, *cuts.tolist(), len(dest)]
-    return make
-
-
-def _dest_cap300():
-    # rows of 1500 and 400 entries under cap 300: subtiles of 300 runs, more
-    # than K3 stages in shared memory at once
-    dest, n, _, starts = _dest_long_rows()
-    return dest, n, 300, starts
-
-
-PLAN_CASES = {
-    "cap300": _dest_cap300,
-    "random": _dest_random,
-    "long_rows": _dest_long_rows,
-    "deep": _dest_deep,
-    "empty_rows": _dest_empty_rows,
-    "folded": _dest_folded,
-    "chunked3": _dest_chunked(3),
-    "chunked4": _dest_chunked(4),
-}
 
 
 def assert_plans_equal(got, want):
@@ -432,13 +365,6 @@ def test_apply_stream_sum_exact_small_ints(case):
         stream_sum.apply_stream_sum(plan, torch.zeros(plan.in_positions + 1))
 
 
-def _general_targets():
-    rng = np.random.RandomState(11)
-    n_in, n_out = 40_000, 50_000
-    target = rng.permutation(n_out)[:n_in].astype(np.int64)
-    target[rng.rand(n_in) < 0.1] = -1
-    return target, n_out
-
 
 def _cells_targets():
     # two groups of bpg=2 blocks; each element stays in its group
@@ -454,7 +380,7 @@ def _cells_targets():
 def test_gather_realises_jax_route(route):
     """Both TPU plan kinds (K4's general route, K5's uniform cells) and the
     port's gather put every element where its target says."""
-    target, n_out = (_general_targets() if route == "general"
+    target, n_out = (general_targets() if route == "general"
                      else _cells_targets())
     iota = np.arange(len(target), dtype=np.float32)
     if route == "general":
@@ -492,7 +418,7 @@ def test_gather_from_targets_refuses_as_build_permute(case):
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu():
-    dest, n, cap, starts = _dest_long_rows()
+    dest, n, cap, starts = dest_long_rows()
     plan = stream_sum.build_stream_sum(dest, n)
     lv = plan.levels[0]
     src = torch.from_numpy(stream_sum.position_map(lv))
@@ -523,7 +449,8 @@ def test_permute_wrapper_refuses(case):
     if case == "src_dtype":
         src, err = src.long(), TypeError
     elif case == "payload_dtype":
-        payload, err = payload.to(torch.bfloat16), TypeError
+        # 16-bit floats move as bf16 bit patterns only; fp16 has no kernel
+        payload, err = payload.to(torch.float16), TypeError
     elif case == "shape":
         payload = payload.view(1, 3)
     elif case == "noncontiguous":
@@ -540,7 +467,7 @@ def test_permute_wrapper_refuses(case):
                                   "meta_device", "src_dtype", "src_device",
                                   "out_shape", "out_dtype"])
 def test_stream_sum_wrapper_refuses(case):
-    dest, n, cap, starts = _dest_random()
+    dest, n, cap, starts = dest_random()
     lv = stream_sum.build_stream_sum(dest, n).levels[0]
     table = lv.table
     stream = torch.zeros(lv.in_rows * 128, dtype=torch.float64)
@@ -581,50 +508,6 @@ def test_sum_position_space_guard(monkeypatch):
 # stream_spmv
 # --------------------------------------------------------------------------
 
-def _hubs():
-    rng = np.random.RandomState(14)
-    n = 500
-    rows = np.concatenate([np.full(1500, 7), np.full(1400, 200),
-                           rng.randint(0, n, 3000)]).astype(np.int32)
-    cols = rng.randint(0, n, len(rows)).astype(np.int32)
-    return CooMatrix(n, n, rows, cols, rng.randn(len(rows)))
-
-
-def _empty_rows():
-    return CooMatrix(6, 5, np.array([0, 1, 2, 4, 4], np.int32),
-                     np.array([1, 0, 3, 2, 4], np.int32),
-                     np.array([1.0, 2.0, 3.0, 4.0, 5.0]))
-
-
-def _rng_coo(*args, **kw):
-    def make():
-        return port_coo(random_coo(np.random.RandomState(15), *args, **kw))
-    return make
-
-
-# name -> (COO factory, precision, with y, stream_from_coo arguments)
-SPMV_CASES = {
-    "rect": (_rng_coo(700, 500, 4000), "float64", False, {}),
-    "f32": (_rng_coo(600, 600, 5000), "float32", False, {}),
-    "y": (_rng_coo(300, 400, 2500), "float64", True, {}),
-    "duplicates": (_rng_coo(100, 100, 1500, with_dups=True), "float64",
-                   False, {}),
-    "symmetric": (_rng_coo(250, 250, 1200, symmetric=True), "float64",
-                  False, {}),
-    "separate_diagonal": (_rng_coo(200, 200, 1500), "float64", True,
-                          {"separate_diagonal": True}),
-    "separate_diagonal_rect": (_rng_coo(200, 150, 1500), "float32", False,
-                               {"separate_diagonal": True}),
-    "hubs": (_hubs, "float64", False, {}),
-    "empty_rows": (_empty_rows, "float64", True, {}),
-    "chunked": (_rng_coo(600, 900, 6000), "float64", True, {"n_chunks": 4}),
-    "chunked_f32": (_rng_coo(300, 800, 3500), "float32", True,
-                    {"n_chunks": 5}),
-    "deep": (lambda: power_law(2000, 6, seed=5), "float64", False,
-             {"cap": 8}),
-    "bf16": (_rng_coo(200, 200, 1200), "bfloat16", False, {}),
-    "power_law": (lambda: power_law(4000, 8, seed=1), "float64", False, {}),
-}
 
 
 def _row_errors(coo, x, y, got, sm):
@@ -669,13 +552,13 @@ def test_stream_spmv_empty_matrix():
 
 # name -> (COO factory, precision, JAX environment, port arguments)
 JAX_CASES = {
-    "rect": (_rng_coo(700, 500, 4000), "float64", {}, {}),
-    "f32": (_rng_coo(600, 600, 5000), "float32", {}, {}),
-    "chunked_sort_path": (_rng_coo(400, 700, 4000), "float64",
+    "rect": (rng_coo(700, 500, 4000), "float64", {}, {}),
+    "f32": (rng_coo(600, 600, 5000), "float32", {}, {}),
+    "chunked_sort_path": (rng_coo(400, 700, 4000), "float64",
                           {"ELLSPMV_TPU_STREAM_CHUNKS": "3",
                            "ELLSPMV_TPU_NO_PERMUTE": "1"}, {"n_chunks": 3}),
     # the uniform-cell route (K5) on the JAX side
-    "cells": (_rng_coo(500, 900, 6000), "float64",
+    "cells": (rng_coo(500, 900, 6000), "float64",
               {"ELLSPMV_TPU_STREAM_CHUNKS": "3",
                "ELLSPMV_TPU_STREAM_BPG": "2",
                "ELLSPMV_TPU_CELLS_MIN": "0"}, {"n_chunks": 3}),
@@ -765,63 +648,13 @@ def test_traffic_counts_the_plan():
 # The delivery of each level's entries, against gathering them first
 # --------------------------------------------------------------------------
 
-def _gather_pipeline(plan, entries, gather=permute.apply_permute_torch,
-                     sums=stream_sum.stream_sum_torch):
-    """The plan's sums as the port first ran them: per level a gather of its
-    entries into position order (`position_map`), then the sums; the
-    levels' terminal outputs concatenated, and one gather into row order
-    (`final_map`). `gather` and `sums` are the plain versions or the
-    kernels."""
-    device = entries.device
-    parts, v = [], entries
-    for lv in plan.levels:
-        src = torch.from_numpy(stream_sum.position_map(lv)).to(device)
-        out = sums(lv.table, gather(src, v))
-        parts.append(out[lv.multi_len:])
-        v = out[:lv.multi_len]
-    final = torch.from_numpy(stream_sum.final_map(plan)).to(device)
-    return gather(final, torch.cat(parts))
-
-
-def _gather_pipeline_spmv(coo, sm, kw, precision, x, y, device="cpu",
-                          k1=ell_spmv_torch, **pipeline):
-    """`stream_spmv` as the port first ran it: K1 over the column-order
-    products, `_gather_pipeline`, the split diagonal and y."""
-    dtype = sm.values.dtype
-    x = x.to(dtype)
-    prod = column_order_products(coo, kw.get("separate_diagonal", False),
-                                 precision)
-    out = _gather_pipeline(sm.ddsum, k1(prod.to(device), x), **pipeline)
-    if sm.diag is not None and sm.num_columns > 0:
-        xi = torch.arange(sm.num_rows, device=x.device).clamp_(
-            max=sm.num_columns - 1)
-        out = torch.addcmul(out, sm.diag, x[xi])
-    return out if y is None else out + y.to(dtype)
-
-
-def _spmv_inputs(case, device="cpu"):
-    make, precision, with_y, kw = SPMV_CASES[case]
-    coo = make()
-    rng = np.random.RandomState(16)
-    x = torch.from_numpy(rng.rand(coo.num_columns)).to(device)
-    y = (torch.from_numpy(rng.randn(coo.num_rows)).to(device) if with_y
-         else None)
-    sm = stream_from_coo(coo, value_dtype=precision, device=device, **kw)
-    return coo, sm, kw, precision, x, y
-
-
-# the stream_spmv cases whose products differ in layout: unchunked,
-# chunked, several levels, split diagonal, fp64 and f32
-PRODUCT_CASES = ["chunked", "chunked_f32", "deep", "f32", "hubs", "rect",
-                 "separate_diagonal_rect"]
-
 
 @pytest.mark.parametrize("case", PRODUCT_CASES)
 def test_position_order_products_equal_the_gathered_column_order(case):
     """K1 over the products laid out in level 1's position order gives the
     level-1 stream that K1 over the column-order products and a gather
     gave; gap slots hold 0 and the column of the slot before them."""
-    coo, sm, kw, precision, x, _ = _spmv_inputs(case)
+    coo, sm, kw, precision, x, _ = spmv_inputs(case)
     x = x.to(sm.values.dtype)
     src = torch.from_numpy(stream_sum.position_map(sm.ddsum.levels[0]))
     col = column_order_products(coo, kw.get("separate_diagonal", False),
@@ -847,9 +680,9 @@ def test_layout_knows_the_products_column_layout(case):
     if case == "wide":
         # 2,000 rows of 8 columns over 300,000: every block of 256
         # position-order slots spans more than 65,536 columns
-        coo, precision, kw = _rng_coo(2000, 300_000, 16_000)(), "float32", {}
+        coo, precision, kw = rng_coo(2000, 300_000, 16_000)(), "float32", {}
     else:
-        coo, _, kw, precision, _, _ = _spmv_inputs(case)
+        coo, _, kw, precision, _, _ = spmv_inputs(case)
     split = kw.get("separate_diagonal", False)
     layout = stream_layout(coo, **kw)
     sm = stream_from_coo(coo, value_dtype=precision, **kw)
@@ -894,9 +727,9 @@ def test_stream_spmv_bit_equal_to_the_gather_pipeline(case):
     every level first; test_stream_spmv_matches_oracle and
     test_stream_spmv_matches_jax hold the same cases to the oracle and to
     JAX."""
-    coo, sm, kw, precision, x, y = _spmv_inputs(case)
+    coo, sm, kw, precision, x, y = spmv_inputs(case)
     got = stream_spmv(sm, x, y)
-    want = _gather_pipeline_spmv(coo, sm, kw, precision, x, y)
+    want = gather_pipeline_spmv(coo, sm, kw, precision, x, y)
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
@@ -919,121 +752,3 @@ def test_plan_refuses_a_read_position_without_a_source(case, level, how):
     with pytest.raises(ValueError, match="a position that a run reads has "
                                          "no source"):
         stream_sum._attach_maps(plan)
-
-
-def _needs_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", PRODUCT_CASES)
-def test_position_order_products_on_card(case):
-    _needs_card()
-    coo, sm, kw, precision, x, _ = _spmv_inputs(case, "cuda")
-    x = x.to(sm.values.dtype)
-    src = torch.from_numpy(stream_sum.position_map(
-        sm.ddsum.levels[0])).cuda()
-    col = column_order_products(coo, kw.get("separate_diagonal", False),
-                                precision)
-    want = permute.apply_permute(src, ell_spmv(col.to("cuda"), x))
-    got = ell_spmv(sm.prod, x)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(PLAN_CASES))
-def test_sums_through_a_map_on_card(case):
-    _needs_card()
-    dest, n, cap, starts = PLAN_CASES[case]()
-    plan = stream_sum.build_stream_sum(dest, n, cap=cap,
-                                       chunk_starts=starts).to("cuda")
-    rng = np.random.RandomState(27)
-    for dtype in (torch.float64, torch.float32):
-        buffer = torch.from_numpy(rng.randn(plan.buffer_len)).to(
-            "cuda", dtype)
-        for i, lv in enumerate(plan.levels):
-            if i == 0:
-                src = torch.from_numpy(stream_sum.position_map(lv)).cuda()
-                stream = torch.from_numpy(rng.randn(lv.in_len)).to(
-                    "cuda", dtype)
-            else:
-                src, stream = lv.src, buffer
-            before = stream_sum.src_launches
-            got = stream_sum.stream_sum(lv.table, stream, src)
-            want = stream_sum.stream_sum(lv.table,
-                                         permute.apply_permute(src, stream))
-            torch.cuda.synchronize()
-            assert stream_sum.src_launches == before + 1
-            assert torch.equal(got, want)
-            assert torch.equal(got, stream_sum.stream_sum_torch(
-                lv.table, stream, src))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(SPMV_CASES))
-def test_stream_spmv_bit_equal_on_card(case):
-    _needs_card()
-    coo, sm, kw, precision, x, y = _spmv_inputs(case, "cuda")
-    before = (stream_sum.launches, stream_sum.src_launches, permute.launches)
-    got = stream_spmv(sm, x, y)
-    torch.cuda.synchronize()
-    deeper = len(sm.ddsum.levels) - 1
-    assert (stream_sum.launches - before[0], stream_sum.src_launches
-            - before[1], permute.launches - before[2]) == (1, deeper, 1)
-    want = _gather_pipeline_spmv(coo, sm, kw, precision, x, y, "cuda",
-                                 k1=ell_spmv, gather=permute.apply_permute,
-                                 sums=stream_sum.stream_sum)
-    assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_stream_sum_kernel_matches_plain_on_card(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    dest, n, cap, starts = _dest_chunked(3)()
-    plan = stream_sum.build_stream_sum(dest, n, chunk_starts=starts)
-    lv = plan.levels[0].to("cuda")
-    stream = torch.from_numpy(np.random.RandomState(20).randn(
-        lv.in_rows * 128)).to("cuda", dtype)
-    before = stream_sum.launches
-    got = stream_sum.stream_sum(lv.table, stream)
-    torch.cuda.synchronize()
-    assert stream_sum.launches == before + 1
-    assert torch.equal(got, stream_sum.stream_sum_torch(lv.table, stream))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(PLAN_CASES))
-def test_stream_sum_kernel_on_every_plan_on_card(case):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    dest, n, cap, starts = PLAN_CASES[case]()
-    plan = stream_sum.build_stream_sum(dest, n, cap=cap,
-                                       chunk_starts=starts).to("cuda")
-    for lv in plan.levels:
-        stream = torch.from_numpy(np.random.RandomState(25).randn(
-            lv.in_rows * 128)).cuda()
-        got = stream_sum.stream_sum(lv.table, stream)
-        torch.cuda.synchronize()
-        assert torch.equal(got, stream_sum.stream_sum_torch(lv.table,
-                                                            stream))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_permute_kernel_matches_plain_on_card(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    target, n_out = _general_targets()
-    src = torch.from_numpy(permute.gather_from_targets(target, n_out))
-    src = src.to("cuda")
-    payload = torch.from_numpy(np.random.RandomState(21).randn(
-        len(target))).to("cuda", dtype)
-    before = permute.launches
-    got = permute.apply_permute(src, payload)
-    torch.cuda.synchronize()
-    assert permute.launches == before + 1
-    assert torch.equal(got, permute.apply_permute_torch(src, payload))
