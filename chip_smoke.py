@@ -130,11 +130,24 @@ Phases, each of which exits non-zero on failure:
    the reassembly, against its bound; and the FMA probe against an empty
    kernel launched the same way, in turns, in a CUDA graph: the floor of
    one launch;
-7. the benchmark suite (``python -m ellspmv_tpu_torch.bench.suite --json``,
+7. multi-device (``ellspmv_tpu_torch/parallel/``): fem_mesh_2d(1440) fp64
+   ELL over NCCL at world size 1, its y bit-equal to the one-device
+   ``ell_spmv`` and both timed; four ranks sharing the card over gloo: the
+   fem ELL in fp64 and f32 (y bit-equal to the one-device port), the
+   config2 CSR with the nonzeros partition and config3's stream format
+   under the rows and the nonzeros partitions (every row against the
+   oracle), CG (true residual, iterations within 1 of one device), each
+   with its workload table, each rank's kernels alone and the allgather's
+   time, and K1 (K3 and the gather for the stream, K6 for CG) launched on
+   every rank; ``dryrun_multichip(4)`` on the card; ``ellspmv
+   --devices=2`` on cuda (exit 1), and ``ellspmv`` and ``cgsolve
+   --device=cpu --devices=4 -v`` on a fem_mesh_2d(256) file against the
+   oracle (the ``cuda`` tests over 1, 2 and 4 ranks run in phase 3);
+8. the benchmark suite (``python -m ellspmv_tpu_torch.bench.suite --json``,
    run in this process): every row at full scale, each timed row's y held
    against the oracle on every row (fp64, 1e-13 of sum |a*x|), the triad
    beside the data sheet, config3-10x's normwise error beside the JAX
-   package's.
+   package's; config4 skips on one card.
 
 Each phase's seconds are printed after it, and all of them before the
 summary.
@@ -1163,6 +1176,22 @@ def graph_ms(fn, iters: int = 20) -> float:
     return time_ms(graph.replay, 5) / iters
 
 
+L2_BYTES = 50 * 2 ** 20      # the H100's L2
+
+
+def _rotating(tensors, nbytes: int):
+    """Copies of `tensors` (one call's inputs, `nbytes` with its output)
+    enough that their bytes together are at least twice the L2."""
+    count = max(2, -(-2 * L2_BYTES // max(nbytes, 1)))
+    return [tuple(t.clone() for t in tensors) for _ in range(count)]
+
+
+def _cycling(fn, copies):
+    """`fn` on the next of `copies` at each call."""
+    turn = itertools.count()
+    return lambda: fn(*copies[next(turn) % len(copies)])
+
+
 def time_dot(n, peak_bw):
     """The dot kernel at the CG path's length beside its plain version and
     torch.dot, each call on the next of four input pairs (133 MB together,
@@ -1594,25 +1623,36 @@ def phase_stream_timing(coo, runs, peak_bw):
                 f"{live:,} live elements; bit-equal to plain; "
                 f"|index_add_ - plain| {lib_err:.3e}")
             add(name, k_ms, p_ms, lib_ms, nbytes, live)
-        src, padded = plan.final_src, torch.cat([buffer.new_zeros(1), buffer])
-        shifted = src.long() + 1
+        src = plan.final_src
+        # each call on the next of several copies of its inputs, more bytes
+        # together than the 50 MB L2, so that no call finds them there
+        # (at config3 one call's map, payload and output fit in it)
+        copies = _rotating(
+            (src, buffer), sum(t.numel() * t.element_size()
+                               for t in (src, buffer, src)))
+        padded = [(s_.long() + 1, torch.cat([b_.new_zeros(1), b_]))
+                  for s_, b_ in copies]
         k_ms, p_ms, lib_ms = _turns(
-            f"gather final {prec} (CUDA graph, per call)",
-            lambda: permute.apply_permute(src, buffer),
-            lambda: permute.apply_permute_torch(src, buffer),
-            lambda: torch.index_select(padded, 0, shifted),
+            f"gather final {prec} (CUDA graph, per call, {len(copies)} "
+            "rotating copies of its inputs)",
+            _cycling(permute.apply_permute, copies),
+            _cycling(permute.apply_permute_torch, copies),
+            _cycling(lambda i, p: torch.index_select(p, 0, i), padded),
             "torch.index_select", timer=graph_ms)
+        hot_ms = graph_ms(lambda: permute.apply_permute(src, buffer))
         eager_ms = time_ms(lambda: permute.apply_permute(src, buffer))
+        del copies, padded
         y = permute.apply_permute(src, buffer)
         check(torch.equal(y, permute.apply_permute_torch(src, buffer)),
               f"gather final {prec}: kernel != plain at config3")
         nbytes = gather_bytes(src, sv)
         bound_ms, _ = _bound(nbytes, 0, prec, peak_bw)
-        log(f"  gather final {prec}: kernel {k_ms:.4f} ms on the device "
-            f"({eager_ms:.4f} ms per eager call) vs plain {p_ms:.4f} vs "
-            f"index_select {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
-            f"({nbytes:,} bytes), {100 * bound_ms / k_ms:.1f}% of it; "
-            "bit-equal to plain")
+        log(f"  gather final {prec}: kernel {k_ms:.4f} ms on the device, "
+            f"inputs cold ({hot_ms:.4f} ms on one set of inputs, L2-"
+            f"resident; {eager_ms:.4f} ms per eager call) vs plain "
+            f"{p_ms:.4f} vs index_select {lib_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({nbytes:,} bytes), "
+            f"{100 * bound_ms / k_ms:.1f}% of it; bit-equal to plain")
         add("permute", k_ms, p_ms, lib_ms, nbytes, 0)
         for name, t in totals.items():
             t["bound_ms"], t["bound_by"] = _bound(t.pop("nbytes"),
@@ -2588,6 +2628,30 @@ def phase_hybrid_path(coo, x64, want, scale, device="cuda"):
     return runs, counts
 
 
+def _hub_gather_timing(hm, x, prec, peak_bw):
+    """The hybrid's gather of x into the hub (``permute.apply_permute``),
+    alone in a CUDA graph: each call on the next of several copies of x
+    (and the map), more bytes together than the L2, beside the same call
+    on one set of inputs, which the L2 keeps."""
+    from ellspmv_tpu_torch.bench.traffic import gather_bytes
+    from ellspmv_tpu_torch.ops import permute
+    cols = hm.hub_cols
+    one = (cols.numel() * cols.element_size() + x.numel() * x.element_size()
+           + cols.numel() * x.element_size())
+    copies = _rotating((cols, x), one)
+    cold = graph_ms(_cycling(permute.apply_permute, copies))
+    hot = graph_ms(lambda: permute.apply_permute(cols, x))
+    del copies
+    nbytes = gather_bytes(cols, x.element_size())
+    bound_ms, _ = _bound(nbytes, 0, prec, peak_bw)
+    log(f"  hybrid gather of x {prec}: {cold:.4f} ms on the device, inputs "
+        f"cold ({hot:.4f} ms on one set, L2-resident); bound "
+        f"{bound_ms:.4f} ms ({nbytes:,} bytes: the map, the {cols.numel():,}"
+        f" hub entries of x read once, the output), "
+        f"{100 * bound_ms / cold:.1f}% of it")
+    return cold
+
+
 def phase_hybrid_timing(coo, runs, stream_runs, peak_bw):
     """At config3: hybrid_spmv in a CUDA graph beside the stream path on the
     same matrix, in turns, and eagerly beside cuSPARSE; its device time
@@ -2613,6 +2677,7 @@ def phase_hybrid_timing(coo, runs, stream_runs, peak_bw):
         _buckets_vs_plain(f"hybrid_spmv {prec} hub", hm.hub,
                           x[hm.hub_cols.long()], prec)
         _buckets_vs_plain(f"hybrid_spmv {prec} rest", hm.rest, x, prec)
+        _hub_gather_timing(hm, x, prec, peak_bw)
         calls = 10
         _sync(x.device.type)
         with profile(activities=[ProfilerActivity.CPU,
@@ -2651,6 +2716,248 @@ def phase_hybrid_timing(coo, runs, stream_runs, peak_bw):
             log(f"    device: {us / count:9.2f} us x {count:4d}  {key[:90]}")
         out[prec] = g
     return out
+
+
+# ---------------------------------------------------------------------------
+# Multi-device (``parallel/``): NCCL at world size 1, four gloo ranks on
+# the one card, the dryrun and the programs
+# ---------------------------------------------------------------------------
+
+CONFIG2_ROWS = 2_000_000        # banded_random(2,000,000, 16, 512)
+
+
+def _rank_launches(label, launches, need, device="cuda"):
+    """Check that every rank launched each kernel of `need` (on a card; on
+    the CPU the wrappers run their plain versions)."""
+    for r, counts in enumerate(launches):
+        check(device != "cuda" or all(counts[k] >= 1 for k in need),
+              f"{label}: rank {r} did not launch {need}: {counts}")
+
+
+def _ranks_report(label, res, sharded, gather_s):
+    """The workload table beside each rank's kernels alone, and the
+    allgather's time."""
+    log(f"  {label}: per call over the ranks {res.best * 1e3:.4f} ms "
+        f"(best of {len(res.times)} per_iter, allgather included); "
+        f"allgather alone {gather_s * 1e3:.4f} ms")
+    rows = sharded.workload_report()
+    log(f"    {rows[0]}   alone (ms)")
+    for line, t in zip(rows[1:], res.shard_seconds):
+        log(f"    {line:<28s} {t * 1e3:.4f}")
+    times = res.shard_seconds
+    log(f"    slowest rank alone / mean: {max(times) / np.mean(times):.3f}")
+
+
+def phase_multi_device(coo, pl_coo, pl_x64, pl_want, pl_scale,
+                       device="cuda"):
+    """(a) fem_mesh_2d(1440) fp64 ELL through ``parallel`` over NCCL at
+    world size 1: y bit-equal to the one-device `ell_spmv`, both timed
+    per_iter; (b) four ranks sharing the card over gloo: the fem ELL in
+    fp64 and f32 (partition rows, y bit-equal to the one-device port), the
+    config2 CSR (banded_random(2,000,000, 16, 512), --partition-nonzeros,
+    every row against the oracle), config3's stream
+    format under the rows and the nonzeros partitions (every row within
+    1e-13 of sum |a*x|), CG on the fem mesh (true residual <= 10*tol,
+    iterations within 1 of the one-device solve), each with the workload
+    table, each rank's kernels alone and the allgather's time; the kernels
+    launched on every rank; (d) ``dryrun_multichip(4)`` on the card;
+    (e) the programs: ``ellspmv --devices=2`` on cuda exits 1, and
+    ``ellspmv``/``cgsolve --device=cpu --devices=4 -v`` on a
+    fem_mesh_2d(256) file held against the oracle. ((c), the cuda tests of
+    ``tests/test_torch_card.py`` over 1, 2 and 4 ranks, ran in phase 3.)
+    Returns the ranks' kernel launches."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.harness import (benchmark_sharded,
+                                                 benchmark_spmv)
+    from ellspmv_tpu_torch.cli.cgsolve import solve
+    from ellspmv_tpu_torch.formats.csr import csr_from_coo
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.models.generators import banded_random
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    from ellspmv_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ellspmv_tpu_torch.parallel.launch import RankPool
+    from ellspmv_tpu_torch.parallel.mesh import describe
+    from ellspmv_tpu_torch.parallel.solver import solve_sharded
+    from ellspmv_tpu_torch.parallel.spmv import (gather_seconds_task,
+                                                 run_spmv, shard_matrix)
+    from ellspmv_tpu_torch.parallel.stream import shard_stream
+
+    one_rank = ["cuda:0"] if device == "cuda" else ["cpu"]
+    shared = one_rank * 4
+    totals = []
+    n = coo.num_rows
+    x64 = torch.from_numpy(np.random.RandomState(41).rand(n))
+    t0 = time.perf_counter()
+    ells = {prec: ell_from_coo(coo, sort_rows=True, value_dtype=prec)
+            for prec in ("float64", "float32")}
+    log(f"  fem_mesh_2d(1440) ELL on the host, fp64 and f32: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) NCCL at world size 1 against the one-device call
+    ell = ells["float64"]
+    card = ell.to(device)
+    one = benchmark_spmv(None, card, x64.to(device), repeat=10, warmup=2)
+    with RankPool(one_rank) as pool:
+        t0 = time.perf_counter()
+        sm = shard_matrix(ell, 1)
+        launches = []
+        y = run_spmv(pool, sm, x64, launches=launches)
+        check(torch.equal(y, spmv(card, x64.to(device)).cpu()),
+              "(a) NCCL world 1: y differs from the one-device ell_spmv")
+        res = benchmark_sharded(pool, sm, x64, repeat=10, warmup=2,
+                                matrix=ell)
+        check(torch.equal(res.y, one.y.cpu()),
+              "(a) NCCL world 1: the benchmark's y differs from the "
+              "one-device benchmark's")
+        totals += launches + res.rank_launches
+        gather_s = pool.run(gather_seconds_task, [(sm.split_x(x64)[0],)])[0]
+    _rank_launches("(a)", launches, ["ell_spmv"], device)
+    log(f"  (a) {describe(one_rank)}: y bit-equal to the one-device "
+        f"ell_spmv; per_iter best {res.best * 1e3:.4f} ms over the ranks "
+        f"(allgather alone {gather_s * 1e3:.4f} ms) against "
+        f"{one.best * 1e3:.4f} ms on one device: "
+        f"{(res.best - one.best) * 1e3:+.4f} ms per call "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del card, one
+
+    # (b) four ranks sharing the card over gloo
+    with RankPool(shared, timeout=900) as pool:
+        log(f"  (b) {describe(shared)}")
+        for prec, ell in ells.items():
+            t0 = time.perf_counter()
+            sm = shard_matrix(ell, 4)
+            x = x64.to(ell.values.dtype)
+            launches = []
+            y = run_spmv(pool, sm, x, launches=launches)
+            check(torch.equal(y, spmv(ell.to(device), x.to(device)).cpu()),
+                  f"(b) fem ELL {prec}: y differs from the one-device port")
+            res = benchmark_sharded(pool, sm, x, repeat=5, warmup=1,
+                                    matrix=ell, per_device=True)
+            gather_s = pool.run(gather_seconds_task,
+                                [(b,) for b in sm.split_x(x)])[0]
+            totals += launches + res.rank_launches
+            _rank_launches(f"(b) fem ELL {prec}", launches, ["ell_spmv"], device)
+            _ranks_report(f"(b) fem ELL {prec}, partition rows, y bit-equal"
+                          " to the one-device port", res, sm, gather_s)
+            log(f"    ({time.perf_counter() - t0:.1f} s)")
+        del ells
+
+        t0 = time.perf_counter()
+        bcoo = banded_random(CONFIG2_ROWS if device == "cuda" else 20_000, 16,
+                             512, seed=0)
+        bx = np.random.RandomState(42).rand(bcoo.num_columns)
+        csr = csr_from_coo(bcoo, value_dtype="float64")
+        sm = shard_matrix(csr, 4, partition="nonzeros")
+        launches = []
+        y = run_spmv(pool, sm, torch.from_numpy(bx), launches=launches)
+        want, scale = row_oracle(bcoo, bx)
+        err = _row_err(y.numpy(), want, scale)
+        check(err <= TOLERANCE["float64"],
+              f"(b) config2 CSR: rows disagree with the oracle: {err:.3e}")
+        res = benchmark_sharded(pool, sm, torch.from_numpy(bx), repeat=5,
+                                warmup=1, matrix=csr, per_device=True)
+        gather_s = pool.run(gather_seconds_task,
+                            [(b,) for b in sm.split_x(torch.from_numpy(bx))
+                             ])[0]
+        totals += launches + res.rank_launches
+        _rank_launches("(b) config2 CSR", launches, ["ell_spmv"], device)
+        _ranks_report(f"(b) config2 CSR --partition-nonzeros: every row "
+                      f"within {err:.3e} of sum|a*x|", res, sm, gather_s)
+        log(f"    ({time.perf_counter() - t0:.1f} s)")
+        del bcoo, csr, sm, want, scale
+
+        px = torch.from_numpy(pl_x64)
+        for partition in ("rows", "nonzeros"):
+            t0 = time.perf_counter()
+            ss = shard_stream(pl_coo, 4, partition=partition,
+                              value_dtype="float64")
+            plan_s = time.perf_counter() - t0
+            launches = []
+            y = run_spmv(pool, ss, px, launches=launches)
+            err = _row_err(y.numpy(), pl_want, pl_scale)
+            check(err <= TOLERANCE["float64"],
+                  f"(b) config3 stream, {partition}: rows disagree with the "
+                  f"oracle: {err:.3e}")
+            res = benchmark_sharded(pool, ss, px, repeat=5, warmup=1,
+                                    metrics=_stream_metrics(ss),
+                                    per_device=True)
+            gather_s = pool.run(gather_seconds_task,
+                                [(b,) for b in ss.split_x(px)])[0]
+            totals += launches + res.rank_launches
+            _rank_launches(f"(b) config3 stream {partition}", launches,
+                           ["ell_spmv", "stream_sum", "permute"], device)
+            _ranks_report(f"(b) config3 stream, partition {partition}: "
+                          f"every row within {err:.3e} of sum|a*x|; the "
+                          f"ranks' plans {plan_s:.1f} s on the host", res,
+                          ss, gather_s)
+            log(f"    ({time.perf_counter() - t0:.1f} s)")
+            del ss
+
+        t0 = time.perf_counter()
+        tol, maxiter = CG_SETTINGS["float64"]
+        b = np.ones(n)
+        _, one, _ = solve(coo, b, tol=tol, maxiter=maxiter, device=device)
+        sm = shard_matrix(ell_from_coo(coo, sort_rows=True,
+                                       value_dtype="float64"), 4)
+        sol = solve_sharded(pool, sm, torch.from_numpy(b), tol=tol,
+                            maxiter=maxiter)
+        rel = true_residual(coo, sol["x"], b)
+        totals += sol["launches"]
+        _rank_launches("(b) CG", sol["launches"], ["ell_spmv", "dot"], device)
+        log(f"  (b) CG fp64 over the ranks: {sol['iterations']} iterations "
+            f"(one device: {one.iterations}), true residual {rel:.3e} of "
+            f"||b|| (tol {10 * tol:g}), {sol['seconds']:.3f} s in CG "
+            f"({sol['seconds'] / max(sol['iterations'], 1) * 1e3:.3f} ms per"
+            f" iteration; {time.perf_counter() - t0:.1f} s with set-up)")
+        check(rel <= 10 * tol and abs(sol["iterations"] - one.iterations)
+              <= 1, "(b) CG over the ranks: residual or iterations off")
+        del sm
+
+    # (d) the dryrun on the card
+    t0 = time.perf_counter()
+    line = dryrun_multichip(4, placement=shared)
+    log(f"  (d) {line} ({time.perf_counter() - t0:.1f} s)")
+
+    # (e) the programs
+    import io
+
+    from ellspmv_tpu_torch.io.mtx import read_vector, write_matrix
+    from ellspmv_tpu_torch.models.generators import fem_mesh_2d
+    if device == "cuda":
+        proc = _run_cli(["--devices=2", "examples/test.mtx"], "--devices=2 "
+                        "on cuda", expect=1)
+        check("requested 2 devices, have 1" in proc.stderr,
+              f"ellspmv --devices=2 on cuda: {proc.stderr!r}")
+    small = fem_mesh_2d(256)
+    want, scale = row_oracle(small, np.ones(small.num_columns))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fem_mesh_2d_256.mtx")
+        write_matrix(path, small)
+        proc = _run_cli(["--device=cpu", "--devices=4", "-v", path],
+                        "--device=cpu --devices=4 -v")
+        y = read_vector(io.BytesIO(proc.stdout.encode()))
+        err = _row_err(y, want, scale)
+        check(len(y) == small.num_rows and err <= TOLERANCE["float64"]
+              and "rows per device:" in proc.stderr,
+              f"ellspmv --device=cpu --devices=4: y err {err:.3e}")
+        proc = _run_cli(["--device=cpu", "--devices=4", "-v", path],
+                        "--device=cpu --devices=4 -v", "cgsolve")
+        x = read_vector(io.BytesIO(proc.stdout.encode()))
+        rel = true_residual(small, x, np.ones(small.num_rows))
+        check(len(x) == small.num_rows and rel <= 1e-7,
+              f"cgsolve --device=cpu --devices=4: true residual {rel:.3e}")
+    log(f"  (e) ellspmv over 4 CPU ranks: every row within {err:.3e} of "
+        f"sum|a*x|; cgsolve over 4 CPU ranks: true residual {rel:.3e}")
+    return {k: sum(c[k] for c in totals) for k in totals[0]}
+
+
+def _stream_metrics(ss):
+    """The stream format's accounting (``bench/harness.py``) of a sharded
+    fp64 stream, whose whole matrix is not built."""
+    from ellspmv_tpu_torch.bench.harness import SpmvMetrics
+    n, m, nnz = ss.num_rows, ss.num_columns, ss.num_nonzeros
+    return SpmvMetrics(nnz, 2 * nnz, 8 * (n + m) + 12 * nnz, 8 * n + 20 * nnz)
 
 
 # ---------------------------------------------------------------------------
@@ -2827,7 +3134,6 @@ def main() -> int:
                                        pl_coo, pl_x64, pl_want, pl_scale)
     hybrid_runs, hybrid_counts = timed("hybrid path", phase_hybrid_path,
                                        pl_coo, pl_x64, pl_want, pl_scale)
-    del pl_want, pl_scale
     t0 = time.perf_counter()
     dr_coo = dense_rows(**DENSE_ROWS)
     dr_x64 = np.random.RandomState(3).rand(dr_coo.num_columns)
@@ -2852,16 +3158,22 @@ def main() -> int:
     timed("K7 floor", probe_floor)
     window_verdict()
     del ell_runs, dia_runs, csr_runs, stream_runs, hybrid_runs, sell_runs
-    del coo, pl_coo, dr_coo
-    log("phase 7: the benchmark suite")
+    del dr_coo
+    log("phase 7: multi-device")
+    multi_counts = timed("multi-device", phase_multi_device, coo, pl_coo,
+                         pl_x64, pl_want, pl_scale)
+    log(f"multi-device: the ranks' launches {multi_counts}")
+    del coo, pl_coo, pl_want, pl_scale
+    log("phase 8: the benchmark suite")
     _, suite_counts = timed("suite", phase_suite, timing, peak_bw)
     paths = [ell_counts, dia_counts, *cg_counts.values(),
              *stream_counts.values(), *csr_counts.values(),
-             *sell_counts.values(), *hybrid_counts.values(), suite_counts]
+             *sell_counts.values(), *hybrid_counts.values(), multi_counts,
+             suite_counts]
     launches = {name: sum(c[name] for c in paths)
                 for name in ("ell_spmv", "dia_spmv", "fma_probe", "permute",
                              "stream_sum", "stream_sum_src")}
-    launches["dot"] = cg_counts["float64"]["dot"]
+    launches["dot"] = cg_counts["float64"]["dot"] + multi_counts["dot"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths was not launched: {launches}")
     kernels = []

@@ -54,6 +54,13 @@ Two timing protocols:
   TPU).
 
 On the CPU both protocols time with the host clock.
+
+Over ranks (``parallel/``, `benchmark_sharded`) every timed call includes
+the allgather of x, as the JAX package's sharded call does: per_iter
+brackets each rank's call with CUDA events after a barrier, and chained
+makes each rank's y block its next x block (square matrices). Every time
+is the maximum over the ranks (the reference's region ends at the team's
+barrier), so the ranks take the same decisions and report the same times.
 """
 
 from __future__ import annotations
@@ -160,6 +167,10 @@ class BenchResult:
     span_iters: int | None = None    # chained: iterations in the slope
     actual_bytes: int | None = None  # bytes the kernel moves per iteration
     warning: str | None = None       # per_iter: the times measure dispatch
+    # over ranks: each rank's kernel launches in the run, and (when asked)
+    # each rank's local kernels alone, seconds per call, timed in turns
+    rank_launches: list[dict] | None = None
+    shard_seconds: list[float] | None = None
 
     @property
     def best(self) -> float:
@@ -243,7 +254,10 @@ def _dispatch_warning(best: float, dispatch: float) -> str | None:
     return None
 
 
-def _per_iter(spmv_fn, matrix, x, y, repeat, warmup, sync):
+def _per_iter(spmv_fn, matrix, x, y, repeat, warmup, sync,
+              before=lambda: None):
+    """`before` runs ahead of each timed call, outside its time (a
+    barrier, where ranks time together)."""
     cuda = x.device.type == "cuda"
     # Two discarded calls before the loop, as in the JAX harness (there they
     # compile both trace signatures; here they load the kernel and warm the
@@ -256,6 +270,7 @@ def _per_iter(spmv_fn, matrix, x, y, repeat, warmup, sync):
     sync()
     times = []
     for _ in range(repeat):
+        before()
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -271,20 +286,26 @@ def _per_iter(spmv_fn, matrix, x, y, repeat, warmup, sync):
     return times, yk
 
 
-def _chained(spmv_fn, matrix, x, y, repeat, warmup, sync):
-    """The slope of two chained loop lengths, best of 3, with one rescale
-    towards a 0.3 s span (at most 4096 iterations); returns the time per
-    iteration, the y of the last long loop and its length."""
+def _chained_start(matrix, x, y):
+    """The chained loop's first x and y for a square `matrix`, in the
+    values' type (an f32 kernel returns f32 y, which becomes the next x)."""
     if matrix.num_rows != matrix.num_columns:
         raise ValueError("chained protocol needs a square matrix "
                          "(x is re-derived from y each iteration)")
-    # the carry stays in the values' type (an f32 kernel returns f32 y,
-    # which becomes the next x)
     dtype = (matrix.data if isinstance(matrix, DiaMatrix)
              else matrix.values).dtype
-    x0 = x.to(dtype)
-    y0 = (torch.zeros(matrix.num_rows, dtype=dtype, device=x.device)
-          if y is None else y.to(dtype))
+    return x.to(dtype), (torch.zeros(matrix.num_rows, dtype=dtype,
+                                     device=x.device)
+                         if y is None else y.to(dtype))
+
+
+def _chained(spmv_fn, matrix, x0, y0, repeat, warmup, sync, agree=None):
+    """The slope of two chained loop lengths from `x0` and `y0`, best of 3,
+    with one rescale towards a 0.3 s span (at most 4096 iterations);
+    returns the time per iteration, the y of the last long loop and its
+    length. `agree` maps each measured loop time to the one every rank
+    uses (their maximum), so that ranks take the same decisions."""
+    agree = agree or (lambda t: t)
     xk = torch.empty_like(x0)      # the loop writes x here: no allocation
 
     def run(iters):
@@ -296,17 +317,17 @@ def _chained(spmv_fn, matrix, x, y, repeat, warmup, sync):
         return yk
 
     def timed(iters):
-        if x.device.type == "cuda":
+        if x0.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = run(iters)
             end.record()
             sync()
-            return start.elapsed_time(end) * 1e-3, out
+            return agree(start.elapsed_time(end) * 1e-3), out
         t0 = time.perf_counter()
         out = run(iters)
-        return time.perf_counter() - t0, out
+        return agree(time.perf_counter() - t0), out
 
     def measure(lo, hi):
         timed(lo)
@@ -351,8 +372,9 @@ def benchmark_spmv(spmv_fn: Callable | None, matrix, x: torch.Tensor,
         times, yk = _per_iter(spmv_fn, matrix, x, y, repeat, warmup, sync)
         warning = _dispatch_warning(min(times), dispatch_round_trip(x.device))
     elif protocol == "chained":
-        per_iter, yk, span = _chained(spmv_fn, matrix, x, y, repeat, warmup,
-                                      sync)
+        per_iter, yk, span = _chained(spmv_fn, matrix,
+                                      *_chained_start(matrix, x, y), repeat,
+                                      warmup, sync)
         times = [per_iter] * repeat
     else:
         raise ValueError(f"unknown protocol {protocol!r}")
@@ -360,3 +382,153 @@ def benchmark_spmv(spmv_fn: Callable | None, matrix, x: torch.Tensor,
                        hbm_peak_bytes_per_s(x.device), span_iters=span,
                        actual_bytes=estimate_actual_bytes(matrix),
                        warning=warning)
+
+
+# -- over ranks (``parallel/``) ---------------------------------------------
+
+def shard_kernel_seconds(shard, x_full, backend: str = "auto",
+                         calls: int = 10) -> float:
+    """Seconds per call of a rank's local kernels alone (no allgather), on
+    the gathered `x_full`. On a card: `calls` calls captured in one CUDA
+    graph, replayed between CUDA events, best of 3, so that the host's
+    launch path drops out; on the CPU: calls chained through y in loops of
+    2 and 10, the slope, best of 2 (the JAX package's per-device
+    micro-runs)."""
+    from ellspmv_tpu_torch.parallel.spmv import local_spmv
+
+    def once():
+        return local_spmv(shard, x_full, None, backend)
+
+    if x_full.device.type == "cuda":
+        side = torch.cuda.Stream(x_full.device)
+        side.wait_stream(torch.cuda.current_stream(x_full.device))
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                once()
+        torch.cuda.current_stream(x_full.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                once()
+        best = float("inf")
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize(x_full.device)
+            best = min(best, start.elapsed_time(end) * 1e-3 / calls)
+        return best
+
+    def loop(iters):
+        t0 = time.perf_counter()
+        y = None
+        for _ in range(iters):
+            y = local_spmv(shard, x_full, y, backend)
+        return time.perf_counter() - t0
+
+    loop(2)
+    loop(10)
+    return min(max((loop(10) - loop(2)) / 8, 1e-12) for _ in range(2))
+
+
+def shard_bench_task(rank, shard, x_block, y_block, repeat: int,
+                     warmup: int, protocol: str, backend: str,
+                     per_device: bool, trace_dir: str | None) -> dict:
+    """A task: the rank's part of `benchmark_sharded`. Every timed call
+    includes the allgather of x. per_iter: each call bracketed by CUDA
+    events (the host clock on the CPU) after a barrier; chained: the
+    rank's y block becomes its x block. Every time is the maximum over the
+    ranks, so all ranks take the same decisions and report the same
+    times. With `per_device`, each rank then times its local kernels alone
+    in turn, between barriers, so that ranks sharing a card do not
+    overlap."""
+    import torch.distributed as dist
+
+    from ellspmv_tpu_torch.parallel.launch import kernel_launches
+    from ellspmv_tpu_torch.parallel.spmv import (allgather, max_over_ranks,
+                                                 placed, sharded_spmv)
+    from ellspmv_tpu_torch.utils.trace import device_trace
+
+    device = rank.device
+    shard = placed(rank, shard)
+    x = x_block.to(device)
+    y = None if y_block is None else y_block.to(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def spmv_fn(_shard, xv, yv):
+        return sharded_spmv(shard, xv, yv, backend)
+
+    before = kernel_launches()
+    span = warning = None
+    with device_trace(trace_dir):
+        if protocol == "per_iter":
+            times, yk = _per_iter(spmv_fn, shard, x, y, repeat, warmup, sync,
+                                  before=dist.barrier)
+            times = max_over_ranks(times)
+            warning = _dispatch_warning(min(times),
+                                        dispatch_round_trip(device))
+        else:
+            dtype = shard.matrix.values.dtype
+            y0 = (torch.zeros(shard.block, dtype=dtype, device=device)
+                  if y is None else y.to(dtype))
+            per_iter, yk, span = _chained(
+                spmv_fn, shard, x.to(dtype), y0, repeat, warmup, sync,
+                agree=lambda t: max_over_ranks([t])[0])
+            times = [per_iter] * repeat
+    after = kernel_launches()
+    seconds = None
+    if per_device:
+        x_full = allgather(x)
+        for turn in range(rank.world):
+            dist.barrier()
+            if turn == rank.rank:
+                seconds = shard_kernel_seconds(shard, x_full, backend)
+        dist.barrier()
+    return {"times": times, "y": yk.double().cpu().numpy(),
+            "span": span, "warning": warning, "shard_seconds": seconds,
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def benchmark_sharded(pool, sm, x: torch.Tensor,
+                      y: torch.Tensor | None = None, repeat: int = 1,
+                      warmup: int = 0, protocol: str = "per_iter",
+                      backend: str = "auto", matrix=None,
+                      metrics: SpmvMetrics | None = None,
+                      per_device: bool = False,
+                      trace_dir: str | None = None) -> BenchResult:
+    """Benchmark the row-sharded `sm` (``parallel/``) over the ranks of
+    `pool` under `protocol`, x and y logical on the host: `benchmark_spmv`'s
+    result, with the metrics and bytes of `matrix` (the whole matrix, as
+    the one-device program converts it; given `metrics` instead, the bytes
+    are not counted) and y gathered back. `per_device` adds each rank's
+    local kernels alone (`shard_seconds`); `trace_dir` makes each rank
+    write its own trace there."""
+    if protocol not in ("per_iter", "chained"):
+        raise ValueError(f"unknown protocol {protocol!r}")
+    if protocol == "chained" and sm.num_rows != sm.num_columns:
+        raise ValueError("chained protocol needs a square matrix "
+                         "(x is re-derived from y each iteration)")
+    xs, ys = sm.split_x(x), sm.split_y(y)
+    outs = pool.run(shard_bench_task,
+                    [(sm.shards[r], xs[r], ys[r], repeat, warmup, protocol,
+                      backend, per_device, trace_dir)
+                     for r in range(sm.world)])
+    device = torch.device(pool.devices[0])
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    first = outs[0]
+    return BenchResult(
+        first["times"], metrics or SpmvMetrics.for_matrix(matrix),
+        sm.join_y([o["y"] for o in outs]), name, protocol,
+        hbm_peak_bytes_per_s(device), span_iters=first["span"],
+        actual_bytes=(None if matrix is None
+                      else estimate_actual_bytes(matrix)),
+        warning=first["warning"],
+        rank_launches=[o["launches"] for o in outs],
+        shard_seconds=([o["shard_seconds"] for o in outs] if per_device
+                       else None))

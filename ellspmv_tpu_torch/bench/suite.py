@@ -20,7 +20,12 @@ The JAX suite's rows, names and fields:
   stream format, its column chunks, its oracle error;
 - config-dense-rows: a few long random rows over a local bulk, through the
   chooser, with its oracle error;
-- config4, the sharded row, prints that multi-device is not yet ported;
+- config4: poisson2d(256) (128 with ``--quick``) row-sharded over the
+  ranks (``parallel/``): the SpMV, timed per_iter as in the JAX suite (its
+  normwise error against the oracle in the row's note), and CG over the
+  ranks; over the cards where there are more than one, else a skip line
+  as in the JAX suite (`run_suite`'s `devices` sets the ranks, CPU ranks
+  included);
 - the peak's self-consistency: no kernel row may read above the triad.
 
 Each timed row runs the chained protocol (``bench/harness.py``). With the
@@ -42,7 +47,7 @@ import torch
 # divides the row counts by 8 and the Poisson grid's side by 2, as there.
 SIZES = {"poisson": 1024, "mesh_rows": 2_073_600, "banded": 2_000_000,
          "power_law": 1_000_000, "power_law_10x": 10_000_000,
-         "dense_rows": 1_000_000}
+         "dense_rows": 1_000_000, "poisson_sharded": 256}
 
 
 def _bench(matrix, x, repeat, protocol="chained", metrics=None):
@@ -59,12 +64,14 @@ def normwise_error(got, want) -> float:
 
 
 def run_suite(quick: bool = False, as_json: bool = False,
-              stream=sys.stderr, device="cuda", check=None) -> list[dict]:
+              stream=sys.stderr, device="cuda", check=None,
+              devices: int | None = None) -> list[dict]:
     """Run every row on `device`; return the rows (and print them as JSON
     on stdout with `as_json`). `check(name, coo, matrix, x)`, when given,
-    is called with each timed row's COO, built matrix and x (float64 numpy)
-    after it is timed: a caller's hook to hold the row's y against an
-    oracle."""
+    is called with each one-device timed row's COO, built matrix and x
+    (float64 numpy) after it is timed: a caller's hook to hold the row's y
+    against an oracle. config4 runs over `devices` ranks (default: every
+    card on cuda, one on the CPU; it needs two)."""
     from ellspmv_tpu_torch.bench.harness import SpmvMetrics
     from ellspmv_tpu_torch.formats.auto import auto_from_coo
     from ellspmv_tpu_torch.formats.coo import CooMatrix
@@ -290,8 +297,13 @@ def run_suite(quick: bool = False, as_json: bool = False,
     del mat
 
     # --- config 4: sharded SpMV + CG -------------------------------------
-    stream.write("config4 skipped: multi-device is not yet ported (see "
-                 "ROADMAP.md)\n")
+    if devices is None:
+        devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    if devices > 1:
+        _config4(quick, devices, device, record, stream, results)
+    else:
+        stream.write("config4 skipped (single device; dryrun_multichip "
+                     "validates the sharded path)\n")
 
     # --- the peak's self-consistency ---------------------------------------
     # A kernel cannot move bytes faster than the card: where the best
@@ -322,6 +334,41 @@ def run_suite(quick: bool = False, as_json: bool = False,
     if as_json:
         print(json.dumps(results, indent=1))
     return results
+
+
+def _config4(quick, devices, device, record, stream, results):
+    """The sharded row: poisson2d row-sharded over `devices` ranks (the
+    programs' placement), the SpMV per_iter with x = ones (repeat 3, warmup
+    1, as the JAX suite), its y held against the oracle, then CG."""
+    from ellspmv_tpu_torch.bench.harness import benchmark_sharded
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.models.generators import poisson2d
+    from ellspmv_tpu_torch.ops.reference import coo_spmv_numpy
+    from ellspmv_tpu_torch.parallel.launch import RankPool
+    from ellspmv_tpu_torch.parallel.mesh import placement
+    from ellspmv_tpu_torch.parallel.solver import solve_sharded
+    from ellspmv_tpu_torch.parallel.spmv import shard_matrix
+
+    coo = poisson2d(SIZES["poisson_sharded"] // (2 if quick else 1))
+    ell = ell_from_coo(coo, sort_rows=True, value_dtype="float64")
+    sm = shard_matrix(ell, devices)
+    ones = torch.ones(sm.num_columns, dtype=torch.float64)
+    with RankPool(placement(devices, device.type)) as pool:
+        res = benchmark_sharded(pool, sm, ones, repeat=3, warmup=1,
+                                matrix=ell)
+        # y accumulated over the warmup and the timed calls
+        err = normwise_error(res.y.numpy() / 4,
+                             coo_spmv_numpy(coo, np.ones(sm.num_columns)))
+        record(f"config4 sharded x{devices} SpMV f64", res,
+               note=f"normwise err {err:.2e}")
+        t0 = time.perf_counter()
+        sol = solve_sharded(pool, sm, ones, tol=1e-8, maxiter=1500)
+    stream.write(f"{'config4 CG solve':34s} {sol['iterations']} iters,"
+                 f" residual {sol['residual_norm']:.2e}, "
+                 f"{time.perf_counter() - t0:.1f} s\n")
+    results.append({"config": "config4 cg",
+                    "iterations": sol["iterations"],
+                    "residual": sol["residual_norm"]})
 
 
 def main(argv=None):

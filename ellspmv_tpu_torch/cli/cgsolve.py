@@ -8,7 +8,9 @@ Options as in the JAX program: -z (gzip), -q, -v, --tol, --maxiter,
 --device=cuda|cpu (default cuda; without a card the program exits 1 and
 never moves to the CPU by itself). b defaults to ones. Prints x as a Matrix
 Market vector; exits 2 when the residual norm is above 10·tol·‖b‖.
---devices above 1 is not yet ported (see ROADMAP.md).
+--devices=N above 1 solves over N ranks (``parallel/solver.cg_sharded``:
+the rows sharded, x allgathered for each matvec, the dots all-reduced) in
+native fp64 or f32, placed as ``ellspmv --devices=N`` places them.
 
 Run as ``python -m ellspmv_tpu_torch.cli.cgsolve``.
 """
@@ -25,9 +27,11 @@ from ellspmv_tpu_torch.cli.common import CliError, _split_eq, card_missing
 
 def solve(coo, b: np.ndarray, tol: float = 1e-8, maxiter: int = 1000,
           precision: str = "float64", reorder: str = "none",
-          device="cuda"):
+          device="cuda", devices: list[str] | None = None):
     """Solve A x = b for the square COO `coo` on `device`: optional RCM
-    reordering of A and b, sorted-row ELL, CG through `ops.dispatch.spmv`.
+    reordering of A and b, sorted-row ELL, CG through `ops.dispatch.spmv`;
+    or, given `devices` (``parallel.mesh.placement``), the ELL built on the
+    host, row-sharded and solved over one rank per entry.
 
     Returns x in the original order (float64 NumPy), the `CgResult` and
     the seconds from the start of CG until x is on the host."""
@@ -45,16 +49,45 @@ def solve(coo, b: np.ndarray, tol: float = 1e-8, maxiter: int = 1000,
         rm = reorder_rcm(coo)
         coo = rm.coo
         b = rm.permute_x(b)
-    ell = ell_from_coo(coo, sort_rows=True, value_dtype=precision,
-                       device=device)
-    bt = torch.from_numpy(b).to(device).to(value_dtype(precision))
-    t0 = time.perf_counter()
-    res = cg(lambda v: spmv(ell, v), bt, tol=tol, maxiter=maxiter)
-    x = res.x.double().cpu().numpy()
-    seconds = time.perf_counter() - t0
+    if devices:
+        x, res, seconds = _solve_over_ranks(coo, b, tol, maxiter, precision,
+                                            devices)
+    else:
+        ell = ell_from_coo(coo, sort_rows=True, value_dtype=precision,
+                           device=device)
+        bt = torch.from_numpy(b).to(device).to(value_dtype(precision))
+        t0 = time.perf_counter()
+        res = cg(lambda v: spmv(ell, v), bt, tol=tol, maxiter=maxiter)
+        x = res.x.double().cpu().numpy()
+        seconds = time.perf_counter() - t0
     if rm is not None:
         x = rm.unpermute_y(x)
     return x, res, seconds
+
+
+def _solve_over_ranks(coo, b, tol, maxiter, precision, devices):
+    """The sharded solve: the sorted-row ELL on the host, cut into row
+    shards, `parallel.solver.solve_sharded` over a pool of ranks. The
+    seconds are the ranks' (the most of any), from the start of CG until x
+    is on the host."""
+    import torch
+
+    from ellspmv_tpu_torch.config import value_dtype
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.models.solvers import CgResult
+    from ellspmv_tpu_torch.parallel.launch import RankPool
+    from ellspmv_tpu_torch.parallel.solver import solve_sharded
+    from ellspmv_tpu_torch.parallel.spmv import shard_matrix
+
+    ell = ell_from_coo(coo, sort_rows=True, value_dtype=precision)
+    sm = shard_matrix(ell, len(devices))
+    with RankPool(devices) as pool:
+        out = solve_sharded(pool, sm,
+                            torch.from_numpy(b).to(value_dtype(precision)),
+                            tol=tol, maxiter=maxiter)
+    res = CgResult(torch.from_numpy(out["x"]), out["iterations"],
+                   out["residual_norm"])
+    return out["x"], res, out["seconds"]
 
 
 def main(argv=None) -> int:
@@ -113,13 +146,18 @@ def main(argv=None) -> int:
     except (CliError, ValueError, IndexError) as e:
         sys.stderr.write(f"{program}: {e}\n")
         return 1
-    if devices > 1:
-        sys.stderr.write(f"{program}: --devices={devices} is not yet ported "
-                         "(see ROADMAP.md)\n")
-        return 1
-
     if card_missing(program, device):
         return 1
+    ranks = None
+    if devices > 1:
+        from ellspmv_tpu_torch.parallel.mesh import describe, placement
+        try:
+            ranks = placement(devices, device)
+        except ValueError as e:
+            sys.stderr.write(f"{program}: {e}\n")
+            return 1
+        if verbose:
+            sys.stderr.write(f"devices: {describe(ranks)}\n")
 
     import torch
 
@@ -149,7 +187,7 @@ def main(argv=None) -> int:
 
     x, res, seconds = solve(coo, b, tol=tol, maxiter=maxiter,
                             precision=precision, reorder=reorder,
-                            device=torch.device(device))
+                            device=torch.device(device), devices=ranks)
     if verbose:
         sys.stderr.write(
             f"cg: {res.iterations} iterations, residual "

@@ -8,17 +8,22 @@ Flag-compatible with the JAX package's parser, which follows the
 reference's (parse_program_options, ellspmv.c:465-611): ``--opt=v`` and
 ``--opt v`` forms, the ``--`` terminator, up to three positional Matrix
 Market paths ``A [x] [y]``, and the same error texts. `csrspmv` takes the
-reference's CSR options (csrspmv.c:667-899): the partition flags are
-accepted and name the kernel in the report, as the JAX program does on one
-device, and the A64FX placement flags are accepted and ignored. One flag is
-new:
+reference's CSR options (csrspmv.c:667-899): the partition flags shard the
+rows across ranks under ``--devices=N`` and name the kernel in the report,
+and the A64FX placement flags are accepted and ignored. One flag is new:
 ``--device=cuda|cpu`` (default cuda), because PyTorch does not pick a
 platform by itself. With the default and no card the program exits 1; it
 never moves to the CPU by itself.
 
-``--devices=N`` with N > 1, the one option of the JAX package this port
-does not yet have, is parsed and then refused with exit code 1 and
-``<program>: --devices=N is not yet ported (see ROADMAP.md)``.
+``--devices=N`` with N > 1 shards the rows over N ranks
+(``ellspmv_tpu_torch/parallel/``): the parent process reads and converts
+the matrix on the host, cuts it into row shards and spawns the ranks; each
+rank runs the one-device kernels on its rows after an allgather of x, and
+only the parent writes stdout. ``--device=cuda`` puts rank r on card r
+over NCCL and exits 1 when N exceeds the cards (the JAX program's
+"requested N devices, have M"); ``--device=cpu`` runs N ranks over gloo.
+ELL, CSR and the stream format shard; DIA, SELL and the hybrid exit 1, as
+in the JAX program, and ``--format=auto`` leaves DIA out.
 
 Output protocol as in the reference: stderr is the log channel, stdout the
 data channel (y as a Matrix Market vector, suppressed by ``-q``,
@@ -75,8 +80,9 @@ class Options:
         self.reorder = "none"
         self.format = None
         self.device = "cuda"
-        # csrspmv: the partition flags (one device: they name the kernel)
-        # and the A64FX placement flags (accepted, ignored)
+        # csrspmv: the partition flags (over ranks with --devices=N; they
+        # also name the kernel) and the A64FX placement flags (accepted,
+        # ignored)
         self.partition = "rows"
         self.precompute_partition = False
         self.rows_per_thread = None
@@ -133,9 +139,9 @@ def print_help(program: str, csr: bool = False, f=None):
         f.write("                            ELL, for a few long rows), hybrid (hub columns\n")
         f.write("                            + sliced ELL) or stream (for power-law matrices)\n")
     f.write("  --reorder=R               none (default) or rcm: reverse Cuthill-McKee\n")
-    f.write("                            inside; x, y and the output keep their order\n\n")
-    f.write(" Not yet ported (accepted, then refused with exit code 1):\n")
-    f.write("  --devices=N>1\n\n")
+    f.write("                            inside; x, y and the output keep their order\n")
+    f.write("  --devices=N               shard rows across N ranks: one card each\n")
+    f.write("                            (--device=cuda, NCCL) or N CPU ranks (gloo)\n\n")
     f.write("  -h, --help                display this help and exit\n")
     f.write("  --version                 display version information and exit\n")
 
@@ -289,14 +295,6 @@ def card_missing(program: str, device: str) -> bool:
     return False
 
 
-def unported_option(opts: Options) -> str | None:
-    """The given option that this port does not have yet (more than one
-    device), or None."""
-    if opts.devices > 1:
-        return f"--devices={opts.devices}"
-    return None
-
-
 def kernel_name(opts: Options, mat, csr: bool = False) -> str:
     """Kernel label in the reference's naming (gemv/gemvsd/gemv16,
     README:133; csrgemv/csrgemvsd/csrgemvnz/csrgemvrp, csrspmv.c:2851-2868),
@@ -393,7 +391,8 @@ def _convert(coo, opts: Options, index_dtype, device, csr: bool = False):
         mat = auto_from_coo(coo, separate_diagonal=opts.separate_diagonal,
                             sort_rows=opts.sort_rows,
                             value_dtype=opts.precision,
-                            index_dtype=index_dtype, device=device)
+                            index_dtype=index_dtype,
+                            allow_dia=opts.devices <= 1, device=device)
         return (mat, f"auto_from_coo [{mat._auto_choice}]",
                 f", {mat._auto_reason}")
     if opts.format == "dia":
@@ -435,12 +434,6 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
     except (CliError, ValueError) as e:
         sys.stderr.write(f"{program}: {e}\n")
         return 1
-    unported = unported_option(opts)
-    if unported is not None:
-        sys.stderr.write(f"{program}: {unported} is not yet ported "
-                         "(see ROADMAP.md)\n")
-        return 1
-
     import torch
 
     from ellspmv_tpu_torch.bench.harness import benchmark_spmv
@@ -449,7 +442,17 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
 
     if card_missing(program, opts.device):
         return 1
-    device = torch.device(opts.device)
+    devices = None
+    if opts.devices > 1:
+        from ellspmv_tpu_torch.parallel.mesh import placement
+        try:
+            devices = placement(opts.devices, opts.device)
+        except ValueError as e:
+            sys.stderr.write(f"{program}: {e}\n")
+            return 1
+    # over ranks the parent converts on the host and each rank moves its
+    # shard to its own device
+    device = torch.device("cpu" if devices else opts.device)
     log = sys.stderr
     index_dtype = f"int{opts.index_width}" if opts.index_width else None
     if (opts.columns_per_thread or opts.l1_prefetch_distance
@@ -521,9 +524,13 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
         log.write(f"{convert_name}: {t_conv:.6f} seconds, "
                   f"{mat.num_rows:,} rows, {mat.num_nonzeros:,} nonzeros"
                   f"{per_row}\n")
-        name = (torch.cuda.get_device_name(device)
-                if device.type == "cuda" else "host CPU")
-        log.write(f"device: {device} ({name})\n")
+        if devices:
+            from ellspmv_tpu_torch.parallel.mesh import describe
+            log.write(f"devices: {describe(devices)}\n")
+        else:
+            name = (torch.cuda.get_device_name(device)
+                    if device.type == "cuda" else "host CPU")
+            log.write(f"device: {device} ({name})\n")
         if opts.backend == "xla":
             log.write("backend: xla (the plain PyTorch versions of the ELL, "
                       "CSR, SELL and hybrid kernels, on the device)\n")
@@ -560,6 +567,12 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
     if y is not None:
         y = torch.from_numpy(y).to(device).to(dtype)
 
+    sharded = None
+    if devices:
+        sharded = _shard(coo, mat, opts, program, log)
+        if sharded is None:
+            return 1
+
     # Phase 5: benchmark (warmup + timed loop, ellspmv.c:1745-1876, or the
     # chained slope), traced with --trace. --backend=auto and
     # --backend=pallas both run the hand-written kernels.
@@ -570,9 +583,13 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
         return spmv(m, xv, yv, backend=opts.backend)
     name = kernel_name(opts, mat, csr)
     try:
-        with device_trace(opts.trace_dir):
-            res = benchmark_spmv(spmv_fn, mat, x, y, repeat=opts.repeat,
-                                 warmup=opts.warmup, protocol=opts.protocol)
+        if sharded is not None:
+            res = _benchmark_over_ranks(sharded, devices, mat, x, y, opts)
+        else:
+            with device_trace(opts.trace_dir):
+                res = benchmark_spmv(spmv_fn, mat, x, y, repeat=opts.repeat,
+                                     warmup=opts.warmup,
+                                     protocol=opts.protocol)
     except Exception as e:
         sys.stderr.write(f"{program}: benchmark failed: {e}\n")
         return 1
@@ -585,14 +602,17 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
         from ellspmv_tpu_torch.bench import metrics as metrics_mod
         try:
             mfile = metrics_mod.read_metrics_file(opts.papi_event_file)
-            metrics_mod.report(mfile, metrics_mod.base_events(res), log,
-                               fmt=opts.papi_event_format, region=name)
+            metrics_mod.report(mfile,
+                               metrics_mod.base_events(res, opts.devices),
+                               log, fmt=opts.papi_event_format, region=name)
         except (OSError, metrics_mod.MetricsError) as e:
             sys.stderr.write(f"{program}: {opts.papi_event_file}: {e}\n")
             return 1
     if opts.papi_event_summary:
         metrics_report(res, opts, log)
-    if opts.papi_event_per_thread:
+    if opts.papi_event_per_thread and sharded is not None:
+        per_device_report(res, sharded, opts, log)
+    elif opts.papi_event_per_thread:
         log.write(f"{program}: note: --papi-event-per-thread with one "
                   "device: the whole-matrix region IS the per-device row "
                   "(use --devices=N for a breakdown)\n")
@@ -608,3 +628,82 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
             log.write(f"mtxfile_write: {time.perf_counter() - t0:.6f} "
                       "seconds\n")
     return 0
+
+
+def _shard(coo, mat, opts: Options, program: str, log):
+    """The converted matrix cut into one row shard per rank (the stream
+    format re-planned per rank from `coo`), with the ``-vv`` table and the
+    ``-v`` summary; None, after the message, where the format does not
+    shard or the partition is bad (the JAX program's exit 1)."""
+    from ellspmv_tpu_torch.formats.stream import StreamMatrix
+    from ellspmv_tpu_torch.parallel.spmv import shard_matrix
+    from ellspmv_tpu_torch.parallel.stream import shard_stream
+    try:
+        if isinstance(mat, StreamMatrix):
+            sharded = shard_stream(coo, opts.devices,
+                                   partition=opts.partition,
+                                   rows_per_device=opts.rows_per_thread,
+                                   value_dtype=opts.precision,
+                                   separate_diagonal=opts.separate_diagonal)
+        else:
+            sharded = shard_matrix(mat, opts.devices,
+                                   partition=opts.partition,
+                                   rows_per_device=opts.rows_per_thread)
+    except (TypeError, ValueError) as e:
+        sys.stderr.write(f"{program}: {e}\n")
+        return None
+    if opts.verbose >= 2:
+        for line in sharded.workload_report():
+            log.write(line + "\n")
+    if opts.verbose:
+        # min/max workload summary at verbose>=1 (csrspmv.c:2225-2285)
+        for line in workload_summary(sharded):
+            log.write(line + "\n")
+    return sharded
+
+
+def _benchmark_over_ranks(sharded, devices, mat, x, y, opts: Options):
+    """`benchmark_sharded` on a pool of ranks started for the run."""
+    from ellspmv_tpu_torch.bench.harness import benchmark_sharded
+    from ellspmv_tpu_torch.parallel.launch import RankPool
+    with RankPool(devices) as pool:
+        return benchmark_sharded(
+            pool, sharded, x, y, repeat=opts.repeat, warmup=opts.warmup,
+            protocol=opts.protocol, backend=opts.backend, matrix=mat,
+            per_device=opts.papi_event_per_thread, trace_dir=opts.trace_dir)
+
+
+def workload_summary(sharded) -> list[str]:
+    """Min/max rows and nonzeros per device, the verbose>=1 summary the
+    reference computes with OpenMP reductions (csrspmv.c:2225-2285), in
+    the JAX program's words."""
+    rows_per = np.diff(sharded.boundaries)
+    nnz_per = sharded.nonzeros_per_device
+    return [
+        f"rows per device: min {min(rows_per):,} max {max(rows_per):,}",
+        f"nonzeros per device: min {min(nnz_per):,} max {max(nnz_per):,}",
+    ]
+
+
+def per_device_report(res, sharded, opts: Options, log):
+    """``--papi-event-per-thread`` over ranks (the PAPI per-thread rows,
+    papi_util.c:692-712, in the JAX program's format): each rank's rows and
+    nonzeros beside its local kernels' time alone (`shard_seconds`, timed
+    one rank at a time)."""
+    rows = sharded.workload_report()
+    lines = zip(rows[1:], res.shard_seconds)
+    if opts.papi_event_format == "csv":
+        log.write("device,rows,nonzeros,measured_s,gnz_per_s\n")
+        for line, t in lines:
+            d, r, nnz = line.split()
+            gnz = int(nnz) / t * 1e-9 if t > 0 else 0.0
+            log.write(f"{d},{r},{nnz},{t:.9f},{gnz:.3f}\n")
+        return
+    log.write("Per-device workload (measured per-shard micro-runs, one "
+              "shard at a time):\n")
+    log.write("  " + rows[0] + "   measured    Gnz/s\n")
+    for line, t in lines:
+        d, r, nnz = line.split()
+        gnz = int(nnz) / t * 1e-9 if t > 0 else 0.0
+        log.write(f"  {d:<7s} {r:<10s} {nnz:<10s} "
+                  f"{t * 1e3:8.3f} ms  {gnz:.3f}\n")

@@ -33,18 +33,39 @@ _INDEX_TAGS = {torch.int32: "i32", torch.int64: "i64"}
 
 def ell_spmv_torch(ell: EllMatrix, x: torch.Tensor,
                    y: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain PyTorch version: ``(values * x[columns]).sum(0)`` plus the
-    diagonal plus y, accumulated in the values' type (float32 for bf16) and
-    returned in the values' type. The columns are the ones the kernel
-    reads: decoded from the narrow layout where the matrix has it."""
+    """The plain PyTorch version: the products ``values * x[columns]``,
+    then the diagonal's ``diag * x[row]`` as one more slot, summed slot by
+    slot in ascending order as the kernel sums them, plus y, accumulated in
+    the values' type (float32 for bf16) and returned in the values' type.
+    The columns are the ones the kernel reads: decoded from the narrow
+    layout where the matrix has it.
+
+    The order is fixed, so that a row's sum depends on its own slots alone:
+    a device's shard, which holds the diagonal as its last slot
+    (``parallel/spmv.py``), gives the same bits as the whole matrix. A
+    ``sum(0)`` does not: on the CPU its order depends on where a column
+    falls in the array's vector chunks. On a card the sum is one ``cumsum``
+    over the slots (a scan in the values' type, row by row in slot order);
+    on the CPU, where ``cumsum`` carries float32 in float64, the slots are
+    added in turn."""
     n = ell.num_rows
     dtype = ell.values.dtype
     acc_dt = torch.float32 if dtype == torch.bfloat16 else dtype
     xa = x.to(acc_dt)
-    out = (ell.values[:, :n].to(acc_dt) * xa[ell.columns()[:, :n]]).sum(0)
-    if ell.diag is not None and ell.num_columns > 0:
+    s = ell.values.shape[0]
+    diag = ell.diag is not None and ell.num_columns > 0
+    products = xa.new_empty(s + diag, n)
+    torch.mul(ell.values[:, :n].to(acc_dt), xa[ell.columns()[:, :n]],
+              out=products[:s])
+    if diag:
         xi = torch.arange(n, device=x.device).clamp_(max=ell.num_columns - 1)
-        out = out + ell.diag[:n].to(acc_dt) * xa[xi]
+        torch.mul(ell.diag[:n].to(acc_dt), xa[xi], out=products[s])
+    if products.is_cuda and len(products):
+        out = products.cumsum(0)[-1]
+    else:
+        out = xa.new_zeros(n)
+        for row in products:
+            out += row
     if y is not None:
         out = out + y.to(acc_dt)
     return out.to(dtype)

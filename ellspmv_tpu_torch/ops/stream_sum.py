@@ -37,7 +37,8 @@ has a source and every source is read (`_check_sources`), so that K3
 never reads a position that holds nothing.
 
 Not ported: ``build_stream_sum_uniform`` (the SPMD plan of the sharded
-stream, ROADMAP Queue 1 item 9), the router builds of ``_attach_perms``,
+stream: each rank of ``parallel/stream.py`` builds its own plan), the
+router builds of ``_attach_perms``,
 the cells layout's position hash (``scramble``), and the
 ``ELLSPMV_TPU_SKIP_FINAL`` ablation.
 """

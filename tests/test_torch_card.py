@@ -315,3 +315,73 @@ def test_permute_kernel_matches_plain_on_card(dtype):
     torch.cuda.synchronize()
     assert permute.launches == before + 1
     assert torch.equal(got, permute.apply_permute_torch(src, payload))
+
+
+# -- over ranks sharing the card (``parallel/``) ------------------------------
+
+@pytest.fixture(scope="module", params=[1, 2, 4],
+                ids=["nccl1", "gloo2", "gloo4"])
+def card_pool(request):
+    """Ranks on the one card: one over NCCL, or two or four sharing it over
+    gloo (NCCL refuses two ranks on one card)."""
+    _needs_card()
+    from ellspmv_tpu_torch.parallel.launch import RankPool
+    with RankPool(["cuda:0"] * request.param, timeout=300) as pool:
+        yield pool
+
+
+SHARDED_CASES = ["ell", "ell_diag", "ell_f32", "csr", "csr_diag",
+                 "csr_nonzeros", "stream", "stream_diag"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SHARDED_CASES)
+def test_sharded_spmv_on_card(card_pool, case):
+    """The sharded y against the one-device y on the card: ELL and CSR bit
+    for bit, the stream format (each rank its own plan) against the oracle
+    per row; K1 (and, for the stream, K3 and the gather) launched on every
+    rank."""
+    from ellspmv_tpu_torch.ops.dispatch import spmv
+    from ellspmv_tpu_torch.parallel.spmv import run_spmv, shard_matrix
+    from ellspmv_tpu_torch.parallel.stream import shard_stream
+    rng = np.random.RandomState(31)
+    fmt, _, variant = case.partition("_")
+    precision = "float32" if variant == "f32" else "float64"
+    diag = variant == "diag"
+    if fmt == "stream":
+        coo = power_law(20_000, 6, seed=3)
+    else:
+        coo = banded_random(30_000, 9, 700, seed=4)
+    x = rng.randn(coo.num_columns)
+    y = rng.randn(coo.num_rows)
+    launches = []
+    if fmt == "stream":
+        sm = shard_stream(coo, card_pool.world, value_dtype=precision,
+                          separate_diagonal=diag)
+        got = run_spmv(card_pool, sm, torch.from_numpy(x),
+                       torch.from_numpy(y), launches=launches)
+        assert_rows_close(got.double().numpy(), coo, x, y, precision)
+        assert all(c["stream_sum"] >= 1 and c["permute"] >= 1
+                   for c in launches)
+    else:
+        conv = ell_from_coo if fmt == "ell" else csr_from_coo
+        mat = conv(coo, separate_diagonal=diag, value_dtype=precision)
+        dt = mat.values.dtype
+        xt, yt = torch.from_numpy(x).to(dt), torch.from_numpy(y).to(dt)
+        partition = "nonzeros" if variant == "nonzeros" else "rows"
+        sm = shard_matrix(mat, card_pool.world, partition=partition)
+        got = run_spmv(card_pool, sm, xt, yt, launches=launches)
+        want = spmv(mat.to("cuda"), xt.cuda(), yt.cuda()).cpu()
+        assert torch.equal(got, want)
+    assert all(c["ell_spmv"] >= 1 for c in launches)
+
+
+@pytest.mark.cuda
+def test_collectives_take_card_tensors(card_pool):
+    """The allgather and the all_reduce on CUDA tensors, over NCCL and over
+    gloo."""
+    from ellspmv_tpu_torch.parallel.spmv import collectives_task
+    out = card_pool.run(collectives_task, [(1000, 3)] * card_pool.world)
+    world = card_pool.world
+    assert out == [{"gathered": True,
+                    "reduced": float(world * (world - 1) // 2)}] * world

@@ -1,11 +1,12 @@
 """The port's `ellspmv` program (``--device=cpu``) against the JAX package's:
-identical stdout, identical metrics, identical error texts, and a clean
-refusal of every option not yet ported."""
+identical stdout, identical metrics, identical error texts, on one device
+and over ranks (``--devices=N``)."""
 
 import gzip
 import io
 import itertools
 import json
+import os
 import time
 
 import numpy as np
@@ -25,6 +26,7 @@ from ellspmv_tpu_torch.formats.ell import ell_from_coo
 from tests.conftest import assert_fp64_close, random_coo
 
 TEST_MTX = "examples/test.mtx"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def run(main, argv, capsys):
@@ -138,7 +140,7 @@ def test_dispatch_warning_as_jax(round_trip, monkeypatch, capsys):
 
 def _with_devices(i, argv, shown, devices=2):
     """A case from before the option `shown` was ported, under its old id:
-    it now runs beside --devices=N, the one option still refused."""
+    it runs beside --devices=N."""
     return pytest.param(argv + [f"--devices={devices}"],
                         f"--devices={devices}", id=f"argv{i}-{shown}")
 
@@ -159,10 +161,31 @@ def _with_devices(i, argv, shown, devices=2):
     _with_devices(10, ["--trace", "trace_dir"], "--trace"),
     _with_devices(11, ["--backend=xla"], "--backend=xla"),
 ])
-def test_unported_options_refused(argv, shown, capsys):
-    rc, out, err = port(argv + [TEST_MTX], capsys)
-    assert rc == 1 and out == ""
-    assert err == f"ellspmv: {shown} is not yet ported (see ROADMAP.md)\n"
+def test_unported_options_refused(argv, shown, tmp_path, monkeypatch,
+                                  capsys):
+    """Each case runs over the ranks (--devices=N, gloo on the CPU; its id
+    names the option it was first written for) and does what the JAX
+    program does with the same arguments: the same exit code and stdout (exit 1 where JAX
+    cannot shard the hybrid, needs a square matrix for the chained
+    protocol or RCM, or cannot read the metrics file), the per-device
+    report where asked, a trace from every rank."""
+    monkeypatch.chdir(tmp_path)          # --trace writes ./trace_dir
+    argv = argv + [os.path.join(REPO, TEST_MTX)]
+    rc_j, out_j, err_j = run(jax_ellspmv.main, argv, capsys)
+    rc_p, out_p, err_p = port(argv, capsys)
+    assert shown in argv
+    assert rc_p == rc_j, (err_j, err_p)
+    assert out_p == out_j
+    if "--format=hybrid" in argv:
+        assert rc_p == 1 and "unsupported matrix type" in err_p
+    if rc_p == 0:
+        np.testing.assert_array_equal(
+            read_vector(io.BytesIO(out_p.encode())), [3, 1, 3, 6])
+    if "--papi-event-per-thread" in argv:
+        assert "Per-device workload" in err_p and "Per-device" in err_j
+    if "--trace" in argv:
+        traces = os.listdir(tmp_path / "trace_dir")
+        assert sum(t.endswith(".pt.trace.json") for t in traces) == 2
 
 
 @pytest.mark.parametrize("argv", [
@@ -204,7 +227,8 @@ def test_help_usage_and_version(capsys):
         ellspmv.main(["--help"])
     assert e.value.code == 0
     out = capsys.readouterr().out
-    assert "--device=D" in out and "Not yet ported" in out
+    assert "--device=D" in out and "--devices=N" in out
+    assert "Not yet ported" not in out
     with pytest.raises(SystemExit) as e:
         ellspmv.main([])
     assert e.value.code == 1 and "Usage:" in capsys.readouterr().err

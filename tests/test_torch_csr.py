@@ -272,18 +272,23 @@ def test_refusals_match_jax(argv, capsys):
 
 @pytest.mark.parametrize("argv,shown", [
     (["--devices=2"], "--devices=2"),
-    # --backend=xla and --papi-event-summary are ported: each now runs
-    # beside --devices=2, the one option still refused (the ids are the
-    # cases' names from before)
+    # with --backend=xla and --papi-event-summary beside it (the ids name
+    # the option each case was first written for)
     pytest.param(["--backend=xla", "--devices=2"], "--devices=2",
                  id="argv1---backend=xla"),
     pytest.param(["--papi-event-summary", "--devices=4"], "--devices=4",
                  id="argv2---papi-event-summary"),
 ])
 def test_unported_options_refused(argv, shown, capsys):
-    rc, out, err = port(argv + [EXAMPLES[0]], capsys)
-    assert rc == 1 and out == ""
-    assert err == f"csrspmv: {shown} is not yet ported (see ROADMAP.md)\n"
+    """Each case runs over the ranks (gloo on the CPU) and prints the JAX
+    program's stdout."""
+    assert shown in argv
+    rc_j, out_j, err_j = run(jax_csrspmv.main, argv + [EXAMPLES[0]], capsys)
+    rc_p, out_p, err_p = port(argv + [EXAMPLES[0]], capsys)
+    assert rc_j == rc_p == 0, (err_j, err_p)
+    assert out_p == out_j
+    if "--papi-event-summary" in argv:
+        assert "Region: gemv" in err_p
 
 
 def test_help_lists_the_csr_options(capsys):

@@ -127,8 +127,29 @@ def test_port_imports_no_jax(child):
                 "ellspmv_tpu_torch.bench.stream",
                 "ellspmv_tpu_torch.bench.suite",
                 "ellspmv_tpu_torch.utils.trace",
-                "ellspmv_tpu_torch.utils.timing"}
+                "ellspmv_tpu_torch.utils.timing",
+                "ellspmv_tpu_torch.parallel",
+                "ellspmv_tpu_torch.parallel.mesh",
+                "ellspmv_tpu_torch.parallel.launch",
+                "ellspmv_tpu_torch.parallel.spmv",
+                "ellspmv_tpu_torch.parallel.stream",
+                "ellspmv_tpu_torch.parallel.solver",
+                "ellspmv_tpu_torch.parallel.dryrun"}
     assert expected <= set(child["modules"])
+
+
+def test_spawned_rank_imports_no_jax():
+    """A rank starts from a fresh interpreter (spawn) and loads the port
+    and torch, never jax, ml_dtypes or the JAX package, though the process
+    that spawned it may hold them."""
+    from ellspmv_tpu_torch.parallel import launch
+    with launch.RankPool(["cpu"] * 2, timeout=120) as pool:
+        loaded = pool.run(launch.loaded_modules, [(), ()])
+    for modules in loaded:
+        assert "ellspmv_tpu_torch.parallel.launch" in modules
+        assert [m for m in modules
+                if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
+                                       "ellspmv_tpu")] == []
 
 
 def test_import_without_nvcc_builds_nothing(child):

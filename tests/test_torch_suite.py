@@ -2,10 +2,11 @@
 K1's short launches (``bench/traffic.k1_launch_seconds``) on the CPU.
 
 `run_suite` at a tiny scale (its `SIZES` cut down) prints every row of
-``ellspmv_tpu/bench/suite.py`` but those of a card (the measured peak) and
-of several devices (config4, which prints its skip line), with the JAX
-rows' fields; each timed row's y holds the NumPy oracle through the
-suite's check hook. The price term is held against a count by hand. The
+``ellspmv_tpu/bench/suite.py`` but those of a card (the measured peak),
+config4 over four CPU ranks as the JAX suite runs it over its host
+devices, with the JAX rows' fields; each one-device timed row's y holds
+the NumPy oracle through the suite's check hook, the sharded row's y holds
+it in the row's note. The price term is held against a count by hand. The
 suite on a card, at full scale, runs in ``chip_smoke.py``."""
 
 import io
@@ -28,7 +29,7 @@ from ellspmv_tpu_torch.ops.dispatch import spmv
 from torch_cases import assert_rows_close, random_coo
 
 TINY = {"poisson": 16, "mesh_rows": 400, "banded": 2000, "power_law": 4000,
-        "power_law_10x": 8000, "dense_rows": 4000}
+        "power_law_10x": 8000, "dense_rows": 4000, "poisson_sharded": 16}
 # The timed rows' record fields and the other rows' keys, as the JAX suite
 # writes them.
 RECORD_FIELDS = ["config", "best_s", "gnz_per_s", "gflop_per_s",
@@ -65,7 +66,7 @@ def ran(request):
     log = io.StringIO()
     try:
         rows = suite.run_suite(quick=request.param, stream=log,
-                               device="cpu", check=check)
+                               device="cpu", check=check, devices=4)
     finally:
         mp.undo()
         torch.set_num_threads(threads)
@@ -78,16 +79,15 @@ def test_every_jax_row_is_there(ran):
     assert len(names) == len(set(names))
     for pattern in jax_row_patterns():
         card_only = pattern.startswith("^hbm")
-        devices = pattern.startswith("^config4")
         tenfold = pattern.startswith("^config3\\-10x")
         present = [n for n in names if re.match(pattern, n)]
-        if card_only or devices or (quick and tenfold):
+        if card_only or (quick and tenfold):
             assert present == [], pattern
         else:
             assert len(present) == 1, pattern
-    assert ("config4 skipped: multi-device is not yet ported (see "
-            "ROADMAP.md)\n") in log
-    assert len(names) == (13 if quick else 16)
+    assert "config4 sharded x4 SpMV f64" in names
+    assert "config4 skipped" not in log
+    assert len(names) == (15 if quick else 18)
 
 
 def test_rows_carry_the_jax_fields(ran):
@@ -114,7 +114,13 @@ def test_rows_carry_the_jax_fields(ran):
 
 def test_every_timed_row_holds_the_oracle(ran):
     _, rows, _, checked = ran
-    assert checked == [r["config"] for r in rows if "best_s" in r]
+    sharded = [r for r in rows if r["config"].startswith("config4")]
+    assert checked == [r["config"] for r in rows
+                       if "best_s" in r and r not in sharded]
+    note = sharded[0]["note"]
+    assert float(note.removeprefix("normwise err ")) < 1e-14
+    cg = sharded[1]
+    assert cg["config"] == "config4 cg" and cg["residual"] <= 1e-8 * 16
 
 
 def test_the_program_needs_a_card_or_the_cpu(monkeypatch, capsys):
