@@ -40,10 +40,11 @@ Phases, each of which exits non-zero on failure:
    likewise on every branch of the hybrid (a hub over split rows, a hub of
    short rows, no hub for uniform degrees or a hub as wide as the matrix,
    an empty matrix) in fp64, f32 and bf16, one gather and one K1 launch per
-   bucket; K1's round latency on short launches (ROADMAP F8: the slope of
-   its time over its rounds of loads, the chooser's constant) and F8's two
-   small cases timed both ways beside the chooser's pick, which at the
-   blowup gate must be the faster;
+   bucket; the calibration (``bench/calibrate.calibrate(save=False)``):
+   K1's round latency on short launches (ROADMAP F8: the slope of its time
+   over its rounds of loads, fp64 and f32, the chooser's constant) and the
+   card's memory rate; F8's two small cases timed both ways beside the
+   chooser's pick, which at the blowup gate must be the faster;
 4. the programs, their ``main`` run in this process (but for one
    ``python -m`` run each of ``ellspmv`` and ``csrspmv``, in their own
    processes): ``ellspmv``: exact stdout on examples/test.mtx, then on a
@@ -67,7 +68,20 @@ Phases, each of which exits non-zero on failure:
    ``--backend=xla`` and the CSV reports, and ``csrspmv --backend=xla``, on
    a power_law(20,000, 8) file: y against the oracle, the reports' lines,
    a trace written;
-5. full size, fem_mesh_2d(1440) (2,073,600 rows, about 32.3M nonzeros, the
+5. full size: first the native host path (``io/native.py``, built with
+   g++): on a fem_mesh_2d(256, extras=5) file written by the native writer,
+   the native and NumPy parsers bit for bit with their MB/s, and
+   ``ell_from_coo`` on the card with and without the native packer, bit
+   for bit; then ``bench/reference_scale``'s matrix at ``--nx 1440``
+   (fem_mesh_2d(1440, extras=5, seed=1), 2,073,600 rows): written and read
+   natively (the COO bit-equal to the generator's, write and read MB/s),
+   ``ell_from_coo`` with and without the native packer in turns, sort_rows
+   off and on (bit for bit, the seconds of each turn), ``ellspmv -v`` in
+   this process (y against the oracle on every row) and
+   ``ellspmv`` with ``reference_scale.RUN_ARGS`` (chained: the read,
+   convert and gemv lines, effective GB/s beside the card; y against the
+   same recurrence with K1's plain version on the card);
+   fem_mesh_2d(1440) (2,073,600 rows, about 32.3M nonzeros, the
    class of the reference's Lynx68 matrix): the ELL main path (ell_from_coo,
    benchmark_spmv per_iter, repeat 10, warmup 2), the headline path
    (auto_from_coo, which must choose DIA, benchmark_spmv chained), each in
@@ -81,6 +95,8 @@ Phases, each of which exits non-zero on failure:
    then the headline program once (its ``main``, as ``python -m
    ellspmv_tpu_torch.bench.headline`` runs it), its JSON line echoed; then the stream path at config3's full width,
    power_law(1,000,000, 8) (7,049,701 nonzeros, the webbase-1M class):
+   its host plan (``stream_layout``) with the native argsort and with
+   NumPy's in turns, equal field for field;
    ``stream_from_coo``'s host seconds and plan, ``benchmark_spmv`` per_iter
    and chained in fp64 and f32, every row held against the oracle, and the
    launch counts of K1, K3 (in place on level 1, through its map on each
@@ -147,7 +163,8 @@ Phases, each of which exits non-zero on failure:
    run in this process): every row at full scale, each timed row's y held
    against the oracle on every row (fp64, 1e-13 of sum |a*x|), the triad
    beside the data sheet, config3-10x's normwise error beside the JAX
-   package's; config4 skips on one card.
+   package's, the config3 and config3-10x plan seconds (native argsort);
+   config4 skips on one card.
 
 Each phase's seconds are printed after it, and all of them before the
 summary.
@@ -160,6 +177,7 @@ repository, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -172,6 +190,8 @@ import time
 import warnings
 
 import numpy as np
+
+from ellspmv_tpu_torch.utils.timing import graph_ms, time_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOLERANCE = {"float64": 1e-13, "float32": 1e-5, "bfloat16": 1e-2}
@@ -261,6 +281,21 @@ def check(cond: bool, what: str):
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+class LogStream:
+    """A text stream whose writes go to `log`, line by line, after
+    `prefix`."""
+
+    def __init__(self, prefix: str = "  "):
+        self.prefix = prefix
+
+    def write(self, text: str):
+        for line in text.rstrip("\n").split("\n"):
+            log(f"{self.prefix}{line}")
+
+    def flush(self):
+        pass
 
 
 def phase_device():
@@ -679,21 +714,6 @@ def phase_cgsolve_program(path, coo, dev):
     proc = _run_cli([dev, *flags, path], " ".join(flags), "cgsolve",
                     expect=2)
     check(proc.stdout == "", "cgsolve -q printed x")
-
-
-def time_ms(fn, iters: int = 20) -> float:
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def sampled_oracle(coo, x64, sample):
@@ -1156,24 +1176,6 @@ def phase_timing(coo, ell_runs, dia_runs, peak_bw):
     out["dot", "float64"] = time_dot(coo.num_rows, peak_bw)
     torch.cuda.synchronize()
     return out
-
-
-def graph_ms(fn, iters: int = 20) -> float:
-    """Device time per call of `fn`, with the host's launch path taken out:
-    `iters` calls captured in one CUDA graph, replayed between CUDA
-    events."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    return time_ms(graph.replay, 5) / iters
 
 
 L2_BYTES = 50 * 2 ** 20      # the H100's L2
@@ -2264,69 +2266,6 @@ def probe_floor():
 # F8: K1's launch geometry in the chooser's price
 # ---------------------------------------------------------------------------
 
-# Short K1 launches for the round-latency probe: row counts whose blocks of
-# 512 rows stay under the card's SMs, and widths (slots a row); columns
-# random over a million (wide columns, as in the SELL split's sub-row
-# buckets).
-K1_PROBE_ROWS = (2048, 16384, 49152)
-K1_PROBE_WIDTHS = (4, 16, 32, 64, 128)
-K1_PROBE_COLUMNS = 1_000_000
-
-
-def _probe_ell(rows, width, prec, device):
-    from ellspmv_tpu_torch.config import value_dtype
-    from ellspmv_tpu_torch.formats.ell import ell_from_row_major
-    rng = np.random.RandomState(rows + width)
-    cols = rng.randint(0, K1_PROBE_COLUMNS, (rows, width)).astype(np.int32)
-    vals = rng.rand(rows, width)
-    return ell_from_row_major(cols, vals, None, rows, K1_PROBE_COLUMNS,
-                              rows * width, value_dtype(prec), device)
-
-
-def probe_k1_geometry(device="cuda"):
-    """K1 on short launches (fewer blocks than the card has SMs) at several
-    widths, each in a CUDA graph: the time against the rounds of
-    ``kSlotBatch`` slots each thread walks, and the least-squares line
-    through them. Its slope is one round's latency, the ``L`` of the
-    chooser's K1 price (``config.k1_round_seconds``). Returns {prec: L in
-    seconds}."""
-    import torch
-
-    from ellspmv_tpu_torch.bench.traffic import k1_rounds
-    from ellspmv_tpu_torch.config import value_dtype
-    from ellspmv_tpu_torch.ops import ell_cuda
-    sms = torch.cuda.get_device_properties(0).multi_processor_count \
-        if device == "cuda" else 132
-    timer = graph_ms if device == "cuda" else _host_ms
-    fits = {}
-    for prec in ("float64", "float32"):
-        points = []
-        x = torch.from_numpy(np.random.RandomState(5).rand(
-            K1_PROBE_COLUMNS)).to(device).to(value_dtype(prec))
-        for rows in K1_PROBE_ROWS:
-            blocks = -(-rows // 512)
-            check(blocks < sms, f"probe rows {rows}: {blocks} blocks fill "
-                                f"the {sms} SMs")
-            line = []
-            for width in K1_PROBE_WIDTHS:
-                ell = _probe_ell(rows, width, prec, device)
-                check(ell.lcol is None, "the probe's columns must be wide")
-                ms = timer(lambda: ell_cuda.ell_spmv(ell, x))
-                points.append((k1_rounds(width), ms))
-                line.append(f"{width}: {ms:.4f}")
-            log(f"  K1 probe {prec}, {rows:,} rows ({blocks} blocks of "
-                f"{sms} SMs), ms by width: {', '.join(line)}")
-        r = np.array([p[0] for p in points], np.float64)
-        t = np.array([p[1] for p in points], np.float64)
-        slope, icept = np.polyfit(r, t, 1)
-        resid = np.abs(t - (icept + slope * r)).max()
-        fits[prec] = slope * 1e-3
-        log(f"  K1 probe {prec}: t = {icept:.4f} ms + {slope * 1e3:.3f} us "
-            f"x rounds (rounds = ceil(width / 4)); worst residual "
-            f"{resid * 1e3:.2f} us over {len(points)} launches")
-    return fits
-
-
 def _host_ms(fn, iters: int = 3) -> float:
     """Host-clock ms per call, for rehearsals on the CPU."""
     fn()
@@ -2421,22 +2360,35 @@ def f8_timed_both_ways(label, coo, names, device="cuda"):
     return out
 
 
-def phase_f8(device="cuda"):
-    """ROADMAP F8: K1's round latency measured on short launches (the
-    chooser's ``L``), printed beside the card's name and power limit and
-    the constant in ``config.py``; and F8's two small cases timed both ways
-    in a CUDA graph, fp64 and f32, beside the chooser's pick. At the blowup
-    gate (the second case) the pick must be the faster format."""
-    import torch
-
+def phase_calibration():
+    """``bench/calibrate.calibrate(save=False)``: K1's round latency on
+    short launches (the chooser's ``L``, ROADMAP F8), fp64 and f32, and the
+    card's memory rate (the triad), beside the card's name and power limit
+    and the values ``config.py`` prices by without a calibration. Returns
+    the calibration."""
     from ellspmv_tpu_torch import config
-    fits = probe_k1_geometry(device)
-    stored, sms = config.k1_geometry(device)
-    card = (torch.cuda.get_device_name(0) if device == "cuda"
-            else "host CPU")
-    log(f"  K1 round latency on {CARD[0] or card}: {fits['float64'] * 1e6:.3f}"
-        f" us fp64, {fits['float32'] * 1e6:.3f} us f32 measured; config.py "
-        f"prices {stored * 1e6:.3f} us on {sms} SMs")
+    from ellspmv_tpu_torch.bench import calibrate
+
+    out = calibrate.calibrate(save=False, log=LogStream())
+    for prec, name in calibrate.K1_ROUND.items():
+        check(name in out, f"calibration: no plausible K1 round latency "
+                           f"{prec}")
+    check(calibrate.RATE in out, "calibration: no plausible memory rate")
+    stored, sms = config.k1_geometry("cuda")
+    log(f"  K1 round latency on {CARD[0]}: "
+        f"{out[calibrate.K1_ROUND['float64']] * 1e6:.3f} us fp64, "
+        f"{out[calibrate.K1_ROUND['float32']] * 1e6:.3f} us f32 measured "
+        f"({sms} SMs); config.py prices {stored * 1e6:.3f} us without a "
+        f"calibration; memory {out[calibrate.RATE] / 1e9:.1f} GB/s measured, "
+        f"{config.pricing_rate('cuda') / 1e9:.1f} priced (the data sheet)")
+    return out
+
+
+def phase_f8(device="cuda"):
+    """ROADMAP F8's two small cases timed both ways in a CUDA graph, fp64
+    and f32, beside the chooser's pick (K1's round latency is measured by
+    the calibration phase). At the blowup gate (the second case) the pick
+    must be the faster format."""
     for label, (coo, names) in f8_small_cases().items():
         both = f8_timed_both_ways(label, coo, names, device)
         if "sell" in names:
@@ -2444,7 +2396,197 @@ def phase_f8(device="cuda"):
                 check(device != "cuda" or chosen == min(ms, key=ms.get),
                       f"F8 {label} {prec}: the chooser took {chosen}, the "
                       f"card runs {min(ms, key=ms.get)} faster ({ms})")
-    return fits
+
+
+# ---------------------------------------------------------------------------
+# The native host path: the parser, the writer, the packer and the argsort
+# (io/native.py), and ellspmv on a file at bench/reference_scale's scale
+# ---------------------------------------------------------------------------
+
+NATIVE_NX = 1440           # bench/reference_scale --nx: 2,073,600 rows
+NATIVE_SMALL_NX = 256      # both parsers on one file: 65,536 rows
+
+
+def _same(a, b) -> bool:
+    """`a` and `b` equal field for field, arrays and tensors bit for bit and
+    of one type."""
+    import dataclasses
+
+    import torch
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            _same(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def _numpy_only():
+    """The port without its host library, for as long as the context
+    lasts: every caller takes NumPy."""
+    from unittest import mock
+
+    from ellspmv_tpu_torch.io import native
+    return mock.patch.object(native, "available", return_value=False)
+
+
+def _timed_s(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _both_ways_in_turns(build, what):
+    """`build()` with NumPy and with the host library in turns (NumPy,
+    native, native, NumPy), checked equal field for field; the seconds of
+    each turn, {"native": [...], "numpy": [...]}."""
+    seconds = {"native": [], "numpy": []}
+    built = {}
+    for turn in ("numpy", "native", "native", "numpy"):
+        with _numpy_only() if turn == "numpy" else contextlib.nullcontext():
+            built[turn], t = _timed_s(build)
+        seconds[turn].append(t)
+    check(_same(built["native"], built["numpy"]),
+          f"{what} with the host library differs from NumPy's")
+    return seconds
+
+
+def _turn_seconds(seconds):
+    return (f"native {', '.join(f'{t:.3f}' for t in seconds['native'])} s, "
+            f"NumPy {', '.join(f'{t:.3f}' for t in seconds['numpy'])} s")
+
+
+def phase_native(device="cuda", nx=NATIVE_NX, small_nx=NATIVE_SMALL_NX):
+    """The native host path. The host library built with g++; on
+    fem_mesh_2d(256, extras=5, seed=1), written by the native writer, both
+    parsers bit for bit and their MB/s, and ``ell_from_coo`` on the card
+    with and without the native packer, bit for bit; then
+    ``bench/reference_scale``'s matrix at ``--nx 1440`` (2,073,600 rows):
+    written natively, read back natively bit-equal to the generator's COO,
+    ``ell_from_coo`` on the card with and without the native packer in
+    turns (NumPy, native, native, NumPy), sort_rows off and on, bit for
+    bit, and the ``ellspmv`` program in this process, per_iter (y against the
+    oracle on every row, fp64 1e-13 of sum |a*x|) and with
+    ``reference_scale.RUN_ARGS`` (chained: read, convert and gemv lines,
+    effective GB/s, y against the same recurrence with K1's plain version
+    on the card). Returns the launch counts of the two runs."""
+    import io
+
+    import torch
+
+    from ellspmv_tpu_torch.bench import reference_scale
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.io import mtx, native
+    from ellspmv_tpu_torch.models.generators import fem_mesh_2d
+    from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
+
+    built, t_build = _timed_s(native.available)
+    check(built, "the host library is not available (no g++ on this host)")
+    log(f"  native: {native.library_path(native.find_cxx()).name} from "
+        f"{', '.join(p.name for p in native.sources())} (g++ "
+        f"{' '.join(native.CXX_FLAGS)}) in {t_build:.1f} s; "
+        f"{reference_scale.host_line()}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        small = fem_mesh_2d(small_nx, small_nx, extras=5,
+                            seed=1)
+        path = os.path.join(tmp, "small.mtx")
+        native.write_coo(path, small.num_rows, small.num_columns,
+                         small.rowidx, small.colidx, small.values)
+        mb = os.path.getsize(path) / 1e6
+        by_numpy, t_np = _timed_s(lambda: mtx.read_matrix(path,
+                                                          use_native=False))
+        by_native, t_nat = _timed_s(lambda: mtx.read_matrix(path,
+                                                            use_native=True))
+        log(f"  native: fem_mesh_2d({small_nx}), {mb:.1f} MB: NumPy "
+            f"parser {t_np:.3f} s ({mb / t_np:.1f} MB/s), native {t_nat:.3f} "
+            f"s ({mb / t_nat:.1f} MB/s)")
+        check(_same(by_native, by_numpy) and _same(by_native, small),
+              "the native and NumPy parsers disagree")
+        for sort_rows in (False, True):
+            got = ell_from_coo(by_native, sort_rows=sort_rows, device=device)
+            with _numpy_only():
+                want = ell_from_coo(by_native, sort_rows=sort_rows,
+                                    device=device)
+            check(_same(got, want) and got.lcol is not None,
+                  f"ell_from_coo sort_rows={sort_rows}: the native packer's "
+                  "ELLPACK differs from NumPy's")
+        log(f"  native: ell_from_coo at fem_mesh_2d({small_nx}) on the card, "
+            "sort_rows False and True: native and NumPy bit-equal")
+        del small, by_numpy, by_native, got, want
+
+        path = reference_scale.matrix_path(tmp, nx)
+        coo = reference_scale.generate(path, nx, out=LogStream())
+        read, t_read = _timed_s(lambda: mtx.read_matrix(path))
+        mb = os.path.getsize(path) / 1e6
+        check(_same(read, coo), "the native read of the written file "
+                                    "differs from the generator's COO")
+        log(f"  native: read {mb:.1f} MB in {t_read:.3f} s ({mb / t_read:.1f}"
+            " MB/s), bit-equal to the generator's COO")
+        del read
+        for sort_rows in (False, True):
+            seconds = _both_ways_in_turns(
+                lambda: ell_from_coo(coo, sort_rows=sort_rows, device=device),
+                f"ell_from_coo sort_rows={sort_rows} at --nx {nx}")
+            log(f"  native: ell_from_coo sort_rows={sort_rows} at --nx {nx} "
+                f"on the card, in turns: {_turn_seconds(seconds)}: bit-equal")
+        want, scale = row_oracle(coo, np.ones(coo.num_columns))
+        counts = []
+        _reset_counts()
+        proc = _run_cli([f"--device={device}", "-v", path],
+                        f"-v (per_iter), reference scale --nx {nx}")
+        counts.append(_counts())
+        y = mtx.read_vector(io.BytesIO(proc.stdout.encode()))
+        err = _row_err(y, want, scale)
+        log(f"  native: per_iter y of {len(y):,} rows, max err {err:.3e} of "
+            "sum|a*x| against the oracle (printed with %.15g)")
+        check(len(y) == coo.num_rows and err <= TOLERANCE["float64"],
+              f"the reference-scale y disagrees with the oracle: {err:.3e}")
+        del want, scale, y
+        _reset_counts()
+        proc = _run_cli([f"--device={device}", *reference_scale.RUN_ARGS,
+                         path],
+                        " ".join(reference_scale.RUN_ARGS) + " (the "
+                        "reference-scale run)")
+        counts.append(_counts())
+        line = reference_scale.summary(proc.stderr)
+        check(line is not None, "the reference-scale run printed no read, "
+                                "convert or gemv line")
+        log(f"  {line}; {CARD[0]}")
+    span = re.search(r"over a (\d+)-iteration chained span", proc.stderr)
+    y = mtx.read_vector(io.BytesIO(proc.stdout.encode()))
+    ell = ell_from_coo(coo, device=device)
+    del coo
+    xk = torch.ones(ell.num_columns, dtype=torch.float64, device=device)
+    yk = torch.zeros(ell.num_rows, dtype=torch.float64, device=device)
+    for _ in range(2 + int(span.group(1))):
+        yk = ell_spmv_torch(ell, xk, yk)
+        xk = 1e-6 * yk
+    yk = yk.cpu().numpy()
+    err = float(np.max(np.abs(y - yk) / np.maximum(np.abs(yk), 1e-300)))
+    log(f"  native: chained y vs the plain recurrence of "
+        f"{2 + int(span.group(1))} iterations: max rel err {err:.3e} (tol "
+        f"{CHAINED_TOLERANCE:g})")
+    check(err <= CHAINED_TOLERANCE, "the reference-scale chained y "
+                                    f"disagrees: {err:.3e}")
+    return counts
+
+
+def stream_plan_both_ways(coo):
+    """The stream format's host plan and products at `coo`
+    (``formats/stream.stream_layout``) with the native argsort and with
+    NumPy's, in turns, equal field for field; their least seconds."""
+    from ellspmv_tpu_torch.formats.stream import stream_layout
+    seconds = _both_ways_in_turns(lambda: stream_layout(coo),
+                                  "the stream plan")
+    log(f"  stream plan (stream_layout) at config3, in turns: "
+        f"{_turn_seconds(seconds)}: equal field for field")
+    return min(seconds["native"]), min(seconds["numpy"])
 
 
 # ---------------------------------------------------------------------------
@@ -2992,20 +3134,18 @@ def phase_suite(timing, peak_bw):
         check(err <= TOLERANCE["float64"],
               f"suite {name}: rows disagree with the oracle: {err:.3e}")
 
-    class Log:
-        def write(self, text):
-            for line in text.rstrip("\n").split("\n"):
-                log(f"  suite: {line}")
-
     _reset_counts()
-    rows = run_suite(quick=False, as_json=True, stream=Log(), device="cuda",
-                     check=hold)
+    rows = run_suite(quick=False, as_json=True, stream=LogStream("  suite: "),
+                     device="cuda", check=hold)
     counts = _counts()
     log(f"  suite: launches {counts}")
     by = {r["config"]: r for r in rows}
     err10 = by["config3-10x stream oracle"]["normwise_err"]
     log(f"  suite: config3-10x normwise error {err10:.3e} (the JAX package: "
         f"{JAX_10X_ERR[0]:.1e}-{JAX_10X_ERR[1]:.1e}, ROADMAP F2)")
+    log("  suite: stream plans with the native argsort: config3 "
+        f"{by['config3 stream_from_coo']['convert_s']:.2f} s, config3-10x "
+        f"{by['config3-10x stream_from_coo']['convert_s']:.2f} s on the host")
     peak = by["hbm_peak"]
     triad = peak["measured_gb_per_s"]
     log(f"  suite: triad {triad:.1f} GB/s against the data sheet's "
@@ -3087,13 +3227,15 @@ def main() -> int:
     timed("stream vs plain", phase_stream_vs_plain)
     timed("SELL and CSR vs plain", phase_sell_vs_plain)
     timed("hybrid vs plain", phase_hybrid_vs_plain)
-    timed("F8 probe", phase_f8)
+    timed("calibration", phase_calibration)
+    timed("F8 cases", phase_f8)
     log("phase 4: the ellspmv, cgsolve and csrspmv programs")
     timed("programs: ELL, DIA, CG", phase_cli)
     timed("programs: stream", phase_stream_cli)
     timed("programs: SELL and CSR", phase_sell_csr_cli)
     timed("programs: hybrid, xla, papi, trace", phase_hybrid_cli)
     log("phase 5: full size")
+    native_counts = timed("native host path", phase_native)
     t0 = time.perf_counter()
     coo = fem_mesh_2d(1440)
     n = coo.num_rows
@@ -3130,6 +3272,7 @@ def main() -> int:
         f"{pl_coo.num_nonzeros:,} nonzeros, longest row "
         f"{int(np.bincount(pl_coo.rowidx).max()):,}; generated with its "
         f"oracle in {time.perf_counter() - t0:.1f} s")
+    timed("stream plan both ways", stream_plan_both_ways, pl_coo)
     stream_runs, stream_counts = timed("stream path", phase_stream_path,
                                        pl_coo, pl_x64, pl_want, pl_scale)
     hybrid_runs, hybrid_counts = timed("hybrid path", phase_hybrid_path,
@@ -3166,7 +3309,7 @@ def main() -> int:
     del coo, pl_coo, pl_want, pl_scale
     log("phase 8: the benchmark suite")
     _, suite_counts = timed("suite", phase_suite, timing, peak_bw)
-    paths = [ell_counts, dia_counts, *cg_counts.values(),
+    paths = [*native_counts, ell_counts, dia_counts, *cg_counts.values(),
              *stream_counts.values(), *csr_counts.values(),
              *sell_counts.values(), *hybrid_counts.values(), multi_counts,
              suite_counts]

@@ -13,6 +13,8 @@ import os
 import numpy as np
 import torch
 
+from ellspmv_tpu_torch.utils import calibration
+
 # Largest value an int32 index may take (the reference's IDX_T_MAX,
 # ellspmv.c:123).
 _INT32_MAX = np.iinfo(np.int32).max
@@ -76,10 +78,11 @@ SM_COUNT = {
 
 # One round of K1 (csrc/ell_spmv.cu): a thread's batch of four slots' loads,
 # then their gathers of x, which a launch with fewer blocks than SMs cannot
-# hide behind other blocks. Measured by chip_smoke.probe_k1_geometry, the
-# slope of K1's time over its rounds on short launches (4 to 96 blocks,
+# hide behind other blocks. Measured by bench/calibrate.probe_k1_geometry,
+# the slope of K1's time over its rounds on short launches (4 to 96 blocks,
 # widths 4 to 128, fp64, random columns over 1M) in a CUDA graph: NVIDIA
-# H100 80GB HBM3 at a 700 W power limit (f32 read 1.49 us there).
+# H100 80GB HBM3 at a 700 W power limit (f32 read 1.49 us there). A card's
+# calibration (bench/calibrate.py) takes precedence on that card.
 K1_ROUND_SECONDS = {
     "NVIDIA H100 80GB HBM3": 1.67e-6,
 }
@@ -97,27 +100,44 @@ def card_name(device="cuda") -> str:
     return HOST_PRICED_CARD
 
 
-def k1_geometry(device="cuda") -> tuple[float, int]:
+def k1_geometry(device="cuda", dtype=torch.float64) -> tuple[float, int]:
     """(K1's round latency in seconds, SMs) of the card `device` names, or
     of `HOST_PRICED_CARD` off a card: what the chooser prices K1's short
-    launches by (``bench/traffic.k1_launch_seconds``)."""
+    launches by (``bench/traffic.k1_launch_seconds``). The latency is an
+    injected one, else on a card its calibrated one (``bench/calibrate.py``),
+    each for `dtype` (float32's for float32, float64's otherwise), else
+    `K1_ROUND_SECONDS`'s, else the host-priced card's."""
     device = torch.device(device)
     name = card_name(device)
     if device.type == "cuda":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     else:
         sms = SM_COUNT[name]
-    return K1_ROUND_SECONDS.get(name, K1_ROUND_SECONDS[HOST_PRICED_CARD]), sms
+    key = "float32" if dtype == torch.float32 else "float64"
+    measured = calibration.get(calibration.K1_ROUND[key], name,
+                               cached=device.type == "cuda")
+    if measured is None:
+        measured = K1_ROUND_SECONDS.get(name,
+                                        K1_ROUND_SECONDS[HOST_PRICED_CARD])
+    return measured, sms
 
 
 def pricing_rate(device="cuda") -> float:
     """The device-memory rate the chooser prices by: `hbm_peak_bytes_per_s`
     of `device`, or off a card the data-sheet peak of `HOST_PRICED_CARD`
-    (``HBM_PEAK_GBPS`` overrides both)."""
+    (``HBM_PEAK_GBPS`` overrides both); for a card not in
+    `HBM_PEAK_BYTES_PER_S`, an injected rate, else its calibrated one
+    (``bench/calibrate.py``), else the host-priced card's data sheet."""
     rate = hbm_peak_bytes_per_s(device)
     if rate is None:
-        rate = HBM_PEAK_BYTES_PER_S.get(card_name(device),
-                                        HBM_PEAK_BYTES_PER_S[HOST_PRICED_CARD])
+        device = torch.device(device)
+        name = card_name(device)
+        rate = HBM_PEAK_BYTES_PER_S.get(name)
+        if rate is None:
+            rate = calibration.get(calibration.RATE, name,
+                                   cached=device.type == "cuda")
+        if rate is None:
+            rate = HBM_PEAK_BYTES_PER_S[HOST_PRICED_CARD]
     return rate
 
 

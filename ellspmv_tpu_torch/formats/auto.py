@@ -125,7 +125,7 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
         # format (no column locality), both built on the host and priced
         # by their bytes
         blow = f"ELL padding blowup ({ellsize:,} slots for {nnz:,} nonzeros)"
-        geometry = (rate, *config.k1_geometry(device))
+        geometry = (rate, *config.k1_geometry(device, dtype))
         layout = stream_layout(coo, separate_diagonal=separate_diagonal)
         price = stream_seconds_estimate(nnz, n, m, stream_vb,
                                         layout.products_narrow(), *geometry)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ellspmv_tpu_torch import config
+from ellspmv_tpu_torch.io import native
 
 
 # Rows are padded to a multiple of this (as in the JAX package).
@@ -253,23 +254,35 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
                else torch.empty(0, dtype=dtype).numpy().dtype)
 
     n_pad = max(_round_up(n, row_tile), row_tile)
-    pad_col = np.minimum(np.arange(n_pad, dtype=idx_dt),
-                         max(m - 1, 0)).astype(idx_dt)
-    colidx = np.broadcast_to(pad_col[:, None], (n_pad, rowsize)).copy()
-    values = np.zeros((n_pad, rowsize), host_dt)
-    if coo.num_nonzeros and rowsize:
-        # One sort by (row [, col]) gives each entry its slot: the
-        # reference's per-row fill cursor (ellspmv.c:1097-1107) and rowsort.
-        if sort_rows:
-            order = np.lexsort((coo.colidx, coo.rowidx))
-        else:
-            order = np.argsort(coo.rowidx, kind="stable")
-        r = coo.rowidx[order]
-        rowptr = np.zeros(n + 1, dtype=np.int64)
-        rowptr[1:] = np.cumsum(counts)
-        slot = np.arange(len(r), dtype=np.int64) - rowptr[r]
-        colidx[r, slot] = coo.colidx[order].astype(idx_dt)
-        values[r, slot] = coo.values[order].astype(host_dt)
+    colidx = values = None
+    if coo.num_nonzeros and rowsize and idx_dt == np.dtype(np.int32):
+        # the native counting-sort packer, where the host library is
+        # available (the reference packs in parallel C, ellspmv.c:1081-1127)
+        if native.available():
+            colidx, values = native.ell_pack(n, m, n_pad, rowsize,
+                                             coo.rowidx, coo.colidx,
+                                             coo.values, sort_rows)
+            values = values.astype(host_dt, copy=False)
+    if colidx is None:
+        # allocated only here: the native packer returns its own arrays
+        pad_col = np.minimum(np.arange(n_pad, dtype=idx_dt),
+                             max(m - 1, 0)).astype(idx_dt)
+        colidx = np.broadcast_to(pad_col[:, None], (n_pad, rowsize)).copy()
+        values = np.zeros((n_pad, rowsize), host_dt)
+        if coo.num_nonzeros and rowsize:
+            # One sort by (row [, col]) gives each entry its slot: the
+            # reference's per-row fill cursor (ellspmv.c:1097-1107) and
+            # rowsort.
+            if sort_rows:
+                order = np.lexsort((coo.colidx, coo.rowidx))
+            else:
+                order = np.argsort(coo.rowidx, kind="stable")
+            r = coo.rowidx[order]
+            rowptr = np.zeros(n + 1, dtype=np.int64)
+            rowptr[1:] = np.cumsum(counts)
+            slot = np.arange(len(r), dtype=np.int64) - rowptr[r]
+            colidx[r, slot] = coo.colidx[order].astype(idx_dt)
+            values[r, slot] = coo.values[order].astype(host_dt)
 
     if diag is not None:
         d = np.zeros(n_pad, host_dt)

@@ -37,6 +37,7 @@ import torch
 from ellspmv_tpu_torch import config
 from ellspmv_tpu_torch.formats.ell import (LBLOCK, EllMatrix,
                                           ell_from_row_major, narrow_bases)
+from ellspmv_tpu_torch.io import native
 from ellspmv_tpu_torch.ops import ell_cuda
 from ellspmv_tpu_torch.ops.permute import BLOCK
 from ellspmv_tpu_torch.ops.stream_sum import (StreamSumPlan,
@@ -112,12 +113,13 @@ def products_len(nnz: int) -> int:
 def _entries(coo, separate_diagonal: bool):
     """The matrix's entries as the products take them: symmetry expanded,
     the diagonal split off when asked (`diag`, else None), and their
-    column order (a stable argsort of the columns)."""
+    column order (a stable argsort of the columns, native where the host
+    library is available)."""
     coo = coo.expand_symmetry()
     diag = None
     if separate_diagonal:
         coo, diag = coo.split_diagonal()
-    return coo, diag, np.argsort(coo.colidx, kind="stable")
+    return coo, diag, native.argsort(coo.colidx)
 
 
 def column_order_products(coo, separate_diagonal: bool = False,

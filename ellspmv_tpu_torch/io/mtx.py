@@ -12,8 +12,10 @@ ellspmv.c:808-888, mtxfile_fread_vector_array ellspmv.c:890-929):
 - gzip-compressed streams (the reference's ``-z`` path, ellspmv.c:1285),
   with plain files read through unchanged as zlib's gzopen does
 
-The body is parsed in bulk with NumPy. This module is the counterpart of
-``ellspmv_tpu.io.mtx`` without its native C++ parser.
+A file on disk is parsed by the native C++ parser (``io/native.py``) where
+the host library is available; a file object, or an input the native
+parser does not take, by NumPy in bulk. This module is the counterpart of
+``ellspmv_tpu.io.mtx``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 
 from ellspmv_tpu_torch.config import select_index_dtype
 from ellspmv_tpu_torch.formats.coo import CooMatrix
+from ellspmv_tpu_torch.io import native
 
 __all__ = [
     "MtxHeader",
@@ -189,12 +192,30 @@ def _read_body_numpy(f, num_fields: int, num_lines: int) -> np.ndarray:
 
 
 def read_matrix(path_or_file, gzipped: bool | None = None,
-                index_dtype=None, value_dtype=np.float64) -> CooMatrix:
+                index_dtype=None, value_dtype=np.float64,
+                use_native: bool | None = None) -> CooMatrix:
     """Read a Matrix Market file into a `CooMatrix`.
 
     Returns the stored triplets; symmetric expansion happens at format
     conversion, as in the reference (csrspmv.c:1240-1248).
+
+    `use_native`: None reads a path with the native parser where the host
+    library is available and falls back to NumPy for what it does not take
+    (file objects, array format, vectors); False always takes NumPy; True
+    raises where the native parser cannot read the input.
     """
+    if use_native is None or use_native:
+        if native.available() and not hasattr(path_or_file, "read"):
+            try:
+                return native.read_matrix(
+                    os.fspath(path_or_file), gzipped=gzipped,
+                    index_dtype=index_dtype, value_dtype=value_dtype)
+            except native.NativeUnsupported:
+                if use_native:
+                    raise
+        elif use_native:
+            raise RuntimeError("native MM parser requested but unavailable")
+
     f = _open_stream(path_or_file, gzipped)
     try:
         hdr = read_header(f)
@@ -263,11 +284,26 @@ def write_vector(f_or_path, y: np.ndarray) -> None:
             f.close()
 
 
+# Matrices with at least this many entries written to a path go through the
+# native writer, whose shortest round-trip values read back as exactly as
+# ``%.17g``'s.
+NATIVE_WRITE_MIN_ENTRIES = 1_000_000
+
+
 def write_matrix(f_or_path, coo: CooMatrix) -> None:
     """Write a CooMatrix in coordinate format (1-based), values with
     ``%.17g`` so that they read back exactly. The reference has no matrix
-    writer; tests and the smoke run use this one to make files."""
+    writer; tests and the smoke run use this one to make files. Large
+    matrices written to a path take the native bulk writer where the host
+    library is available."""
     own = not hasattr(f_or_path, "write")
+    if own and len(coo.rowidx) >= NATIVE_WRITE_MIN_ENTRIES:
+        if native.available():
+            native.write_coo(f_or_path, coo.num_rows, coo.num_columns,
+                             coo.rowidx, coo.colidx,
+                             None if coo.field == "pattern" else coo.values,
+                             symmetric=coo.symmetry == "symmetric")
+            return
     f = open(f_or_path, "w") if own else f_or_path
     try:
         field = "pattern" if coo.field == "pattern" else "real"

@@ -51,6 +51,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ellspmv_tpu_torch.io import native
 from ellspmv_tpu_torch.ops import _build
 from ellspmv_tpu_torch.ops.ell_cuda import check_tensors
 from ellspmv_tpu_torch.ops.permute import (BLOCK, apply_permute,
@@ -206,7 +207,7 @@ def _build_level(dest: np.ndarray, n_rows: int, cap: int,
                                                           copy=False)
 
     # rank of each entry within its row, by position order (stable)
-    order = np.argsort(rows_v, kind="stable")
+    order = native.argsort(rows_v)
     starts = np.concatenate([[0], np.cumsum(counts)]).astype(idt)
     rank_sorted = np.arange(len(vpos), dtype=idt) - starts[rows_v[order]]
     rank = np.empty(len(vpos), idt)

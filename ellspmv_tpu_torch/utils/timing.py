@@ -41,3 +41,39 @@ class PhaseTimer:
                 return False
 
         return _Ctx()
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Milliseconds per call of `fn` on the current card: three calls to
+    warm up, then `iters` calls between CUDA events (the host's launch path
+    included where it outlasts the device)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time per call of `fn`, with the host's launch path taken out:
+    `iters` calls captured in one CUDA graph, replayed between CUDA
+    events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, 5) / iters

@@ -82,17 +82,17 @@ def test_only_the_chosen_matrix_is_built(monkeypatch):
     assert dia._auto_choice == "dia"
 
 
-def test_padding_blowup_is_not_yet_ported(monkeypatch):
+def test_blowup_takes_the_stream_where_jax_takes_sell(monkeypatch):
     # one row of 300 entries over 20,000 rows of one: ELLPACK would hold
     # 6M slots for 20,299 nonzeros. Both choosers price the SELL split
-    # against the stream format here (the name is from before the port had
-    # the SELL split). The port takes the stream format, which moves fewer
-    # bytes (the SELL split pads its one long row's three sub-rows to two
-    # slices of 1024 rows) and whose K1 launch is one round where SELL's
-    # 128-wide sub-row bucket is 32; JAX takes the SELL split by its v5e
-    # prices (a known divergence, ROADMAP F8). The card ran the stream
-    # format faster: 0.0124 ms fp64 against SELL's 0.0450 (f32 0.0119
-    # against 0.0334; NVIDIA H100 80GB HBM3, 700 W, in a CUDA graph)
+    # against the stream format here. The port takes the stream format,
+    # which moves fewer bytes (the SELL split pads its one long row's three
+    # sub-rows to two slices of 1024 rows) and whose K1 launch is one round
+    # where SELL's 128-wide sub-row bucket is 32; JAX takes the SELL split
+    # by its v5e prices (a known divergence, ROADMAP F8). The card ran the
+    # stream format faster: 0.0124 ms fp64 against SELL's 0.0450 (f32
+    # 0.0119 against 0.0334; NVIDIA H100 80GB HBM3, 700 W, in a CUDA
+    # graph)
     monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
     n = 20_000
     rows = np.concatenate([np.arange(n), np.zeros(299, np.int64)])

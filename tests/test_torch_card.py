@@ -33,7 +33,8 @@ from ellspmv_tpu_torch.ops import (_build, dot_cuda, ell_cuda, permute,
 from ellspmv_tpu_torch.ops.csr import csr_spmv, csr_spmv_segment, to_sell
 from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv
 from torch_cases import (CSR_CASES, PLAN_CASES, PRODUCT_CASES,
-                               SELL_CASES, SPMV_CASES, assert_rows_close,
+                               SELL_CASES, SPMV_CASES, assert_deep_equal,
+                               assert_rows_close,
                                dest_chunked, gather_pipeline_spmv,
                                general_targets, random_coo, spmv_inputs)
 
@@ -315,6 +316,78 @@ def test_permute_kernel_matches_plain_on_card(dtype):
     torch.cuda.synchronize()
     assert permute.launches == before + 1
     assert torch.equal(got, permute.apply_permute_torch(src, payload))
+
+
+# -- the native host path (``io/native.py``) ---------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+def test_native_read_and_pack_on_card(precision, tmp_path, monkeypatch):
+    """A file written and read by the native library, then packed natively
+    on the card, equals the NumPy reader's and packer's bit for bit, and K1
+    computes the same y from both."""
+    _needs_card()
+    from ellspmv_tpu_torch.io import mtx, native
+    from ellspmv_tpu_torch.models.generators import fem_mesh_2d
+    assert native.available()
+    coo = fem_mesh_2d(300, 300, extras=5, seed=1)   # 90,000 rows: threads
+    path = str(tmp_path / "mesh.mtx")
+    native.write_coo(path, coo.num_rows, coo.num_columns, coo.rowidx,
+                     coo.colidx, coo.values)
+    read = mtx.read_matrix(path, use_native=True)
+    assert_deep_equal(read, mtx.read_matrix(path, use_native=False), "coo")
+    assert_deep_equal(read, coo, "coo")
+    got = ell_from_coo(read, sort_rows=True, value_dtype=precision,
+                       device="cuda")
+    monkeypatch.setattr(native, "available", lambda: False)
+    want = ell_from_coo(read, sort_rows=True, value_dtype=precision,
+                        device="cuda")
+    assert_deep_equal(got, want, "ell")
+    x = torch.from_numpy(np.random.RandomState(40).rand(
+        coo.num_columns)).cuda().to(got.values.dtype)
+    assert torch.equal(ell_spmv(got, x), ell_spmv(want, x))
+
+
+@pytest.mark.cuda
+def test_native_stream_plan_on_card(monkeypatch):
+    """The stream format built on the card with the native argsort equals
+    the one built with NumPy's, and so does its y."""
+    _needs_card()
+    from ellspmv_tpu_torch.formats.stream import stream_from_coo
+    from ellspmv_tpu_torch.io import native
+    coo = power_law(30_000, 6, seed=2)
+    got = stream_from_coo(coo, device="cuda")
+    monkeypatch.setattr(native, "available", lambda: False)
+    want = stream_from_coo(coo, device="cuda")
+    assert_deep_equal(got, want, "stream")
+    x = torch.from_numpy(np.random.RandomState(41).rand(
+        coo.num_columns)).cuda()
+    assert torch.equal(stream_spmv(got, x), stream_spmv(want, x))
+
+
+# -- the calibration (``bench/calibrate.py``) ---------------------------------
+
+@pytest.mark.cuda
+def test_calibrate_saves_what_the_pricing_reads(tmp_path, monkeypatch):
+    """``python -m ellspmv_tpu_torch.bench.calibrate``'s `main` measures the
+    card, caches its values under the card's name, and the chooser's
+    pricing then reads them: K1's round latency fp64 and f32."""
+    _needs_card()
+    from ellspmv_tpu_torch import config
+    from ellspmv_tpu_torch.bench import calibrate
+    from ellspmv_tpu_torch.utils import calibration
+    monkeypatch.setattr(calibration, "CACHE_PATH", tmp_path / "calib.json")
+    calibrate.inject(None)
+    assert calibrate.main([]) == 0
+    card = torch.cuda.get_device_name(0)
+    saved = calibration.load()[card]
+    assert set(saved) == {*calibrate.K1_ROUND.values(), calibrate.RATE}
+    assert config.k1_geometry("cuda")[0] == \
+        saved[calibrate.K1_ROUND["float64"]]
+    assert config.k1_geometry("cuda", torch.float32)[0] == \
+        saved[calibrate.K1_ROUND["float32"]]
+    assert config.pricing_rate("cuda") == config.HBM_PEAK_BYTES_PER_S.get(
+        card, saved[calibrate.RATE])
 
 
 # -- over ranks sharing the card (``parallel/``) ------------------------------

@@ -6,6 +6,8 @@ CPU tensors only and refuses what the kernel does not take; the kernel itself
 is checked on the card (the ``cuda`` test below, and ``chip_smoke.py``).
 """
 
+import ast
+import collections
 import json
 import os
 import subprocess
@@ -39,6 +41,8 @@ names = ["ellspmv_tpu_torch", "chip_smoke"] + [
                                           "ellspmv_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+from ellspmv_tpu_torch.io import native
+native_after_import = sorted(native._state)
 
 import torch
 from ellspmv_tpu_torch.formats.auto import auto_from_coo
@@ -82,16 +86,20 @@ print(json.dumps({"modules": names, "bad": bad,
                   "stream_launches": permute.launches + stream_sum.launches,
                   "chosen": dia._auto_choice,
                   "probe_launches": ell_cuda.probe_launches,
+                  "native_after_import": native_after_import,
+                  "native_state": {k: repr(v)
+                                   for k, v in native._state.items()},
                   "probed": len(ell_cuda.FMA_PROBE_RESULTS)}))
 """
 
 
 @pytest.fixture(scope="module")
 def child():
-    """One fresh interpreter on a PATH without nvcc and a CUDA_HOME that does
-    not exist, as on a machine without the CUDA toolkit."""
+    """One fresh interpreter on a PATH without nvcc or g++ and a CUDA_HOME
+    that does not exist, as on a machine without the CUDA toolkit and a
+    C++ compiler."""
     env = dict(os.environ, CUDA_HOME=os.path.join(REPO, "no-such-cuda"),
-               PATH=os.path.dirname(sys.executable))
+               PATH=os.path.join(REPO, "no-such-bin"))
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -134,7 +142,11 @@ def test_port_imports_no_jax(child):
                 "ellspmv_tpu_torch.parallel.spmv",
                 "ellspmv_tpu_torch.parallel.stream",
                 "ellspmv_tpu_torch.parallel.solver",
-                "ellspmv_tpu_torch.parallel.dryrun"}
+                "ellspmv_tpu_torch.parallel.dryrun",
+                "ellspmv_tpu_torch.io.native",
+                "ellspmv_tpu_torch.bench.calibrate",
+                "ellspmv_tpu_torch.bench.reference_scale",
+                "ellspmv_tpu_torch.utils.calibration"}
     assert expected <= set(child["modules"])
 
 
@@ -168,6 +180,35 @@ def test_import_without_nvcc_builds_nothing(child):
     assert child["hub"] and child["hybrid"] == child["streamed"]
     # the fp64 path probes only a card; the CPU runs the plain versions
     assert child["probe_launches"] == 0 and child["probed"] == 0
+
+
+def test_import_without_a_compiler_builds_no_host_library(child):
+    """Importing runs no C++ compiler (a subprocess would have failed the
+    child); without one the CPU paths above took their NumPy versions."""
+    assert child["native_after_import"] == []
+    assert child["native_state"] == {"lib": "None"}
+
+
+def test_each_module_defines_a_name_once():
+    """No module of the port, nor ``chip_smoke.py``, defines a function or
+    class twice at its top level: the later one would silently replace the
+    earlier for every caller, and most of ``chip_smoke.py`` runs only on
+    the card."""
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(root, f)
+        for root, _, files in os.walk(os.path.join(REPO, "ellspmv_tpu_torch"))
+        for f in files if f.endswith(".py")]
+    twice = {}
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        names = collections.Counter(
+            node.name for node in tree.body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)))
+        dup = sorted(n for n, k in names.items() if k > 1)
+        if dup:
+            twice[os.path.relpath(path, REPO)] = dup
+    assert twice == {}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

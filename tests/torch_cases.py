@@ -3,8 +3,11 @@ package, shared by the tests that hold the port against the JAX package
 (``test_torch_stream.py``) and the card tests (``test_torch_card.py``),
 which run where jax is not installed: sum plans (`PLAN_CASES`), stream
 SpMV cases (`SPMV_CASES`), a gather's targets, the stream pipeline that
-gathers every level first, CSR and SELL cases, and `random_coo`, the
-port's copy of ``tests/conftest.random_coo`` (the same draws)."""
+gathers every level first, CSR and SELL cases, `random_coo`, the
+port's copy of ``tests/conftest.random_coo`` (the same draws), and
+`assert_deep_equal` for plans built two ways."""
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -19,6 +22,27 @@ from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
 from ellspmv_tpu_torch.ops.reference import coo_spmv_numpy
 
 TOLERANCE = {"float64": 1e-13, "float32": 1e-5, "bfloat16": 1e-2}
+
+
+def assert_deep_equal(a, b, where="plan"):
+    """`a` and `b` equal field for field, arrays and tensors bit for bit
+    and of one type."""
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        assert type(a) is type(b), where
+        for f in dataclasses.fields(a):
+            assert_deep_equal(getattr(a, f.name), getattr(b, f.name),
+                              f"{where}.{f.name}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_deep_equal(x, y, f"{where}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b), where
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    else:
+        assert a == b, where
 
 
 def random_coo(rng, n, m, nnz, symmetric=False, with_dups=False,
