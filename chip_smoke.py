@@ -86,12 +86,18 @@ Phases, each of which exits non-zero on failure:
    benchmark_spmv per_iter, repeat 10, warmup 2), the headline path
    (auto_from_coo, which must choose DIA, benchmark_spmv chained), each in
    fp64 and f32, 1000 sampled rows held against the oracle, and the solver
-   path (``cgsolve.solve``, b = ones: fp64 at tol 1e-8, f32 at tol 1e-4,
-   x held by its true residual over all rows; the fp64 solve again with the
-   plain versions on the card, whose iterations and x it must match, and
-   once under ``torch.profiler``, whose device times split an iteration
-   into K1, the dot kernel and the rest against the host clock), with the
-   kernels' launch counts set to 0 before each path and read after it;
+   path (``cgsolve.solve``: ``traceable_spmv`` and `cg`, one masked CG
+   step captured in a CUDA graph and replayed; b = ones: fp64 at tol 1e-8,
+   f32 at tol 1e-4, x held by its true residual over all rows, the launches
+   counted through the replays, at most two masked steps; the fp64 solve
+   again against `cg_eager`, the loop launched eagerly, bit for bit, and
+   with the plain versions on the card, whose iterations and x it must
+   match; each loop's time per iteration, the slope of solves of 20 and 220
+   steps that never converge; and the captured loop under
+   ``torch.profiler``, whose device times in the replays split a step into
+   K1, the dot kernel and the rest against the host clock: the busy
+   share), with the kernels' launch counts set to 0 before each path and
+   read after it;
    then the headline program once (its ``main``, as ``python -m
    ellspmv_tpu_torch.bench.headline`` runs it), its JSON line echoed; then the stream path at config3's full width,
    power_law(1,000,000, 8) (7,049,701 nonzeros, the webbase-1M class):
@@ -160,8 +166,11 @@ Phases, each of which exits non-zero on failure:
    --device=cpu --devices=4 -v`` on a fem_mesh_2d(256) file against the
    oracle (the ``cuda`` tests over 1, 2 and 4 ranks run in phase 3);
 8. the benchmark suite (``python -m ellspmv_tpu_torch.bench.suite --json``,
-   run in this process): every row at full scale, each timed row's y held
-   against the oracle on every row (fp64, 1e-13 of sum |a*x|), the triad
+   run in this process): every row at full scale, its chained loop
+   captured in CUDA graphs, each timed row's y held against the oracle on
+   every row (fp64, 1e-13 of sum |a*x|) and its slope timed again with
+   every iteration launched eagerly (its launches kept out of the
+   suite's), the triad
    beside the data sheet, config3-10x's normwise error beside the JAX
    package's, the config3 and config3-10x plan seconds (native argsort);
    config4 skips on one card.
@@ -235,6 +244,9 @@ CG_SETTINGS = {"float64": (1e-8, 1000), "float32": (1e-4, 1000)}
 # x of the fp64 solve with the kernels against the one with the plain
 # versions, relative to max |x|.
 CG_X_TOLERANCE = 1e-10
+# CG's time per iteration: the slope of solves of these many steps that
+# never converge (tol 0), captured and launched eagerly.
+CG_SLOPE_STEPS = (20, 220)
 # NVIDIA H100 SXM data sheet, dense, outside the tensor cores: the
 # operations bound of the kernels (their bytes bound is far larger).
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
@@ -865,17 +877,22 @@ def phase_headline_path(coo, x64, sample, device="cuda"):
 
 
 def phase_cg_path(coo, peak_bw, device="cuda"):
-    """The solver path (`cgsolve`'s body, `cli.cgsolve.solve`) at full size,
-    b = ones, fp64 and f32, each x held by its true residual over all rows;
-    then the fp64 solve with the plain versions on the card, which must
-    take the same iterations (within 1) to the same x."""
+    """The solver path (`cgsolve`'s body, `cli.cgsolve.solve`: the captured
+    `cg` over `traceable_spmv`) at full size, b = ones, fp64 and f32, each
+    x held by its true residual over all rows, the launches counted through
+    the graph's replays; then the fp64 solve captured against the same
+    solve launched eagerly (`cg_eager`), bit for bit, and with the plain
+    versions on the card, which must take the same iterations (within 1)
+    to the same x; then each loop's time per iteration (the slope of two
+    solves that never converge) and the captured loop under the
+    profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ellspmv_tpu_torch.cli.cgsolve import solve
     from ellspmv_tpu_torch.formats.ell import ell_from_coo
-    from ellspmv_tpu_torch.models.solvers import cg
-    from ellspmv_tpu_torch.ops.dispatch import spmv
+    from ellspmv_tpu_torch.models.solvers import STEPS_AHEAD, cg, cg_eager
+    from ellspmv_tpu_torch.ops.dispatch import traceable_spmv
     from ellspmv_tpu_torch.ops.dot_cuda import vdot_torch
     from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
 
@@ -894,9 +911,10 @@ def phase_cg_path(coo, peak_bw, device="cuda"):
         grew = _counts()
         rel = true_residual(coo, x, b)
         per_iter = seconds / max(res.iterations, 1)
-        log(f"  CG {prec}: {res.iterations} iterations, residual_norm "
+        log(f"  CG {prec}: {res.iterations} iterations ({res.steps} steps, "
+            f"{res.steps - res.iterations} masked), residual_norm "
             f"{res.residual_norm:.3e}, true residual {rel:.3e} of ||b|| "
-            f"(tol {10 * tol:g}); {seconds:.6f} s in CG, "
+            f"(tol {10 * tol:g}); {seconds:.6f} s in CG with its capture, "
             f"{per_iter * 1e3:.4f} ms per iteration; solve() {wall:.1f} s "
             f"with set-up; peak device memory "
             f"{torch.cuda.max_memory_allocated():,} bytes ({held:,} held "
@@ -906,55 +924,78 @@ def phase_cg_path(coo, peak_bw, device="cuda"):
         check(res.residual_norm <= 10 * tol * np.linalg.norm(b),
               f"CG {prec}: cgsolve would exit 2 (residual_norm "
               f"{res.residual_norm:.3e})")
-        k = res.iterations
+        check(0 <= res.steps - res.iterations <= STEPS_AHEAD,
+              f"CG {prec}: {res.steps} steps for {res.iterations} "
+              "iterations")
+        # K1: traceable_spmv's first call, r = b - A*x0, then one a step
+        # (masked ones too); K6: two before the loop, two a step; the
+        # steps' kernels counted through the graph's replays
+        steps = res.steps
         if prec == "float64":
-            check(grew["dot"] == 2 + 2 * k and grew["ell_spmv"] == 1 + k
+            check(grew["dot"] == 2 + 2 * steps
+                  and grew["ell_spmv"] == 2 + steps
                   and grew["fma_probe"] == 1,
-                  f"CG fp64: launches {grew}, expected {2 + 2 * k} dot, "
-                  f"{1 + k} ell_spmv and 1 fma_probe")
+                  f"CG fp64: launches {grew}, expected {2 + 2 * steps} dot, "
+                  f"{2 + steps} ell_spmv and 1 fma_probe")
         else:
-            check(grew["dot"] == 0 and grew["ell_spmv"] == 1 + k,
+            check(grew["dot"] == 0 and grew["ell_spmv"] == 2 + steps,
                   f"CG f32: launches {grew}")
         if prec == "float64":
-            x64, k64 = x, k
+            x64, k64 = x, res.iterations
         counts[prec] = grew
-    # the fp64 solve again on one ELL: with the kernels, timed alone and
-    # then under the profiler, and with the plain versions
+    # the fp64 solve again on one ELL: captured, eagerly, with the plain
+    # versions; then the time per iteration of each loop
     tol, maxiter = CG_SETTINGS["float64"]
     ell = ell_from_coo(coo, sort_rows=True, value_dtype="float64",
                        device=device)
+    operand, fn = traceable_spmv(ell)
     bt = torch.ones(n, dtype=torch.float64, device=device)
 
-    def timed(matvec, vdot=None):
+    def timed(solver, matvec=lambda op, v: fn(op, v), **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = cg(matvec, bt, tol=tol, maxiter=maxiter, vdot=vdot)
-        return res, time.perf_counter() - t0    # cg ends in a host read
+        res = solver(matvec, bt, operand=operand, **kw)
+        return res, time.perf_counter() - t0    # a solve ends in host reads
 
-    mine, seconds = timed(lambda v: spmv(ell, v))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        profiled, _ = timed(lambda v: spmv(ell, v))
+    mine, seconds = timed(cg, tol=tol, maxiter=maxiter)
+    eager, eager_seconds = timed(cg_eager, tol=tol, maxiter=maxiter)
+    check(mine.iterations == eager.iterations and torch.equal(mine.x, eager.x)
+          and mine.residual_norm == eager.residual_norm,
+          "CG: the captured solve differs from the eager loop's")
     before = _counts()
-    plain, plain_seconds = timed(lambda v: ell_spmv_torch(ell, v),
-                                 vdot_torch)
+    plain, plain_seconds = timed(cg, lambda op, v: ell_spmv_torch(op, v),
+                                 tol=tol, maxiter=maxiter, vdot=vdot_torch)
     check(_counts() == before, "the plain solve launched a kernel")
     x_plain = plain.x.cpu().numpy()
     dx = float(np.max(np.abs(x64 - x_plain)) / np.max(np.abs(x_plain)))
     k = mine.iterations
-    log(f"  CG float64 on one ELL: {k} iterations with the kernels in "
-        f"{seconds:.6f} s ({seconds / k * 1e3:.4f} ms per iteration), "
-        f"{profiled.iterations} under the profiler; {plain.iterations} with "
-        f"the plain versions in {plain_seconds:.6f} s "
-        f"({plain_seconds / plain.iterations * 1e3:.4f} ms per iteration); "
-        f"max |x - x_plain| {dx:.3e} of max |x| (tol {CG_X_TOLERANCE:g})")
-    check(abs(plain.iterations - k) <= 1 and profiled.iterations == k
-          and k == k64,
+    log(f"  CG float64 on one ELL: {k} iterations captured in {seconds:.6f} "
+        f"s with the capture ({mine.steps - k} masked steps after "
+        f"convergence), bit-equal to the eager loop's {eager.iterations} "
+        f"in {eager_seconds:.6f} s; {plain.iterations} with the plain "
+        f"versions in {plain_seconds:.6f} s; max |x - x_plain| {dx:.3e} of "
+        f"max |x| (tol {CG_X_TOLERANCE:g})")
+    check(abs(plain.iterations - k) <= 1 and k == k64,
           "CG: the iterations of the kernels' and the plain versions' "
           "solves differ by more than 1")
     check(dx <= CG_X_TOLERANCE, f"CG: x differs from the plain solve's by "
                                 f"{dx:.3e}")
-    cg_iteration_breakdown(prof, ell, k, seconds, peak_bw)
+    lo, hi = CG_SLOPE_STEPS
+    slope = {}
+    for name, solver in (("captured", cg), ("eager", cg_eager)):
+        spans = [min(timed(solver, tol=0.0, maxiter=m)[1] for _ in range(2))
+                 for m in (lo, hi)]
+        slope[name] = (spans[1] - spans[0]) / (hi - lo)
+    log(f"  CG float64 per iteration (the slope of {lo} and {hi} steps that "
+        f"never converge, tol 0, best of 2): captured "
+        f"{slope['captured'] * 1e3:.4f} ms, launched eagerly "
+        f"{slope['eager'] * 1e3:.4f} ms "
+        f"({slope['eager'] / slope['captured']:.2f}x)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled, _ = timed(cg, tol=0.0, maxiter=hi)
+    cg_iteration_breakdown(prof, ell, profiled.steps, slope["captured"],
+                           peak_bw)
     return counts
 
 
@@ -973,12 +1014,13 @@ def device_times_us(prof) -> dict:
     return out
 
 
-def cg_iteration_breakdown(prof, ell, iterations, seconds, peak_bw):
-    """One fp64 CG iteration at full size: the host clock's seconds per
-    iteration against the device time the profiler saw, split into K1, K6
-    and the rest (vector updates, scalar ops, the copy of the convergence
-    test), and against the bytes bound. Both include the set-up before the
-    loop (one K1, two K6), spread over the iterations."""
+def cg_iteration_breakdown(prof, ell, steps, seconds, peak_bw):
+    """One fp64 CG step at full size: `seconds`, the captured loop's time
+    per step, against the device time per step the profiler saw over a
+    captured solve of `steps` steps, split into K1, K6 and the rest (vector
+    updates, scalar ops, the flag's copy to the host); the busy share, and
+    the bytes bound. The device time includes the set-up before the loop
+    (one K1, two K6), spread over the steps."""
     from ellspmv_tpu_torch.bench.traffic import cg_iteration_bytes
     times = device_times_us(prof)
     groups = {"K1": 0.0, "K6": 0.0, "rest": 0.0}
@@ -987,25 +1029,26 @@ def cg_iteration_breakdown(prof, ell, iterations, seconds, peak_bw):
                  "K6" if "dot_partial_kernel" in key
                  or "dot_final_kernel" in key else "rest")
         groups[group] += us
-    per_iter_ms = seconds / iterations * 1e3
+    per_iter_ms = seconds * 1e3
     nbytes = cg_iteration_bytes(ell)
     bound_ms = nbytes / peak_bw * 1e3
-    device_ms = sum(groups.values()) / iterations / 1e3
+    device_ms = sum(groups.values()) / steps / 1e3
     if device_ms == 0:
-        log("  CG float64 iteration: the profiler saw no device time; the "
-            "kernels' share is not measured")
+        log("  CG float64 step: the profiler saw no device time in the "
+            "graph's replays; the busy share is not measured")
         return
-    split = {g: us / iterations / 1e3 for g, us in groups.items()}
+    split = {g: us / steps / 1e3 for g, us in groups.items()}
     k6_calls = sum(c for key, (c, _) in times.items()
                    if "dot_partial_kernel" in key)
-    log(f"  CG float64 iteration: {per_iter_ms:.4f} ms on the host clock; "
-        f"device {device_ms:.4f} ms ({100 * device_ms / per_iter_ms:.1f}%: "
-        f"K1 {split['K1']:.4f}, K6 {split['K6']:.4f} "
-        f"({groups['K6'] / max(k6_calls, 1):.2f} us per dot), the rest "
-        f"{split['rest']:.4f}); host and idle {per_iter_ms - device_ms:.4f} "
-        f"ms ({100 * (1 - device_ms / per_iter_ms):.1f}%); bytes bound "
+    log(f"  CG float64 step, captured: {per_iter_ms:.4f} ms a step on the "
+        f"host clock; device {device_ms:.4f} ms (busy "
+        f"{100 * device_ms / per_iter_ms:.1f}%: K1 {split['K1']:.4f}, K6 "
+        f"{split['K6']:.4f} ({groups['K6'] / max(k6_calls, 1):.2f} us per "
+        f"dot), the rest {split['rest']:.4f}); idle "
+        f"{per_iter_ms - device_ms:.4f} ms "
+        f"({100 * (1 - device_ms / per_iter_ms):.1f}%); bytes bound "
         f"{bound_ms:.4f} ms ({nbytes:,} bytes), "
-        f"{100 * bound_ms / per_iter_ms:.1f}% of the iteration")
+        f"{100 * bound_ms / per_iter_ms:.1f}% of the step")
     for key, (count, us) in sorted(times.items(), key=lambda t: -t[1][1]):
         log(f"    device: {us / count:9.2f} us x {count:4d}  {key[:90]}")
 
@@ -3120,12 +3163,17 @@ def phase_suite(timing, peak_bw):
     Returns the rows and the counts."""
     import torch
 
+    from ellspmv_tpu_torch.bench.harness import (_chained, _chained_start,
+                                                 _eager_loop)
     from ellspmv_tpu_torch.bench.suite import run_suite
     from ellspmv_tpu_torch.ops.dispatch import spmv
 
+    eager, aside = {}, dict.fromkeys(_counts(), 0)
+
     def hold(name, coo, matrix, x64):
         t0 = time.perf_counter()
-        got = spmv(matrix, torch.from_numpy(x64).cuda())
+        x = torch.from_numpy(x64).cuda()
+        got = spmv(matrix, x)
         want, scale = row_oracle(coo, x64)
         err = _row_err(got.double().cpu().numpy(), want, scale)
         log(f"  suite {name}: all {coo.num_rows:,} rows against the oracle: "
@@ -3133,13 +3181,26 @@ def phase_suite(timing, peak_bw):
             f"{time.perf_counter() - t0:.1f} s)")
         check(err <= TOLERANCE["float64"],
               f"suite {name}: rows disagree with the oracle: {err:.3e}")
+        # the same protocol with each iteration launched eagerly, as the
+        # suite timed it before the loop was captured; its launches are
+        # not the suite's
+        mark = _counts()
+        loop = _eager_loop(spmv, matrix, *_chained_start(matrix, x, None))
+        eager[name] = _chained(loop, x.device, 8, 2, torch.cuda.synchronize)
+        for k, v in _counts().items():
+            aside[k] += v - mark[k]
 
     _reset_counts()
     rows = run_suite(quick=False, as_json=True, stream=LogStream("  suite: "),
                      device="cuda", check=hold)
-    counts = _counts()
-    log(f"  suite: launches {counts}")
+    counts = {k: v - aside[k] for k, v in _counts().items()}
+    log(f"  suite: launches {counts} (and {aside} in the eager slopes)")
     by = {r["config"]: r for r in rows}
+    for name, (slope, _, span) in eager.items():
+        captured = by[name]["best_s"]
+        log(f"  suite {name}: chained slope {captured * 1e3:.4f} ms captured "
+            f"(CUDA graphs), {slope * 1e3:.4f} ms launched eagerly over a "
+            f"{span}-iteration span ({slope / captured:.2f}x)")
     err10 = by["config3-10x stream oracle"]["normwise_err"]
     log(f"  suite: config3-10x normwise error {err10:.3e} (the JAX package: "
         f"{JAX_10X_ERR[0]:.1e}-{JAX_10X_ERR[1]:.1e}, ROADMAP F2)")

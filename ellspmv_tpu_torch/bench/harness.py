@@ -47,24 +47,31 @@ Two timing protocols:
 - ``chained``: y accumulates with a serial dependency, ``x <- 1e-6*y_new``
   after each multiply, in loops of two lengths; the slope of their times is
   the time per iteration, so what is constant per loop (the first launch,
-  the final synchronise) drops out. On a CUDA device each loop is timed
-  with CUDA events around the whole loop and no host synchronise inside
-  it. The slope includes the ``x <- 1e-6*y`` pass (2*rows*sv bytes). fp64
-  carries native fp64 (the JAX package carries double-double pairs on the
-  TPU).
+  the final synchronise) drops out. As in the JAX package, whose loop is
+  one ``jax.jit`` of a ``lax.fori_loop``, the slope is device time per
+  iteration: on a CUDA device the loop runs in blocks of `CHAINED_BLOCK`
+  iterations and single ones, each captured once in a CUDA graph
+  (``utils/graphs.py``; the matrix through ``ops.dispatch.traceable_spmv``
+  unless the caller gives `spmv_fn`), and each loop is timed with CUDA
+  events around graph replays alone. The slope includes the ``x <-
+  1e-6*y`` pass (2*rows*sv bytes). On the CPU the same blocks run eagerly.
+  fp64 carries native fp64 (the JAX package carries double-double pairs on
+  the TPU).
 
 On the CPU both protocols time with the host clock.
 
 Over ranks (``parallel/``, `benchmark_sharded`) every timed call includes
 the allgather of x, as the JAX package's sharded call does: per_iter
 brackets each rank's call with CUDA events after a barrier, and chained
-makes each rank's y block its next x block (square matrices). Every time
+makes each rank's y block its next x block (square matrices), launched
+eagerly: a CUDA graph cannot hold the ranks' gloo collectives. Every time
 is the maximum over the ranks (the reference's region ends at the team's
 barrier), so the ranks take the same decisions and report the same times.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -84,6 +91,12 @@ from ellspmv_tpu_torch.formats.stream import StreamMatrix
 # The chained protocol's carry scale: small enough that ||A||*scale < 1 for
 # any realistic matrix, so y cannot overflow in long loops.
 CHAINED_SCALE = 1e-6
+# Iterations of the chained loop in one captured block. A block ends with
+# one copy of y into its static buffer, 2*rows*sv bytes per block: 0.25
+# bytes a row per iteration at 64, 0.3% of the fewest any suite row moves
+# (config1's DIA: five diagonals, x, y in and out and the x <- 1e-6*y pass,
+# 80 bytes a row in fp64; halved with the copy in f32).
+CHAINED_BLOCK = 64
 
 
 @dataclasses.dataclass
@@ -299,32 +312,84 @@ def _chained_start(matrix, x, y):
                          if y is None else y.to(dtype))
 
 
-def _chained(spmv_fn, matrix, x0, y0, repeat, warmup, sync, agree=None):
-    """The slope of two chained loop lengths from `x0` and `y0`, best of 3,
-    with one rescale towards a 0.3 s span (at most 4096 iterations);
-    returns the time per iteration, the y of the last long loop and its
-    length. `agree` maps each measured loop time to the one every rank
-    uses (their maximum), so that ranks take the same decisions."""
-    agree = agree or (lambda t: t)
+def _eager_loop(spmv_fn, matrix, x0, y0):
+    """The chained loop as eager launches, one `spmv_fn` call and one scale
+    per iteration: (start, run), where `start()` sets x to `x0` and
+    `run(iters)` runs `iters` iterations from `y0`, returning y."""
     xk = torch.empty_like(x0)      # the loop writes x here: no allocation
 
     def run(iters):
-        xk.copy_(x0)
         yk = y0
         for _ in range(iters):
             yk = spmv_fn(matrix, xk, yk)
             torch.mul(yk, CHAINED_SCALE, out=xk)   # the serial dependency
         return yk
 
-    def timed(iters):
+    return (lambda: xk.copy_(x0)), run
+
+
+@contextlib.contextmanager
+def _block_loop(spmv_fn, matrix, x0, y0):
+    """The chained loop in blocks: `iters` = q*CHAINED_BLOCK + r runs as q
+    blocks of CHAINED_BLOCK iterations and r single ones, each ending with
+    y copied into its static buffer. On a card each of the two is captured
+    once in a CUDA graph and replayed, so that a timed loop holds only
+    replays; on the CPU they run eagerly. Yields (start, run) as
+    `_eager_loop` returns them (`run` returns the static y); frees the
+    graphs on exit."""
+    xk, yk = x0.clone(), y0.clone()
+
+    def block(iters):
+        def body():
+            y = yk
+            for _ in range(iters):
+                y = spmv_fn(matrix, xk, y)
+                torch.mul(y, CHAINED_SCALE, out=xk)
+            yk.copy_(y)
+        return body
+
+    with contextlib.ExitStack() as graphs:
         if x0.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
+            from ellspmv_tpu_torch.utils.graphs import Graph
+            many, one = (graphs.enter_context(Graph(block(n), x0.device))
+                         .replay for n in (CHAINED_BLOCK, 1))
+        else:
+            many, one = block(CHAINED_BLOCK), block(1)
+
+        def start():
+            xk.copy_(x0)
+            yk.copy_(y0)
+
+        def run(iters):
+            for _ in range(iters // CHAINED_BLOCK):
+                many()
+            for _ in range(iters % CHAINED_BLOCK):
+                one()
+            return yk
+
+        yield start, run
+
+
+def _chained(loop, device, repeat, warmup, sync, agree=None):
+    """The slope of two chained loop lengths of `loop` (`_eager_loop`'s or
+    `_block_loop`'s (start, run)) on `device`, best of 3, with one rescale
+    towards a 0.3 s span (at most 4096 iterations); returns the time per
+    iteration, the y of the last long loop and its length. `agree` maps
+    each measured loop time to the one every rank uses (their maximum), so
+    that ranks take the same decisions."""
+    agree = agree or (lambda t: t)
+    start, run = loop
+
+    def timed(iters):
+        start()
+        if device.type == "cuda":
+            begin = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            begin.record()
             out = run(iters)
             end.record()
             sync()
-            return agree(start.elapsed_time(end) * 1e-3), out
+            return agree(begin.elapsed_time(end) * 1e-3), out
         t0 = time.perf_counter()
         out = run(iters)
         return agree(time.perf_counter() - t0), out
@@ -354,11 +419,18 @@ def benchmark_spmv(spmv_fn: Callable | None, matrix, x: torch.Tensor,
                    warmup: int = 0, protocol: str = "per_iter",
                    metrics: SpmvMetrics | None = None) -> BenchResult:
     """Benchmark `spmv_fn(matrix, x, y) -> y_new` on the device of `x`
-    (`spmv_fn=None` uses the library dispatch) under `protocol`; `metrics`
-    defaults to the matrix's own accounting."""
+    (`spmv_fn=None` uses the library dispatch, and under the chained
+    protocol its traceable form) under `protocol`; `metrics` defaults to
+    the matrix's own accounting. Under the chained protocol on a card
+    `spmv_fn` is captured in CUDA graphs, so it must be capturable (the
+    dispatch is, once `traceable_spmv` has made its first call)."""
     if metrics is None:
         metrics = SpmvMetrics.for_matrix(matrix)
-    if spmv_fn is None:
+    operand = matrix
+    if spmv_fn is None and protocol == "chained":
+        from ellspmv_tpu_torch.ops.dispatch import traceable_spmv
+        operand, spmv_fn = traceable_spmv(matrix)
+    elif spmv_fn is None:
         from ellspmv_tpu_torch.ops.dispatch import spmv as spmv_fn
     cuda = x.device.type == "cuda"
 
@@ -372,9 +444,10 @@ def benchmark_spmv(spmv_fn: Callable | None, matrix, x: torch.Tensor,
         times, yk = _per_iter(spmv_fn, matrix, x, y, repeat, warmup, sync)
         warning = _dispatch_warning(min(times), dispatch_round_trip(x.device))
     elif protocol == "chained":
-        per_iter, yk, span = _chained(spmv_fn, matrix,
-                                      *_chained_start(matrix, x, y), repeat,
-                                      warmup, sync)
+        with _block_loop(spmv_fn, operand,
+                         *_chained_start(matrix, x, y)) as loop:
+            per_iter, yk, span = _chained(loop, x.device, repeat, warmup,
+                                          sync)
         times = [per_iter] * repeat
     else:
         raise ValueError(f"unknown protocol {protocol!r}")
@@ -400,25 +473,21 @@ def shard_kernel_seconds(shard, x_full, backend: str = "auto",
         return local_spmv(shard, x_full, None, backend)
 
     if x_full.device.type == "cuda":
-        side = torch.cuda.Stream(x_full.device)
-        side.wait_stream(torch.cuda.current_stream(x_full.device))
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                once()
-        torch.cuda.current_stream(x_full.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        from ellspmv_tpu_torch.utils.graphs import Graph
+
+        def body():
             for _ in range(calls):
                 once()
         best = float("inf")
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            torch.cuda.synchronize(x_full.device)
-            best = min(best, start.elapsed_time(end) * 1e-3 / calls)
+        with Graph(body, x_full.device) as graph:
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                graph.replay()
+                end.record()
+                torch.cuda.synchronize(x_full.device)
+                best = min(best, start.elapsed_time(end) * 1e-3 / calls)
         return best
 
     def loop(iters):
@@ -477,8 +546,8 @@ def shard_bench_task(rank, shard, x_block, y_block, repeat: int,
             y0 = (torch.zeros(shard.block, dtype=dtype, device=device)
                   if y is None else y.to(dtype))
             per_iter, yk, span = _chained(
-                spmv_fn, shard, x.to(dtype), y0, repeat, warmup, sync,
-                agree=lambda t: max_over_ranks([t])[0])
+                _eager_loop(spmv_fn, shard, x.to(dtype), y0), device, repeat,
+                warmup, sync, agree=lambda t: max_over_ranks([t])[0])
             times = [per_iter] * repeat
     after = kernel_launches()
     seconds = None

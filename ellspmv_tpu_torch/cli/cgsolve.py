@@ -29,8 +29,10 @@ def solve(coo, b: np.ndarray, tol: float = 1e-8, maxiter: int = 1000,
           precision: str = "float64", reorder: str = "none",
           device="cuda", devices: list[str] | None = None):
     """Solve A x = b for the square COO `coo` on `device`: optional RCM
-    reordering of A and b, sorted-row ELL, CG through `ops.dispatch.spmv`;
-    or, given `devices` (``parallel.mesh.placement``), the ELL built on the
+    reordering of A and b, sorted-row ELL, CG (``models.solvers.cg``, on a
+    card captured in a CUDA graph) through ``ops.dispatch.traceable_spmv``,
+    as the JAX program solves through its traceable form in one jit; or,
+    given `devices` (``parallel.mesh.placement``), the ELL built on the
     host, row-sharded and solved over one rank per entry.
 
     Returns x in the original order (float64 NumPy), the `CgResult` and
@@ -40,7 +42,7 @@ def solve(coo, b: np.ndarray, tol: float = 1e-8, maxiter: int = 1000,
     from ellspmv_tpu_torch.config import value_dtype
     from ellspmv_tpu_torch.formats.ell import ell_from_coo
     from ellspmv_tpu_torch.models.solvers import cg
-    from ellspmv_tpu_torch.ops.dispatch import spmv
+    from ellspmv_tpu_torch.ops.dispatch import traceable_spmv
 
     b = b.astype(precision)
     rm = None
@@ -56,8 +58,10 @@ def solve(coo, b: np.ndarray, tol: float = 1e-8, maxiter: int = 1000,
         ell = ell_from_coo(coo, sort_rows=True, value_dtype=precision,
                            device=device)
         bt = torch.from_numpy(b).to(device).to(value_dtype(precision))
+        operand, fn = traceable_spmv(ell)
         t0 = time.perf_counter()
-        res = cg(lambda v: spmv(ell, v), bt, tol=tol, maxiter=maxiter)
+        res = cg(lambda op, v: fn(op, v), bt, tol=tol, maxiter=maxiter,
+                 operand=operand)
         x = res.x.double().cpu().numpy()
         seconds = time.perf_counter() - t0
     if rm is not None:

@@ -50,9 +50,10 @@ class SellMatrix:
     """`order[t]` is the place of original tile t among the buckets'
     concatenated tiles; `row_unperm` maps the length-sorted rows back to
     natural order (None without `length_sort`); `extra_rows` is the
-    original row of each extra sub-row (None where nothing was split) and
-    `num_sub_rows` the row count with them. The index arrays are int64
-    tensors on the matrix's device."""
+    original row of each extra sub-row (None where nothing was split),
+    `extra_owners` the rows that have any, ascending, and `extra_counts`
+    how many each has; `num_sub_rows` is the row count with them. The
+    index arrays are int64 tensors on the matrix's device."""
 
     buckets: list                 # list[EllMatrix], one per width
     order: torch.Tensor           # (T,)
@@ -64,6 +65,8 @@ class SellMatrix:
     row_unperm: torch.Tensor | None = None
     extra_rows: torch.Tensor | None = None
     num_sub_rows: int | None = None
+    extra_owners: torch.Tensor | None = None
+    extra_counts: torch.Tensor | None = None
     #: One bucket in natural tile order and nothing else to reassemble:
     #: `sell_spmv` is then one K1 launch. Worked out from the fields when
     #: not given (None); `to` carries it, so that no call reads `order`
@@ -104,7 +107,9 @@ class SellMatrix:
             self, buckets=[b.to(device) for b in self.buckets],
             order=self.order.to(device), tail=move(self.tail),
             row_unperm=move(self.row_unperm),
-            extra_rows=move(self.extra_rows))
+            extra_rows=move(self.extra_rows),
+            extra_owners=move(self.extra_owners),
+            extra_counts=move(self.extra_counts))
 
 
 def sell_from_coo(coo: CooMatrix, slice_rows: int = 1024,
@@ -166,7 +171,9 @@ def sell_from_coo(coo: CooMatrix, slice_rows: int = 1024,
             return dataclasses.replace(
                 sm, num_rows=n, num_nonzeros=nnz_total,
                 extra_rows=index(np.repeat(np.arange(n), nextra)),
-                num_sub_rows=num_sub, trivial_reassembly=False)
+                num_sub_rows=num_sub, trivial_reassembly=False,
+                extra_owners=index(np.flatnonzero(nextra)),
+                extra_counts=index(nextra[nextra > 0]))
 
     row_unperm = None
     if length_sort and n:
@@ -288,8 +295,11 @@ def sell_spmv(sm: SellMatrix, x: torch.Tensor,
               backend: str = "auto") -> torch.Tensor:
     """y := A*x + y: K1 per bucket (`bucket_spmv` of `backend`), then the
     JAX package's reassembly (the tiles in `order`, the tail, `row_unperm`,
-    the extra sub-rows summed with ``index_add_`` and added to their rows,
-    y), in the values' type."""
+    the extra sub-rows summed in order and added to their rows, y), in the
+    values' type. Every sum is deterministic: each row's extra sub-rows go
+    through one segmented sum (``torch.segment_reduce``, one sequential sum
+    a row on the CPU as the JAX package's ``segment_sum`` there), where
+    ``index_add_``'s atomics on a card would add them in a varying order."""
     dtype = sm.values.dtype
     x = x.to(dtype)
     n = sm.num_rows
@@ -309,9 +319,11 @@ def sell_spmv(sm: SellMatrix, x: torch.Tensor,
     else:
         out = out[:sm.num_sub_rows if sm.num_sub_rows is not None else n]
     if sm.extra_rows is not None:
-        # each row's extra sub-rows summed in order, then added to it, as
-        # the JAX package's segment_sum and add
-        extras = out.new_zeros(n).index_add_(0, sm.extra_rows, out[n:])
-        out = out[:n] + extras
+        # each row's extra sub-rows (contiguous, in order) summed, then
+        # added to it, as the JAX package's segment_sum and add; one add
+        # to each owner, so the atomics of `index_add` cannot reorder it
+        sums = torch.segment_reduce(out[n:], "sum", lengths=sm.extra_counts,
+                                    unsafe=True)
+        out = out[:n].index_add(0, sm.extra_owners, sums)
     return out if y is None else out + y.to(dtype)
 

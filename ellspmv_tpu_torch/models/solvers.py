@@ -1,12 +1,20 @@
 """Conjugate gradient over the SpMV kernels, the counterpart of
 ``ellspmv_tpu.models.solvers.cg``.
 
-The JAX solver runs its loop inside one ``lax.while_loop``; PyTorch runs
-eagerly, so this loop is Python. α and β stay on the device as 0-d tensors,
-and the vector updates take them as tensors, so the one host read per
-iteration is the convergence test ``rs > tol2``. That read synchronises with
-the card once per iteration; a CUDA graph, or testing only every few
-iterations, would remove it (later work, see PERF.md).
+The JAX solver runs its loop inside one ``lax.while_loop``, the convergence
+test on the device. `cg` is its counterpart: one CG step (`masked_step`),
+masked by a flag on the device, captured once in a CUDA graph
+(``utils/graphs.py``) and replayed. Once the flag ``r·r > tol²·(b·b)``
+falls, a step leaves x, r, r·r and the iteration count as they are, so the
+host need not read the flag before it queues the next step: it reads the
+flag of the step `STEPS_AHEAD` behind the newest, through pinned memory,
+and at most that many masked steps run after convergence. On the CPU the
+same step runs eagerly and the flag is read after each step.
+
+`cg_eager` is the loop that tests convergence on the host before every
+iteration: the sharded solver runs it (its dots and allgathers cross
+processes over gloo, which a graph cannot hold), and the card tests hold
+`cg` against it, bit for bit.
 
 fp64 dot products go through the hand-written kernel K6 (`ops.dot_cuda`,
 the counterpart of the Pallas double-double ``dd_vdot``); float32 ones
@@ -19,17 +27,76 @@ same thing, so they have no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import torch
 
 from ellspmv_tpu_torch.ops import dot_cuda
 
+#: Steps the card runs ahead of the host's convergence test in `cg`.
+STEPS_AHEAD = 2
+
 
 class CgResult(NamedTuple):
     x: torch.Tensor
     iterations: int
     residual_norm: float   # sqrt(r.r) of the recursive residual r
+    steps: int | None = None   # `cg`: the steps run, masked ones included
+
+
+class CgState(NamedTuple):
+    """CG's tensors on the device, which `masked_step` updates in place: x,
+    the residual r, the direction p, rs = r·r, tol2 = tol²·(b·b), the
+    iterations k (int32) and the flag ``active = rs > tol2``."""
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rs: torch.Tensor
+    tol2: torch.Tensor
+    k: torch.Tensor
+    active: torch.Tensor
+
+
+def _operators(matvec, b, operand, vdot):
+    mv = (lambda v: matvec(operand, v)) if operand is not None else matvec
+    if vdot is None:
+        vdot = dot_cuda.vdot if b.dtype == torch.float64 else torch.dot
+    return mv, vdot
+
+
+def cg_start(mv: Callable, vdot: Callable, b: torch.Tensor,
+             x0: torch.Tensor | None, tol: float) -> CgState:
+    """r = b - A·x0, p = r, rs = r·r, tol2 = tol²·(b·b), k = 0."""
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    r = b - mv(x)
+    p = r.clone()
+    rs = vdot(r, r)
+    tol2 = torch.tensor(tol, dtype=rs.dtype, device=rs.device) ** 2 \
+        * vdot(b, b)
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    return CgState(x, r, p, rs, tol2, k, rs > tol2)
+
+
+def masked_step(s: CgState, mv: Callable, vdot: Callable):
+    """One CG step on `s`, in place, masked by ``s.active``: where it holds,
+    the ops and values of `cg_eager`'s iteration, and the count goes up;
+    where it does not, α and β are 0, so x, r, rs and k keep their values
+    (and their bits, but that a zero entry of x or r may change sign, which
+    only a -0 in b or x0 can start) and p becomes r, finite, so nothing
+    overflows however many masked steps run. Then ``s.active`` becomes
+    ``rs > tol2``."""
+    ap = mv(s.p)
+    alpha = torch.where(s.active, s.rs / vdot(s.p, ap), 0.0)
+    s.x.addcmul_(alpha, s.p)                     # x += alpha * p
+    s.r.addcmul_(alpha, ap, value=-1)            # r -= alpha * ap
+    rs_new = vdot(s.r, s.r)
+    # p = r + (rs_new/rs) * p
+    torch.addcmul(s.r, torch.where(s.active, rs_new / s.rs, 0.0), s.p,
+                  out=s.p)
+    torch.where(s.active, rs_new, s.rs, out=s.rs)
+    s.k.add_(s.active)
+    torch.gt(s.rs, s.tol2, out=s.active)
 
 
 def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
@@ -38,20 +105,59 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
     """Conjugate gradient for SPD A, starting from r = b - A·x0, p = r.
 
     Stops when r·r <= tol²·(b·b) or after `maxiter` iterations. `matvec(v)`
-    returns A·v, or `matvec(operand, v)` when `operand` is given. `vdot`
-    replaces the dot product (default: K6 for fp64 vectors, ``torch.dot``
-    otherwise); the smoke run passes the plain versions through `matvec`
-    and `vdot` to solve the same system without the kernels.
-    """
-    mv = (lambda v: matvec(operand, v)) if operand is not None else matvec
-    if vdot is None:
-        vdot = dot_cuda.vdot if b.dtype == torch.float64 else torch.dot
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    r = b - mv(x)
-    p = r.clone()
-    rs = vdot(r, r)
-    tol2 = torch.tensor(tol, dtype=rs.dtype, device=rs.device) ** 2 \
-        * vdot(b, b)
+    returns A·v, or `matvec(operand, v)` when `operand` is given; on a card
+    it is captured in a CUDA graph, so it must be capturable (as
+    ``ops.dispatch.traceable_spmv``'s is). `vdot` replaces the dot product
+    (default: K6 for fp64 vectors, ``torch.dot`` otherwise); the smoke run
+    passes the plain versions through `matvec` and `vdot` to solve the same
+    system without the kernels. Iterations, x and the residual equal
+    `cg_eager`'s bit for bit."""
+    mv, vdot = _operators(matvec, b, operand, vdot)
+    s = cg_start(mv, vdot, b, x0, tol)
+    cuda = b.device.type == "cuda"
+    flag = torch.empty((), dtype=torch.bool, pin_memory=cuda)
+
+    def step():
+        masked_step(s, mv, vdot)
+        flag.copy_(s.active, non_blocking=True)
+
+    flag.copy_(s.active)              # step 0's flag, read synchronously
+    ahead = STEPS_AHEAD if cuda else 0
+    done = [torch.cuda.Event() for _ in range(ahead + 1)] if cuda else []
+    steps, run = 0, step
+    with contextlib.ExitStack() as graphs:
+        if cuda and maxiter > 0:
+            from ellspmv_tpu_torch.utils.graphs import Graph
+            # the capture's warm-up runs the first step
+            run = graphs.enter_context(Graph(step, b.device)).replay
+            steps = 1
+            done[1].record()
+        while steps < maxiter:
+            if steps >= ahead:
+                if cuda and steps > ahead:
+                    done[(steps - ahead) % (ahead + 1)].synchronize()
+                # the flag of that step, or of a later one: it only falls
+                if not bool(flag):
+                    break
+            run()
+            steps += 1
+            if cuda:
+                done[steps % (ahead + 1)].record()
+        iterations = int(s.k)
+    return CgResult(x=s.x, iterations=iterations,
+                    residual_norm=float(torch.sqrt(s.rs)), steps=steps)
+
+
+def cg_eager(matvec: Callable, b: torch.Tensor,
+             x0: torch.Tensor | None = None, tol: float = 1e-8,
+             maxiter: int = 1000, operand=None,
+             vdot: Callable | None = None) -> CgResult:
+    """`cg`'s solve as a loop launched eagerly that reads the convergence
+    test ``rs > tol2`` on the host before every iteration: α and β stay on
+    the device as 0-d tensors, so that is its one synchronisation an
+    iteration. `matvec` need not be capturable."""
+    mv, vdot = _operators(matvec, b, operand, vdot)
+    x, r, p, rs, tol2, _, _ = cg_start(mv, vdot, b, x0, tol)
     k = 0
     while k < maxiter and bool(rs > tol2):
         ap = mv(p)

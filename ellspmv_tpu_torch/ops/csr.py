@@ -10,7 +10,7 @@ and y follow as an epilogue (csrgemvsd's semantics, csrspmv.c:1598-1629).
 every bucket is a K1 launch.
 
 `csr_spmv_segment` is the segment-sum form (a product per stored entry,
-then a sum by row id): the SELL format's CSR tail and the tests use it. It
+then a sum by row): the SELL format's CSR tail and the tests use it. It
 is plain PyTorch on any device, as in the JAX package it is XLA, not a
 Pallas kernel.
 """
@@ -26,13 +26,18 @@ from ellspmv_tpu_torch.formats.csr import CsrMatrix
 def csr_spmv_segment(csr: CsrMatrix, x: torch.Tensor,
                      y: torch.Tensor | None = None) -> torch.Tensor:
     """y := A*x + y in the values' type: y plus the row sums of the
-    products ``values * x[colidx]`` (``index_add_`` by row id), then the
-    split diagonal, as ``csr_xla._csr_spmv`` orders them."""
+    products ``values * x[colidx]``, then the split diagonal, as
+    ``csr_xla._csr_spmv`` orders them. The row sums are one segmented sum
+    over `rowptr` (``torch.segment_reduce``: one sequential sum a row on
+    the CPU, as the JAX package's ``segment_sum`` there, and deterministic
+    on a card, where ``index_add_``'s atomics add in a varying order)."""
     n, dtype = csr.num_rows, csr.values.dtype
     x = x.to(dtype)
     out = x.new_zeros(n)
     if csr.csrsize:
-        out.index_add_(0, csr.rowids, csr.values * x[csr.colidx])
+        out = torch.segment_reduce(csr.values * x[csr.colidx], "sum",
+                                   lengths=csr.rowptr[1:] - csr.rowptr[:-1],
+                                   unsafe=True)
     if y is not None:
         out = y.to(dtype) + out
     return _add_diagonal(csr, x, out)

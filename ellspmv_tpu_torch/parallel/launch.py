@@ -72,12 +72,9 @@ class Rank:
 
 def kernel_launches() -> dict[str, int]:
     """The launch counts of every kernel wrapper in this process."""
-    from ellspmv_tpu_torch.ops import (dia_cuda, dot_cuda, ell_cuda, permute,
-                                       stream_sum)
-    return {"ell_spmv": ell_cuda.launches, "dia_spmv": dia_cuda.launches,
-            "fma_probe": ell_cuda.probe_launches, "dot": dot_cuda.launches,
-            "permute": permute.launches, "stream_sum": stream_sum.launches,
-            "stream_sum_src": stream_sum.src_launches}
+    from ellspmv_tpu_torch.ops import launch_counters
+    return {name: getattr(module, attr)
+            for name, (module, attr) in launch_counters().items()}
 
 
 def loaded_modules(rank: Rank) -> list[str]:

@@ -1,5 +1,5 @@
 """Conjugate gradient over a row-sharded matrix: the CG of
-``models/solvers.cg`` on every rank's blocks.
+``models/solvers.cg_eager`` on every rank's blocks.
 
 Counterpart of the JAX package's generic sharded CG (``models.solvers.cg``
 over ``parallel.spmv.sharded_spmv_fn``, the solve of ``cgsolve
@@ -22,7 +22,7 @@ import time
 
 import torch
 
-from ellspmv_tpu_torch.models.solvers import CgResult, cg
+from ellspmv_tpu_torch.models.solvers import CgResult, cg_eager
 from ellspmv_tpu_torch.parallel.launch import Rank, RankPool, kernel_launches
 from ellspmv_tpu_torch.parallel.spmv import Shard, ShardedMatrix, sharded_spmv
 
@@ -42,11 +42,14 @@ def sharded_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def cg_sharded(shard: Shard, b: torch.Tensor, tol: float = 1e-8,
                maxiter: int = 1000) -> CgResult:
     """In a rank: CG for the square SPD matrix of `shard` with this rank's
-    block of b; returns this rank's block of x."""
+    block of b; returns this rank's block of x. The loop is `cg_eager`'s,
+    launched eagerly: its matvec's allgather and its dots' all_reduce are
+    collectives between the ranks' processes, which a CUDA graph cannot
+    hold over gloo (NCCL's capture is later work, ROADMAP)."""
     if shard.x_block != shard.block:
         raise ValueError("CG needs a square (SPD) matrix")
-    return cg(lambda v: sharded_spmv(shard, v), b, tol=tol, maxiter=maxiter,
-              vdot=sharded_vdot)
+    return cg_eager(lambda v: sharded_spmv(shard, v), b, tol=tol,
+                    maxiter=maxiter, vdot=sharded_vdot)
 
 
 def cg_task(rank: Rank, shard: Shard, b_block: torch.Tensor, tol: float,

@@ -63,17 +63,14 @@ def time_ms(fn, iters: int = 20) -> float:
 
 def graph_ms(fn, iters: int = 20) -> float:
     """Device time per call of `fn`, with the host's launch path taken out:
-    `iters` calls captured in one CUDA graph, replayed between CUDA
-    events."""
+    `iters` calls captured in one CUDA graph (``utils/graphs.py``), replayed
+    between CUDA events."""
     import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+
+    from ellspmv_tpu_torch.utils.graphs import Graph
+
+    def body():
         for _ in range(iters):
             fn()
-    return time_ms(graph.replay, 5) / iters
+    with Graph(body, torch.cuda.current_device()) as graph:
+        return time_ms(graph.replay, 5) / iters

@@ -9,7 +9,9 @@ CHANGE, CHANGE, PARENT, a process of its own runs that checkout's
 ``chip_smoke.py`` timing phases: the ELL and headline paths and their
 timing at fem_mesh_2d(1440) (K1, K2, K6, K7), then the stream path and its
 timing at config3, power_law(1,000,000, 8) (K3 in place and through its
-maps, the gather, the stream path). Each run prints one JSON line,
+maps, the gather, the stream path), then the hybrid path and its timing
+there (its K1 buckets, the gather and the SELL reassembly, on the device
+and eagerly: lines of the log). Each run prints one JSON line,
 ``{"tree": ..., "turn": i, "ms": {"<kernel> <precision>": ms}}``, and
 keeps its whole log in DIR (default: chiprun_out). Each checkout builds
 its own kernels. Two cards differ: compare two versions only within one
@@ -49,6 +51,8 @@ scale = coo_spmv_numpy(CooMatrix(pl.num_rows, pl.num_columns, pl.rowidx,
                                  pl.colidx, np.abs(pl.values)), x)
 runs, _ = cs.phase_stream_path(pl, x, want, scale)
 timing.update(cs.phase_stream_timing(pl, runs, 3.35e12))
+hybrid_runs, _ = cs.phase_hybrid_path(pl, x, want, scale)
+cs.phase_hybrid_timing(pl, hybrid_runs, runs, 3.35e12)
 print("TIMES " + json.dumps({f"{k[0]} {k[1]}": v["ms"]
                              for k, v in timing.items() if "ms" in v}))
 """

@@ -10,16 +10,24 @@ This file imports neither jax nor the JAX package and uses no fixture of
 (``chip_smoke.py`` runs that on the card). Every input comes from a numpy
 seed (``tests/torch_cases.py``). Off a card each test skips, and a skip is
 no pass. Tolerances, per row relative to sum |a*x| + |y| (or the vectors'
-sum |x*y| for the dot): fp64 1e-13, f32 1e-5, bf16 1e-2."""
+sum |x*y| for the dot): fp64 1e-13, f32 1e-5, bf16 1e-2. The loops
+captured in CUDA graphs (the chained protocol's blocks, CG) are held
+against the same loops launched eagerly, bit for bit."""
 
 import ctypes
 import dataclasses
 import math
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
 import torch
 
+from ellspmv_tpu_torch.bench.harness import (CHAINED_BLOCK, _block_loop,
+                                             _eager_loop)
 from ellspmv_tpu_torch.formats.csr import csr_from_coo
 from ellspmv_tpu_torch.formats.ell import ell_from_coo
 from ellspmv_tpu_torch.formats.hybrid import (hybrid_from_coo, hybrid_spmv,
@@ -27,16 +35,23 @@ from ellspmv_tpu_torch.formats.hybrid import (hybrid_from_coo, hybrid_spmv,
 from ellspmv_tpu_torch.formats.sell import kernel_launches as sell_launches
 from ellspmv_tpu_torch.formats.sell import sell_from_coo, sell_spmv
 from ellspmv_tpu_torch.formats.stream import column_order_products, stream_spmv
-from ellspmv_tpu_torch.models.generators import banded_random, power_law
+from ellspmv_tpu_torch.models.generators import (banded_random, fem_mesh_2d,
+                                                 power_law)
+from ellspmv_tpu_torch.models.solvers import STEPS_AHEAD, cg, cg_eager
 from ellspmv_tpu_torch.ops import (_build, dot_cuda, ell_cuda, permute,
                                    stream_sum)
 from ellspmv_tpu_torch.ops.csr import csr_spmv, csr_spmv_segment, to_sell
+from ellspmv_tpu_torch.ops.dispatch import traceable_spmv
 from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv
+from ellspmv_tpu_torch.parallel.launch import kernel_launches as launch_counts
 from torch_cases import (CSR_CASES, PLAN_CASES, PRODUCT_CASES,
-                               SELL_CASES, SPMV_CASES, assert_deep_equal,
-                               assert_rows_close,
+                               SELL_CASES, SPMV_CASES, TRACEABLE_CASES,
+                               assert_deep_equal, assert_rows_close,
                                dest_chunked, gather_pipeline_spmv,
-                               general_targets, random_coo, spmv_inputs)
+                               general_targets, random_coo, spmv_inputs,
+                               traceable_case)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _needs_card():
@@ -458,3 +473,104 @@ def test_collectives_take_card_tensors(card_pool):
     world = card_pool.world
     assert out == [{"gathered": True,
                     "reduced": float(world * (world - 1) // 2)}] * world
+
+
+# -- the loops captured in CUDA graphs: the chained protocol and CG ----------
+
+def _grew(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["auto", "xla"])
+@pytest.mark.parametrize("name", sorted(TRACEABLE_CASES))
+def test_captured_chained_loop_equals_eager_on_card(name, backend):
+    """Two blocks and five single iterations replayed from their graphs
+    give the eager loop's y bit for bit, twice, and the replays count the
+    kernels that the eager loop launches."""
+    _needs_card()
+    _, matrix, x, y = traceable_case(name, device="cuda")
+    operand, fn = traceable_spmv(matrix, backend)
+    iters = 2 * CHAINED_BLOCK + 5
+    start, run = _eager_loop(fn, operand, x, y)
+    start()
+    before = launch_counts()
+    want = run(iters)
+    torch.cuda.synchronize()
+    eager = _grew(before, launch_counts())
+    assert backend == "xla" or eager
+    with _block_loop(fn, operand, x, y) as (start, run):
+        for _ in range(2):
+            start()
+            before = launch_counts()
+            got = run(iters)
+            torch.cuda.synchronize()
+            assert _grew(before, launch_counts()) == eager
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+def test_captured_cg_equals_eager_on_card(precision):
+    """`cg` (one masked step captured and replayed, the flag read two steps
+    behind) against `cg_eager`: the same iterations, x and residual, bit
+    for bit; at most STEPS_AHEAD masked steps; the kernels' launches
+    counted through the replays; `maxiter` honoured; a converged start
+    left as it is."""
+    _needs_card()
+    ell = ell_from_coo(fem_mesh_2d(64), sort_rows=True, value_dtype=precision,
+                       device="cuda")
+    operand, fn = traceable_spmv(ell)
+    b = torch.from_numpy(np.random.RandomState(8).rand(ell.num_rows)).to(
+        "cuda", ell.values.dtype)
+    tol = 1e-8 if precision == "float64" else 1e-4
+
+    def solve(solver, **kw):
+        return solver(lambda op, v: fn(op, v), b, operand=operand, **kw)
+    want = solve(cg_eager, tol=tol)
+    before = launch_counts()
+    got = solve(cg, tol=tol)
+    grew = _grew(before, launch_counts())
+    assert got.iterations == want.iterations > STEPS_AHEAD
+    assert torch.equal(got.x, want.x)
+    assert got.residual_norm == want.residual_norm
+    assert want.iterations <= got.steps <= want.iterations + STEPS_AHEAD
+    # K1 once for r = b - A*x0 and once a step; K6 twice before, twice a step
+    assert grew["ell_spmv"] == 1 + got.steps
+    assert grew.get("dot", 0) == (2 + 2 * got.steps
+                                  if precision == "float64" else 0)
+    for maxiter in (1, 2, want.iterations - 1):
+        got = solve(cg, tol=tol, maxiter=maxiter)
+        want = solve(cg_eager, tol=tol, maxiter=maxiter)
+        assert got.iterations == got.steps == want.iterations == maxiter
+        assert torch.equal(got.x, want.x)
+    done = solve(cg, tol=tol)
+    again = solve(cg, x0=done.x, tol=100 * tol)
+    assert again.iterations == 0 and again.steps <= STEPS_AHEAD
+    assert torch.equal(again.x, done.x)
+
+
+CAPTURES_A_HOST_READ = textwrap.dedent("""
+    import torch
+    from ellspmv_tpu_torch.utils.graphs import Graph
+    x = torch.ones(8, device="cuda")
+    try:
+        Graph(lambda: x.sum().item(), "cuda")
+    except RuntimeError as e:
+        print("raised:", str(e).splitlines()[0])
+        raise SystemExit(0)
+    raise SystemExit(3)
+""")
+
+
+@pytest.mark.cuda
+def test_capturing_a_host_read_raises_on_card():
+    """`utils/graphs.Graph` raises where the body reads the host, and does
+    not fall back to eager launches. In a child process: a failed capture
+    may leave the process's CUDA context unusable."""
+    _needs_card()
+    proc = subprocess.run([sys.executable, "-c", CAPTURES_A_HOST_READ],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("raised:")

@@ -3,7 +3,8 @@ package, shared by the tests that hold the port against the JAX package
 (``test_torch_stream.py``) and the card tests (``test_torch_card.py``),
 which run where jax is not installed: sum plans (`PLAN_CASES`), stream
 SpMV cases (`SPMV_CASES`), a gather's targets, the stream pipeline that
-gathers every level first, CSR and SELL cases, `random_coo`, the
+gathers every level first, CSR and SELL cases, one square matrix of each
+format for the traceable SpMV (`TRACEABLE_CASES`), `random_coo`, the
 port's copy of ``tests/conftest.random_coo`` (the same draws), and
 `assert_deep_equal` for plans built two ways."""
 
@@ -13,6 +14,11 @@ import numpy as np
 import torch
 
 from ellspmv_tpu_torch.formats.coo import CooMatrix
+from ellspmv_tpu_torch.formats.csr import csr_from_coo
+from ellspmv_tpu_torch.formats.dia import dia_from_coo
+from ellspmv_tpu_torch.formats.ell import ell_from_coo
+from ellspmv_tpu_torch.formats.hybrid import hybrid_from_coo
+from ellspmv_tpu_torch.formats.sell import sell_from_coo
 from ellspmv_tpu_torch.formats.stream import (column_order_products,
                                               stream_from_coo)
 from ellspmv_tpu_torch.models.generators import (dense_rows, fem_mesh_2d,
@@ -312,3 +318,47 @@ SELL_CASES = {
                        index_dtype="int64")),
     "banded_trivial": (lambda: fem_mesh_2d(32), {}),
 }
+
+
+# name -> (COO factory, format, its constructor's keywords): a square matrix
+# of every format that ``ops.dispatch.traceable_spmv`` takes, on each branch
+# of its SpMV (the chained loop's x is its y, so every one is square)
+TRACEABLE_CASES = {
+    "ell": (rng_coo(300, 300, 2400), "ell", {"sort_rows": True}),
+    "ell_diagonal": (rng_coo(300, 300, 2400), "ell",
+                     {"separate_diagonal": True}),
+    "dia": (lambda: fem_mesh_2d(16), "dia", {}),
+    "sell_split": (lambda: power_law(3000, 8, seed=1), "sell",
+                   dict(slice_rows=256, tail_cap=16)),
+    "sell_tail": (lambda: power_law(3000, 8, seed=1), "sell",
+                  dict(slice_rows=256, tail_cap=16, split_rows=False)),
+    "sell_length_sort": (lambda: power_law(2000, 8, seed=6), "sell",
+                         dict(slice_rows=128, length_sort=True)),
+    "sell_trivial": (lambda: fem_mesh_2d(32), "sell", {}),
+    "csr": (rng_coo(300, 300, 2400, with_dups=True), "csr", {}),
+    "csr_diagonal": (rng_coo(300, 300, 2400), "csr",
+                     {"separate_diagonal": True}),
+    "hybrid": (lambda: power_law(4000, 8, seed=1), "hybrid",
+               dict(hub_width=512, slice_rows=256, tail_cap=16)),
+    "stream": (lambda: power_law(2000, 6, seed=5), "stream", {"cap": 8}),
+    "stream_diagonal": (rng_coo(300, 300, 2400), "stream",
+                        {"separate_diagonal": True}),
+}
+
+TRACEABLE_CONSTRUCTORS = {"ell": ell_from_coo, "dia": dia_from_coo,
+                      "sell": sell_from_coo, "csr": csr_from_coo,
+                      "hybrid": hybrid_from_coo, "stream": stream_from_coo}
+
+
+def traceable_case(name, precision="float64", device="cpu"):
+    """The COO of `TRACEABLE_CASES`' case `name`, its matrix in `precision`
+    on `device`, and seeded x and y in the matrix's value type."""
+    make, fmt, kw = TRACEABLE_CASES[name]
+    coo = make()
+    matrix = TRACEABLE_CONSTRUCTORS[fmt](coo, value_dtype=precision, **kw)
+    matrix = matrix.to(device)
+    dtype = (matrix.data if fmt == "dia" else matrix.values).dtype
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(rng.rand(coo.num_columns)).to(device, dtype)
+    y = torch.from_numpy(rng.randn(coo.num_rows)).to(device, dtype)
+    return coo, matrix, x, y
