@@ -154,9 +154,21 @@ Phases, each of which exits non-zero on failure:
    one launch;
 7. multi-device (``ellspmv_tpu_torch/parallel/``): fem_mesh_2d(1440) fp64
    ELL over NCCL at world size 1, its y bit-equal to the one-device
-   ``ell_spmv`` and both timed; four ranks sharing the card over gloo: the
-   fem ELL in fp64 and f32 (y bit-equal to the one-device port), the
-   config2 CSR with the nonzeros partition and config3's stream format
+   ``ell_spmv`` and both timed per_iter; then the loops through
+   ``parallel/spmv.sharded_spmv_fn`` over NCCL: the chained slope with its
+   blocks captured in CUDA graphs that hold the allgather
+   (``benchmark_sharded``) and launched eagerly, beside the one-device
+   captured slope, each y bit-equal to the one-device recurrence of its
+   length; CG (b = ones, tol 1e-8) captured, one masked step with the
+   allgather and the all_reduces, and eager (``solve_sharded``), each x
+   bit-equal to the one-device captured `cg`'s, the iterations and steps
+   of the rank (two masked captured), each loop's ms a step (the slope of
+   solves of 20 and 220 steps that never converge) and the captured
+   loop's busy share in the rank's ``torch.profiler`` trace, each beside
+   the card's name and power limit; four ranks sharing the card over
+   gloo, their loops launched eagerly: the fem ELL in fp64 and f32 (y
+   bit-equal to the one-device port), the config2 CSR with the nonzeros
+   partition and config3's stream format
    under the rows and the nonzeros partitions (every row against the
    oracle), CG (true residual, iterations within 1 of one device), each
    with its workload table, each rank's kernels alone and the allgather's
@@ -2933,16 +2945,159 @@ def _ranks_report(label, res, sharded, gather_s):
     log(f"    slowest rank alone / mean: {max(times) / np.mean(times):.3f}")
 
 
+def one_device_chained(matrix, x, iters):
+    """y after `iters` iterations of the chained recurrence from (x, 0) on
+    one device, in the harness's captured blocks."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.harness import _block_loop
+    from ellspmv_tpu_torch.ops.dispatch import traceable_spmv
+    operand, fn = traceable_spmv(matrix)
+    with _block_loop(fn, operand, x, torch.zeros_like(x)) as (start, run):
+        start()
+        return run(iters).cpu()
+
+
+def trace_device_us(trace_dir) -> dict:
+    """Device time (us) and count by group (K1, K6, NCCL, the rest) of the
+    kernels, copies and sets in the Chrome traces under `trace_dir`."""
+    out = {"K1": [0, 0.0], "K6": [0, 0.0], "NCCL": [0, 0.0],
+           "rest": [0, 0.0]}
+    for name in os.listdir(trace_dir):
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f).get("traceEvents", [])
+        for ev in events:
+            if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+                continue
+            key = ev.get("name", "")
+            group = ("K1" if "ell_spmv_kernel" in key else
+                     "K6" if "dot_partial_kernel" in key
+                     or "dot_final_kernel" in key else
+                     "NCCL" if "nccl" in key.lower() else "rest")
+            out[group][0] += 1
+            out[group][1] += float(ev.get("dur", 0.0))
+    return out
+
+
+def nccl_captured_loops(pool, sm, card, x64, one_chained, device="cuda"):
+    """(a), the loops over NCCL at world size 1 on fem_mesh_2d(1440) fp64
+    ELL: the chained slope with its blocks captured in CUDA graphs that
+    hold the allgather, and launched eagerly, beside the one-device
+    captured slope, each y bit-equal to the one-device recurrence of its
+    length; CG captured (one masked step with the allgather and the
+    all_reduces) and eager, each x bit-equal to the one-device captured
+    `cg`, the same iterations on every rank, two masked steps captured;
+    each loop's ms a step (the slope of solves of CG_SLOPE_STEPS steps
+    that never converge) and the captured loop's busy share under
+    ``torch.profiler`` (the rank's trace). Returns the ranks' launches."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.harness import (benchmark_sharded,
+                                                 shard_bench_task)
+    from ellspmv_tpu_torch.models.solvers import STEPS_AHEAD, cg
+    from ellspmv_tpu_torch.ops.dispatch import traceable_spmv
+    from ellspmv_tpu_torch.parallel.solver import solve_sharded
+
+    t0 = time.perf_counter()
+    xc = x64.to(device)
+    captured = benchmark_sharded(pool, sm, x64, repeat=10, warmup=2,
+                                 protocol="chained", matrix=card)
+    # the same protocol with every iteration launched eagerly, as gloo
+    # ranks sharing a card run it
+    eager = pool.run(shard_bench_task, [(sm.shards[0], sm.split_x(x64)[0],
+                                        None, 10, 2, "chained", "auto",
+                                        False, None, True)])[0]
+    totals = captured.rank_launches + [eager["launches"]]
+    runs = {"captured": (captured.best, captured.span_iters, captured.y),
+            "eager": (eager["times"][0], eager["span"],
+                      sm.join_y([eager["y"]]))}
+    for name, (_, span, y) in runs.items():
+        iters = 2 + span          # _chained's first length (warmup 2) + span
+        check(torch.equal(y, one_device_chained(card, xc, iters)),
+              f"(a) chained over NCCL, {name}: y differs from the one-device"
+              f" recurrence of {iters} iterations")
+    check(device != "cuda" or captured.rank_launches[0]["ell_spmv"] > 0,
+          f"(a) chained over NCCL: no K1 counted through the replays: "
+          f"{captured.rank_launches}")
+    slope = {name: run[0] for name, run in runs.items()}
+    gap = slope["captured"] - one_chained.best
+    log(f"  (a) chained slope over NCCL at world size 1 ({CARD[0]}): "
+        f"captured {slope['captured'] * 1e3:.4f} ms, launched eagerly "
+        f"{slope['eager'] * 1e3:.4f} ms, one device captured "
+        f"{one_chained.best * 1e3:.4f} ms (spans {captured.span_iters}, "
+        f"{eager['span']}, {one_chained.span_iters}); each y bit-equal to "
+        f"the one-device recurrence of its length; captured over NCCL "
+        f"against one device {gap * 1e3:+.4f} ms an iteration")
+
+    tol, maxiter = CG_SETTINGS["float64"]
+    ones = torch.ones(sm.num_rows, dtype=torch.float64)
+    operand, fn = traceable_spmv(card)
+    one = cg(lambda op, v: fn(op, v), ones.to(device), tol=tol,
+             maxiter=maxiter, operand=operand)
+    one_x = one.x.double().cpu().numpy()
+    sols = {name: solve_sharded(pool, sm, ones, tol=tol, maxiter=maxiter,
+                                eager=name == "eager")
+            for name in ("captured", "eager")}
+    for name, sol in sols.items():
+        masked = STEPS_AHEAD if name == "captured" and device == "cuda" \
+            else 0
+        check(np.array_equal(sol["x"], one_x)
+              and sol["iterations"] == one.iterations
+              and sol["rank_steps"] == [(one.iterations,
+                                         one.iterations + masked)],
+              f"(a) CG over NCCL, {name}: {sol['rank_steps']} (iterations, "
+              f"steps) against {one.iterations} on one device, or x not "
+              "bit-equal to the one-device cg's")
+        totals += sol["launches"]
+    lo, hi = CG_SLOPE_STEPS
+    step = {}
+    for name in ("captured", "eager"):
+        spans = [min(solve_sharded(pool, sm, ones, tol=0.0, maxiter=m,
+                                   eager=name == "eager")["seconds"]
+                     for _ in range(2)) for m in (lo, hi)]
+        step[name] = (spans[1] - spans[0]) / (hi - lo)
+    # the device time a step: the slope of the rank's traces of the two
+    # solves, so that what each solve does once (the first call, r = b -
+    # A*x0, the capture's warm-up step, x's copy to the host) drops out
+    traced = []
+    for m in (lo, hi):
+        with tempfile.TemporaryDirectory() as trace_dir:
+            totals += solve_sharded(pool, sm, ones, tol=0.0, maxiter=m,
+                                    trace_dir=trace_dir)["launches"]
+            traced.append(trace_device_us(trace_dir))
+    groups = {g: (traced[1][g][0] - traced[0][g][0],
+                  (traced[1][g][1] - traced[0][g][1]) / (hi - lo) / 1e3)
+              for g in traced[0]}
+    device_ms = sum(ms for _, ms in groups.values())
+    busy = (f"busy {100 * device_ms / (step['captured'] * 1e3):.1f}% "
+            f"({device_ms:.4f} ms of device time a step, the slope of the "
+            "rank's traces of the same two solves: "
+            + ", ".join(f"{g} {ms:.4f} ({c} events)"
+                        for g, (c, ms) in groups.items()) + ")"
+            if device_ms > 0 else "the busy share not measured (the trace "
+            "held no device time)")
+    log(f"  (a) CG fp64 over NCCL at world size 1 ({CARD[0]}): "
+        f"{sols['captured']['iterations']} iterations, "
+        f"{sols['captured']['steps']} steps captured "
+        f"({sols['captured']['steps'] - sols['captured']['iterations']} "
+        f"masked), {sols['eager']['steps']} eager; x bit-equal to the "
+        f"one-device cg's; a step {step['captured'] * 1e3:.4f} ms captured,"
+        f" {step['eager'] * 1e3:.4f} ms launched eagerly (the slope of "
+        f"{lo} and {hi} steps that never converge, tol 0, best of 2); "
+        f"the captured loop {busy} ({time.perf_counter() - t0:.1f} s)")
+    return totals
+
+
 def phase_multi_device(coo, pl_coo, pl_x64, pl_want, pl_scale,
                        device="cuda"):
     """(a) fem_mesh_2d(1440) fp64 ELL through ``parallel`` over NCCL at
     world size 1: y bit-equal to the one-device `ell_spmv`, both timed
-    per_iter; (b) four ranks sharing the card over gloo: the fem ELL in
-    fp64 and f32 (partition rows, y bit-equal to the one-device port), the
-    config2 CSR (banded_random(2,000,000, 16, 512), --partition-nonzeros,
-    every row against the oracle), config3's stream
-    format under the rows and the nonzeros partitions (every row within
-    1e-13 of sum |a*x|), CG on the fem mesh (true residual <= 10*tol,
+    per_iter, then `nccl_captured_loops`; (b) four ranks sharing the card
+    over gloo: the fem ELL in fp64 and f32 (partition rows, y bit-equal to
+    the one-device port), the config2 CSR (banded_random(2,000,000, 16,
+    512), --partition-nonzeros, every row against the oracle), config3's
+    stream format under the rows and the nonzeros partitions (every row
+    within 1e-13 of sum |a*x|), CG on the fem mesh (true residual <= 10*tol,
     iterations within 1 of the one-device solve), each with the workload
     table, each rank's kernels alone and the allgather's time; the kernels
     launched on every rank; (d) ``dryrun_multichip(4)`` on the card;
@@ -2983,6 +3138,8 @@ def phase_multi_device(coo, pl_coo, pl_x64, pl_want, pl_scale,
     ell = ells["float64"]
     card = ell.to(device)
     one = benchmark_spmv(None, card, x64.to(device), repeat=10, warmup=2)
+    one_chained = benchmark_spmv(None, card, x64.to(device), repeat=10,
+                                 warmup=2, protocol="chained")
     with RankPool(one_rank) as pool:
         t0 = time.perf_counter()
         sm = shard_matrix(ell, 1)
@@ -2997,14 +3154,16 @@ def phase_multi_device(coo, pl_coo, pl_x64, pl_want, pl_scale,
               "one-device benchmark's")
         totals += launches + res.rank_launches
         gather_s = pool.run(gather_seconds_task, [(sm.split_x(x64)[0],)])[0]
-    _rank_launches("(a)", launches, ["ell_spmv"], device)
-    log(f"  (a) {describe(one_rank)}: y bit-equal to the one-device "
-        f"ell_spmv; per_iter best {res.best * 1e3:.4f} ms over the ranks "
-        f"(allgather alone {gather_s * 1e3:.4f} ms) against "
-        f"{one.best * 1e3:.4f} ms on one device: "
-        f"{(res.best - one.best) * 1e3:+.4f} ms per call "
-        f"({time.perf_counter() - t0:.1f} s)")
-    del card, one
+        _rank_launches("(a)", launches, ["ell_spmv"], device)
+        log(f"  (a) {describe(one_rank)}: y bit-equal to the one-device "
+            f"ell_spmv; per_iter best {res.best * 1e3:.4f} ms over the "
+            f"ranks (allgather alone {gather_s * 1e3:.4f} ms) against "
+            f"{one.best * 1e3:.4f} ms on one device: "
+            f"{(res.best - one.best) * 1e3:+.4f} ms per call "
+            f"({time.perf_counter() - t0:.1f} s)")
+        totals += nccl_captured_loops(pool, sm, card, x64, one_chained,
+                                      device)
+    del card, one, one_chained
 
     # (b) four ranks sharing the card over gloo
     with RankPool(shared, timeout=900) as pool:
@@ -3227,13 +3386,17 @@ def phase_card_tests():
     """The ``cuda`` tests by name: pytest on the card, without the JAX
     package's conftest. Fails if any fails or none ran."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p",
-           "no:cacheprovider", "-m", "cuda", *CARD_TESTS, "-q", "-rA"]
+           "no:cacheprovider", "-m", "cuda", *CARD_TESTS, "-q", "-rA",
+           "--durations=12"]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=900)
     outcomes = re.findall(r"^(PASSED|FAILED|ERROR|SKIPPED)\s+(\S+)",
                           proc.stdout, re.M)
     for outcome, name in outcomes:
         log(f"  card test {outcome}: {name}")
+    for line in re.findall(r"^[\d.]+s (?:call|setup|teardown) +\S+$",
+                           proc.stdout, re.M):
+        log(f"  card test seconds: {line}")
     summary = proc.stdout.strip().splitlines()[-1:] or ["(no output)"]
     log(f"  card tests: {summary[0]} (exit {proc.returncode})")
     failed = [n for o, n in outcomes if o in ("FAILED", "ERROR")]

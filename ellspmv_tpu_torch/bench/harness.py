@@ -63,10 +63,15 @@ On the CPU both protocols time with the host clock.
 Over ranks (``parallel/``, `benchmark_sharded`) every timed call includes
 the allgather of x, as the JAX package's sharded call does: per_iter
 brackets each rank's call with CUDA events after a barrier, and chained
-makes each rank's y block its next x block (square matrices), launched
-eagerly: a CUDA graph cannot hold the ranks' gloo collectives. Every time
-is the maximum over the ranks (the reference's region ends at the team's
-barrier), so the ranks take the same decisions and report the same times.
+makes each rank's y block its next x block (square matrices), in the same
+blocks through ``parallel/spmv.sharded_spmv_fn``: on NCCL ranks, a card
+each, the blocks are CUDA graphs that hold the allgather, as the JAX
+package jits the loop around its ``shard_map``; on CPU ranks they run
+eagerly. Gloo ranks that share a card launch every iteration eagerly
+(`_eager_loop`): gloo's collectives on a card cannot be captured. Every
+time is the maximum over the ranks (the reference's region ends at the
+team's barrier), so the ranks take the same decisions and report the same
+times.
 """
 
 from __future__ import annotations
@@ -502,17 +507,41 @@ def shard_kernel_seconds(shard, x_full, backend: str = "auto",
     return min(max((loop(10) - loop(2)) / 8, 1e-12) for _ in range(2))
 
 
+def _rank_chained_loop(shard, x, y, backend: str, eager: bool):
+    """In a rank: the chained loop over the ranks from (`x`, `y` or 0) on
+    the shard's device, as a context manager that yields (start, run):
+    `_block_loop`'s blocks through ``parallel/spmv.sharded_spmv_fn``
+    (captured on NCCL ranks, eager on CPU ranks) where
+    ``parallel.mesh.traceable_loops`` holds, else, or given `eager`,
+    `_eager_loop` over ``sharded_spmv``."""
+    from ellspmv_tpu_torch.parallel.mesh import traceable_loops
+    from ellspmv_tpu_torch.parallel.spmv import sharded_spmv, sharded_spmv_fn
+
+    dtype = shard.matrix.values.dtype
+    x = x.to(dtype)
+    y0 = (torch.zeros(shard.block, dtype=dtype, device=x.device)
+          if y is None else y.to(dtype))
+    if traceable_loops(x.device) and not eager:
+        operand, fn = sharded_spmv_fn(shard, backend)
+        return _block_loop(fn, operand, x, y0)
+    return contextlib.nullcontext(_eager_loop(
+        lambda _, xv, yv: sharded_spmv(shard, xv, yv, backend), shard, x,
+        y0))
+
+
 def shard_bench_task(rank, shard, x_block, y_block, repeat: int,
                      warmup: int, protocol: str, backend: str,
-                     per_device: bool, trace_dir: str | None) -> dict:
+                     per_device: bool, trace_dir: str | None,
+                     eager: bool = False) -> dict:
     """A task: the rank's part of `benchmark_sharded`. Every timed call
     includes the allgather of x. per_iter: each call bracketed by CUDA
     events (the host clock on the CPU) after a barrier; chained: the
-    rank's y block becomes its x block. Every time is the maximum over the
-    ranks, so all ranks take the same decisions and report the same
-    times. With `per_device`, each rank then times its local kernels alone
-    in turn, between barriers, so that ranks sharing a card do not
-    overlap."""
+    rank's y block becomes its x block, in `_rank_chained_loop` (`eager`
+    launches every iteration eagerly on any rank). Every time is the
+    maximum over the ranks, so all ranks take the same decisions and
+    report the same times. With `per_device`, each rank then times its
+    local kernels alone in turn, between barriers, so that ranks sharing a
+    card do not overlap."""
     import torch.distributed as dist
 
     from ellspmv_tpu_torch.parallel.launch import kernel_launches
@@ -542,12 +571,10 @@ def shard_bench_task(rank, shard, x_block, y_block, repeat: int,
             warning = _dispatch_warning(min(times),
                                         dispatch_round_trip(device))
         else:
-            dtype = shard.matrix.values.dtype
-            y0 = (torch.zeros(shard.block, dtype=dtype, device=device)
-                  if y is None else y.to(dtype))
-            per_iter, yk, span = _chained(
-                _eager_loop(spmv_fn, shard, x.to(dtype), y0), device, repeat,
-                warmup, sync, agree=lambda t: max_over_ranks([t])[0])
+            with _rank_chained_loop(shard, x, y, backend, eager) as loop:
+                per_iter, yk, span = _chained(
+                    loop, device, repeat, warmup, sync,
+                    agree=lambda t: max_over_ranks([t])[0])
             times = [per_iter] * repeat
     after = kernel_launches()
     seconds = None
@@ -561,6 +588,41 @@ def shard_bench_task(rank, shard, x_block, y_block, repeat: int,
     return {"times": times, "y": yk.double().cpu().numpy(),
             "span": span, "warning": warning, "shard_seconds": seconds,
             "launches": {k: after[k] - before[k] for k in after}}
+
+
+def chained_task(rank, shard, x_block, iters: int, backend: str = "auto",
+                 eager: bool = False) -> dict:
+    """A task: `iters` iterations of the chained recurrence from (x, 0),
+    run once in `_rank_chained_loop`; this rank's y block (fp64 NumPy) and
+    its kernels' launches, replays included."""
+    from ellspmv_tpu_torch.parallel.launch import kernel_launches
+    from ellspmv_tpu_torch.parallel.spmv import placed
+
+    shard = placed(rank, shard)
+    before = kernel_launches()
+    with _rank_chained_loop(shard, x_block.to(rank.device), None, backend,
+                            eager) as (start, run):
+        start()
+        y = run(iters).double().cpu().numpy()
+    after = kernel_launches()
+    return {"y": y, "launches": {k: after[k] - before[k] for k in after}}
+
+
+def run_chained(pool, sm, x: torch.Tensor, iters: int,
+                backend: str = "auto", eager: bool = False,
+                launches: list | None = None) -> torch.Tensor:
+    """`iters` iterations of the chained recurrence ``y <- A*x + y, x <-
+    1e-6*y`` from (`x`, 0) over the pool's ranks (`chained_task`): the
+    logical y on the host, in the values' type. Appends each rank's
+    launches to `launches` when given."""
+    if sm.num_rows != sm.num_columns:
+        raise ValueError("chained protocol needs a square matrix "
+                         "(x is re-derived from y each iteration)")
+    outs = pool.run(chained_task, [(sm.shards[r], xb, iters, backend, eager)
+                                   for r, xb in enumerate(sm.split_x(x))])
+    if launches is not None:
+        launches.extend(o["launches"] for o in outs)
+    return sm.join_y([o["y"] for o in outs])
 
 
 def benchmark_sharded(pool, sm, x: torch.Tensor,

@@ -9,8 +9,10 @@ Options as in the JAX program: -z (gzip), -q, -v, --tol, --maxiter,
 never moves to the CPU by itself). b defaults to ones. Prints x as a Matrix
 Market vector; exits 2 when the residual norm is above 10·tol·‖b‖.
 --devices=N above 1 solves over N ranks (``parallel/solver.cg_sharded``:
-the rows sharded, x allgathered for each matvec, the dots all-reduced) in
-native fp64 or f32, placed as ``ellspmv --devices=N`` places them.
+the rows sharded, x allgathered for each matvec, the dots all-reduced;
+one masked step captured in a CUDA graph on NCCL ranks) in native fp64 or
+f32, placed as ``ellspmv --devices=N`` places them; -v then prints the
+steps the ranks ran, masked ones included, after the seconds.
 
 Run as ``python -m ellspmv_tpu_torch.cli.cgsolve``.
 """
@@ -90,7 +92,7 @@ def _solve_over_ranks(coo, b, tol, maxiter, precision, devices):
                             torch.from_numpy(b).to(value_dtype(precision)),
                             tol=tol, maxiter=maxiter)
     res = CgResult(torch.from_numpy(out["x"]), out["iterations"],
-                   out["residual_norm"])
+                   out["residual_norm"], out["steps"])
     return out["x"], res, out["seconds"]
 
 
@@ -193,9 +195,11 @@ def main(argv=None) -> int:
                             precision=precision, reorder=reorder,
                             device=torch.device(device), devices=ranks)
     if verbose:
+        # over ranks, the steps the ranks ran (masked ones included)
+        steps = f", {res.steps} steps" if ranks else ""
         sys.stderr.write(
             f"cg: {res.iterations} iterations, residual "
-            f"{res.residual_norm:.3e}, {seconds:.3f} seconds\n")
+            f"{res.residual_norm:.3e}, {seconds:.3f} seconds{steps}\n")
     if not quiet:
         write_vector(sys.stdout, x)
     bnorm = np.linalg.norm(b.astype(precision))

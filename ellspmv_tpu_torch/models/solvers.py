@@ -5,16 +5,22 @@ The JAX solver runs its loop inside one ``lax.while_loop``, the convergence
 test on the device. `cg` is its counterpart: one CG step (`masked_step`),
 masked by a flag on the device, captured once in a CUDA graph
 (``utils/graphs.py``) and replayed. Once the flag ``r·r > tol²·(b·b)``
-falls, a step leaves x, r, r·r and the iteration count as they are, so the
-host need not read the flag before it queues the next step: it reads the
-flag of the step `STEPS_AHEAD` behind the newest, through pinned memory,
-and at most that many masked steps run after convergence. On the CPU the
-same step runs eagerly and the flag is read after each step.
+falls, a step leaves x, r, r·r and the iteration count k as they are, so
+the host need not test convergence before it queues the next step. Each
+step copies k to pinned memory; the host waits for the step before the
+newest it queued and reads k there. A later step's copy may have landed
+by then, but k stops growing exactly where the flag falls, so "k is below
+the number of the step waited for" reads the same from any of them: the
+steps a solve runs follow from its iterations alone, not from how far the
+card has got, and ranks that replay collectives in their steps
+(``parallel/solver.cg_sharded``) all run the same number of them.
+`STEPS_AHEAD` masked steps run after convergence. On the CPU the same step
+runs eagerly and the flag is read after each step.
 
 `cg_eager` is the loop that tests convergence on the host before every
-iteration: the sharded solver runs it (its dots and allgathers cross
-processes over gloo, which a graph cannot hold), and the card tests hold
-`cg` against it, bit for bit.
+iteration: the sharded solver runs it on gloo ranks that share a card
+(whose collectives a graph cannot hold), and the card tests hold `cg`
+against it, bit for bit.
 
 fp64 dot products go through the hand-written kernel K6 (`ops.dot_cuda`,
 the counterpart of the Pallas double-double ``dd_vdot``); float32 ones
@@ -34,7 +40,8 @@ import torch
 
 from ellspmv_tpu_torch.ops import dot_cuda
 
-#: Steps the card runs ahead of the host's convergence test in `cg`.
+#: Masked steps a converged `cg` runs on a card: the host's convergence
+#: test lags the newest step it queued by STEPS_AHEAD - 1.
 STEPS_AHEAD = 2
 
 
@@ -42,7 +49,7 @@ class CgResult(NamedTuple):
     x: torch.Tensor
     iterations: int
     residual_norm: float   # sqrt(r.r) of the recursive residual r
-    steps: int | None = None   # `cg`: the steps run, masked ones included
+    steps: int             # the steps run, masked ones included
 
 
 class CgState(NamedTuple):
@@ -115,15 +122,15 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
     mv, vdot = _operators(matvec, b, operand, vdot)
     s = cg_start(mv, vdot, b, x0, tol)
     cuda = b.device.type == "cuda"
-    flag = torch.empty((), dtype=torch.bool, pin_memory=cuda)
+    lag = STEPS_AHEAD - 1
+    count = torch.zeros((), dtype=s.k.dtype, pin_memory=cuda)
 
     def step():
         masked_step(s, mv, vdot)
-        flag.copy_(s.active, non_blocking=True)
+        if cuda:
+            count.copy_(s.k, non_blocking=True)
 
-    flag.copy_(s.active)              # step 0's flag, read synchronously
-    ahead = STEPS_AHEAD if cuda else 0
-    done = [torch.cuda.Event() for _ in range(ahead + 1)] if cuda else []
+    done = [torch.cuda.Event() for _ in range(lag + 1)] if cuda else []
     steps, run = 0, step
     with contextlib.ExitStack() as graphs:
         if cuda and maxiter > 0:
@@ -131,18 +138,22 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
             # the capture's warm-up runs the first step
             run = graphs.enter_context(Graph(step, b.device)).replay
             steps = 1
-            done[1].record()
+            done[steps % (lag + 1)].record()
         while steps < maxiter:
-            if steps >= ahead:
-                if cuda and steps > ahead:
-                    done[(steps - ahead) % (ahead + 1)].synchronize()
-                # the flag of that step, or of a later one: it only falls
-                if not bool(flag):
+            if not cuda:
+                if not bool(s.active):
+                    break
+            elif steps > lag:
+                waited = steps - lag
+                done[waited % (lag + 1)].synchronize()
+                # k of that step or of a later one: below `waited` exactly
+                # when the flag fell before step `waited`
+                if int(count) < waited:
                     break
             run()
             steps += 1
             if cuda:
-                done[steps % (ahead + 1)].record()
+                done[steps % (lag + 1)].record()
         iterations = int(s.k)
     return CgResult(x=s.x, iterations=iterations,
                     residual_norm=float(torch.sqrt(s.rs)), steps=steps)
@@ -168,4 +179,5 @@ def cg_eager(matvec: Callable, b: torch.Tensor,
         torch.addcmul(r, rs_new / rs, p, out=p)   # p = r + (rs_new/rs) * p
         rs = rs_new
         k += 1
-    return CgResult(x=x, iterations=k, residual_norm=float(torch.sqrt(rs)))
+    return CgResult(x=x, iterations=k, residual_norm=float(torch.sqrt(rs)),
+                    steps=k)

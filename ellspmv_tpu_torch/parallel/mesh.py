@@ -71,6 +71,20 @@ def describe(devices: list[str]) -> str:
             f"{', '.join(devices)}")
 
 
+def traceable_loops(device) -> bool:
+    """In a rank of the group: whether its loops (the chained protocol's
+    blocks, CG's masked step) run through the traceable form
+    (``parallel/spmv.sharded_spmv_fn``): as replays of CUDA graphs that
+    hold the collectives on a card over NCCL, and as the same blocks and
+    steps launched eagerly on the CPU. Gloo ranks that share a card cannot
+    be captured (gloo stages a card's tensors through the host and waits
+    for them), so they keep the loops that launch every iteration eagerly.
+    Decided by the group's backend and the device, never by a capture that
+    failed."""
+    import torch.distributed as dist
+    return torch.device(device).type == "cpu" or dist.get_backend() == "nccl"
+
+
 def init_group(rank: int, devices: list[str], store_path: str,
                timeout: float = GROUP_TIMEOUT) -> torch.device:
     """Join this process to the group as `rank` of ``len(devices)`` and

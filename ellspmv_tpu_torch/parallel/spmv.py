@@ -32,6 +32,14 @@ keeps that order: an ELL shard carries it as the last slot of each row (K1
 adds the diagonal after the slots with one fused multiply-add, and so does
 a last slot); CSR and stream shards add it after their kernels, against
 the rank's own x entries, as the one-device path does.
+
+`sharded_spmv_fn` is the traceable form, the counterpart of the JAX
+package's ``sharded_spmv_fn(sm).traceable``: the same call, gathering into
+a buffer of its own, its first-use work done before it returns, so that
+the chained protocol (``bench/harness.py``) and CG (``parallel/solver.py``)
+capture it in CUDA graphs with the allgather inside on NCCL ranks, as the
+JAX package jits both loops around its ``shard_map``
+(``parallel.mesh.traceable_loops`` says which ranks capture).
 """
 
 from __future__ import annotations
@@ -316,12 +324,16 @@ def shard_matrix(mat, n_devices: int, partition: str = "rows",
 
 # -- in a rank --------------------------------------------------------------
 
-def allgather(x_block: torch.Tensor) -> torch.Tensor:
-    """Every rank's x block side by side, on this rank's device: NCCL
-    gathers into one tensor; gloo into the blocks' views of it."""
+def allgather(x_block: torch.Tensor,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """Every rank's x block side by side, on this rank's device, into `out`
+    where given (a buffer the caller owns, so that a replayed graph writes
+    the same addresses): NCCL gathers into one tensor; gloo into the
+    blocks' views of it."""
     import torch.distributed as dist
     world = dist.get_world_size()
-    out = x_block.new_empty(world * x_block.shape[0])
+    if out is None:
+        out = x_block.new_empty(world * x_block.shape[0])
     if dist.get_backend() == "nccl":
         dist.all_gather_into_tensor(out, x_block)
     else:
@@ -357,6 +369,27 @@ def collectives_task(rank: Rank, length: int = 8, rounds: int = 1) -> dict:
         dist.all_reduce(s)
         total = float(s)
     return {"gathered": ok, "reduced": total}
+
+
+def captured_allgather_task(rank: Rank, length: int = 8,
+                            replays: int = 1) -> dict:
+    """A task: the allgather of x blocks of `length` entries captured in a
+    CUDA graph (``utils/graphs.Graph``) and replayed `replays` times, each
+    replay's gathered x held against the same allgather launched eagerly.
+    Returns whether every replay equalled it bit for bit. Raises where the
+    group's collectives cannot be captured (gloo on a card)."""
+    from ellspmv_tpu_torch.utils.graphs import Graph
+    x = torch.arange(length, dtype=torch.float64, device=rank.device) \
+        + rank.rank * length + 0.5
+    want = allgather(x)
+    got = torch.empty_like(want)
+    same = True
+    with Graph(lambda: allgather(x, got), rank.device) as graph:
+        for _ in range(replays):
+            got.zero_()
+            graph.replay()
+            same = same and bool(torch.equal(got, want))
+    return {"equal": same}
 
 
 def _own_diagonal(shard: Shard, x: torch.Tensor,
@@ -409,14 +442,53 @@ def sharded_spmv(shard: Shard, x_block: torch.Tensor,
     return local_spmv(shard, allgather(x_block), y_block, backend)
 
 
+def sharded_spmv_fn(shard: Shard, backend: str = "auto"):
+    """In a rank: ``(operand, fn)``, the counterpart of the JAX package's
+    ``sharded_spmv_fn(sm).traceable`` and ``sharded_stream_spmv_fn(ss)
+    .traceable``. ``fn(operand, x_block, y_block=None)`` is `sharded_spmv`
+    of `shard` under `backend`, bit for bit, in a form that a CUDA graph
+    can capture with the allgather inside (``utils/graphs.py``), as the
+    JAX package's is one that an outer ``jax.jit`` of a ``shard_map``
+    traces.
+
+    The allgather writes into a buffer that `fn` owns, so that every
+    replay gathers into the same addresses. What the port does only on a
+    first call cannot be captured: the nvcc build, K7's probe and its host
+    read, a CSR shard's SELL repack (cached on the shard), the group's
+    first collective on the communicator. So before it returns, this
+    makes one call on a zero x block and waits for it; every rank must
+    call it, since the call is a collective. The operand is the shard: the
+    caller keeps it alive as long as a graph that holds its addresses."""
+    import torch.distributed as dist
+    values = shard.matrix.values
+    gathered = torch.empty(dist.get_world_size() * shard.x_block,
+                           dtype=values.dtype, device=values.device)
+
+    def fn(operand, x_block, y_block=None):
+        return local_spmv(operand, allgather(x_block, gathered), y_block,
+                          backend)
+
+    fn(shard, torch.zeros(shard.x_block, dtype=values.dtype,
+                          device=values.device))
+    if values.device.type == "cuda":
+        torch.cuda.synchronize(values.device)
+    return shard, fn
+
+
 def spmv_task(rank: Rank, shard: Shard, x_block, y_block,
-              backend: str = "auto") -> dict:
-    """A task: one `sharded_spmv` on this rank's device; its y block (fp64
-    NumPy, exact for every value type) and the kernels' launches."""
+              backend: str = "auto", traceable: bool = False) -> dict:
+    """A task: one `sharded_spmv` on this rank's device, or with
+    `traceable` one call of `sharded_spmv_fn`'s fn after its first; its y
+    block (fp64 NumPy, exact for every value type) and the kernels'
+    launches in that call."""
     shard = placed(rank, shard)
+    x = x_block.to(rank.device)
     y = None if y_block is None else y_block.to(rank.device)
+    fn = None
+    if traceable:
+        shard, fn = sharded_spmv_fn(shard, backend)
     before = kernel_launches()
-    out = sharded_spmv(shard, x_block.to(rank.device), y, backend)
+    out = fn(shard, x, y) if fn else sharded_spmv(shard, x, y, backend)
     after = kernel_launches()
     return {"y": out.double().cpu().numpy(),
             "launches": {k: after[k] - before[k] for k in after}}
@@ -450,13 +522,15 @@ def gather_seconds_task(rank: Rank, x_block, calls: int = 20) -> float:
 
 def run_spmv(pool: RankPool, sm: ShardedMatrix, x: torch.Tensor,
              y: torch.Tensor | None = None, backend: str = "auto",
-             launches: list | None = None) -> torch.Tensor:
-    """y := A*x + y over the pool's ranks, one `sharded_spmv` each: the
-    logical y on the host, in the values' type. Appends each rank's kernel
-    launches to `launches` when given."""
+             launches: list | None = None,
+             traceable: bool = False) -> torch.Tensor:
+    """y := A*x + y over the pool's ranks, one `sharded_spmv` each (or,
+    with `traceable`, one call of `sharded_spmv_fn`'s fn): the logical y
+    on the host, in the values' type. Appends each rank's kernel launches
+    to `launches` when given."""
     xs, ys = sm.split_x(x), sm.split_y(y)
-    outs = pool.run(spmv_task, [(sm.shards[r], xs[r], ys[r], backend)
-                                for r in range(sm.world)])
+    outs = pool.run(spmv_task, [(sm.shards[r], xs[r], ys[r], backend,
+                                 traceable) for r in range(sm.world)])
     if launches is not None:
         launches.extend(o["launches"] for o in outs)
     return sm.join_y([o["y"] for o in outs])

@@ -15,7 +15,11 @@ columns remapped into the gathered x layout (``parallel/spmv.x_layout``),
 its own plan. A rank then runs the one-device pipeline on its rows (K1
 over the products, K3 per level, the final gather) after the allgather of
 x, in ``parallel/spmv.local_spmv``. The shards are built on the host, in
-the calling process.
+the calling process. The traceable form (the JAX package's
+``sharded_stream_spmv_fn(ss).traceable``) is ``parallel/spmv.
+sharded_spmv_fn`` on a stream shard: its pipeline reads nothing back to
+the host and sizes every buffer from its plan, so a CUDA graph holds it as
+it holds the one-device ``stream_spmv``.
 """
 
 from __future__ import annotations

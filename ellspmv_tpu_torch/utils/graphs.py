@@ -16,6 +16,24 @@ During a capture nothing runs: the wrappers' calls only record kernels into
 the graph. `Graph` takes those counts back after the capture and adds them
 again at every replay, so that the counts stay the kernels that ran on the
 card.
+
+A body may hold NCCL collectives (over ranks, ``parallel/``: the allgather
+of x, CG's all_reduces), the counterpart of the collectives inside one jit
+of a ``shard_map``: ProcessGroupNCCL records them into the graph, and each
+replay runs them on the group's communicator, which NCCL lets captured and
+eager collectives share (the ranks' eager agreements, such as
+``parallel/spmv.max_over_ranks``, run between replays). Every rank must
+capture and replay its graphs in the same order, as it would launch the
+collectives. The group's watchdog does not time a collective inside a
+replay (``parallel/launch.RankPool``'s deadline still fails a rank stuck
+there), and its polling of eager works from another thread does not spoil
+a capture under the default capture mode: captures of 3,000 allgathers
+and all_reduces (150-190 ms each) with 20 eager works left pending all
+matched, drained first or not (``scripts/nccl_capture_probe.py``, torch
+2.11, NCCL 2.28.9, an H100), so `Graph` drains nothing and keeps that
+mode. Gloo's collectives on a card cannot be captured (gloo waits for the
+card's tensors on the host): the capture raises, and
+``parallel/mesh.traceable_loops`` keeps those ranks on eager loops.
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -475,6 +476,123 @@ def test_collectives_take_card_tensors(card_pool):
                     "reduced": float(world * (world - 1) // 2)}] * world
 
 
+# -- over ranks, captured: the sharded traceable form --------------------------
+
+def _sharded_case(fmt, world, precision="float64"):
+    """fem_mesh_2d(64) (4,096 rows) cut for `world` ranks as a sorted-row
+    ELL, a CSR or the stream format; the whole matrix (None for the
+    stream format, whose shards each plan their own rows) and a seeded
+    x."""
+    from ellspmv_tpu_torch.parallel.spmv import shard_matrix
+    from ellspmv_tpu_torch.parallel.stream import shard_stream
+    coo = fem_mesh_2d(64)
+    x = torch.from_numpy(np.random.RandomState(23).rand(coo.num_rows))
+    if fmt == "stream":
+        return shard_stream(coo, world, value_dtype=precision), None, x
+    conv = ell_from_coo if fmt == "ell" else csr_from_coo
+    mat = conv(coo, sort_rows=True, value_dtype=precision)
+    return shard_matrix(mat, world), mat, x.to(mat.values.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["ell", "csr", "stream"])
+def test_captured_chained_over_ranks_on_card(card_pool, fmt):
+    """Two blocks and five single iterations of the chained recurrence
+    over the ranks: the loop through ``sharded_spmv_fn`` (replays of CUDA
+    graphs that hold the allgather over NCCL; launched eagerly on gloo
+    ranks sharing the card) against the loop launched eagerly, bit for
+    bit, and for ELL and CSR against the one-device captured loop; K1
+    counted through the replays on every rank."""
+    from ellspmv_tpu_torch.bench.harness import run_chained
+    sm, mat, x = _sharded_case(fmt, card_pool.world)
+    iters = 2 * CHAINED_BLOCK + 5
+    launches = []
+    got = run_chained(card_pool, sm, x, iters, launches=launches)
+    assert torch.equal(got, run_chained(card_pool, sm, x, iters, eager=True))
+    assert all(c["ell_spmv"] >= iters for c in launches)
+    if mat is not None:
+        operand, fn = traceable_spmv(mat.to("cuda"))
+        xc = x.cuda()
+        with _block_loop(fn, operand, xc, torch.zeros_like(xc)) as (start,
+                                                                     run):
+            start()
+            assert torch.equal(got, run(iters).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+def test_captured_cg_over_ranks_on_card(card_pool, precision):
+    """``cg_sharded`` (its masked step captured with the allgather and the
+    all_reduces over NCCL; ``cg_eager`` on gloo ranks sharing the card)
+    against ``cg_eager`` over the same ranks: the same iterations, x and
+    residual bit for bit; every rank the same iterations and steps, over
+    NCCL exactly STEPS_AHEAD masked; `maxiter` honoured."""
+    from ellspmv_tpu_torch.parallel.solver import solve_sharded
+    sm, mat, _ = _sharded_case("ell", card_pool.world, precision)
+    b = torch.from_numpy(np.random.RandomState(8).rand(sm.num_rows)).to(
+        mat.values.dtype)
+    tol = 1e-8 if precision == "float64" else 1e-4
+    got = solve_sharded(card_pool, sm, b, tol=tol)
+    want = solve_sharded(card_pool, sm, b, tol=tol, eager=True)
+    assert got["iterations"] == want["iterations"] > STEPS_AHEAD
+    assert np.array_equal(got["x"], want["x"])
+    assert got["residual_norm"] == want["residual_norm"]
+    masked = STEPS_AHEAD if card_pool.backend == "nccl" else 0
+    assert got["rank_steps"] == [(got["iterations"],
+                                  got["iterations"] + masked)] * sm.world
+    assert all(c["ell_spmv"] >= got["steps"] for c in got["launches"])
+    for maxiter in (1, want["iterations"] - 1):
+        got = solve_sharded(card_pool, sm, b, tol=tol, maxiter=maxiter)
+        want = solve_sharded(card_pool, sm, b, tol=tol, maxiter=maxiter,
+                             eager=True)
+        assert got["rank_steps"] == [(maxiter, maxiter)] * sm.world
+        assert np.array_equal(got["x"], want["x"])
+
+
+@pytest.mark.cuda
+def test_captured_allgather_replays_equal_eager_on_card(card_pool):
+    """An NCCL allgather captured in a CUDA graph right after eager ones
+    (still pending for the group's watchdog), replayed 100 times: each
+    replay bit-equal to the eager allgather."""
+    from ellspmv_tpu_torch.parallel.spmv import captured_allgather_task
+    if card_pool.backend != "nccl":
+        pytest.skip("gloo ranks sharing a card cannot be captured "
+                    "(test_graph_around_a_gloo_collective_raises_on_card)")
+    assert card_pool.run(captured_allgather_task, [(1000, 100)]) == \
+        [{"equal": True}]
+
+
+@pytest.mark.cuda
+def test_graph_around_a_gloo_collective_raises_on_card():
+    """Gloo ranks sharing the card: a CUDA graph around their allgather
+    raises in the ranks, and the call fails; nothing falls back."""
+    _needs_card()
+    from ellspmv_tpu_torch.parallel.launch import RankFailure, RankPool
+    from ellspmv_tpu_torch.parallel.spmv import captured_allgather_task
+    with RankPool(["cuda:0"] * 2, timeout=60) as pool:
+        with pytest.raises(RankFailure, match="raised in captured_"):
+            pool.run(captured_allgather_task, [(1000, 1)] * 2, timeout=120)
+
+
+@pytest.mark.cuda
+def test_a_rank_out_of_time_in_a_replay_fails_the_call_on_card():
+    """The card twin of `test_a_rank_out_of_time_fails_the_call`: a rank
+    that keeps replaying a graph with its NCCL allgather (which the
+    group's watchdog does not time) fails the call at the call's
+    deadline, and the pool stops it."""
+    _needs_card()
+    from ellspmv_tpu_torch.parallel.launch import RankFailure, RankPool
+    from ellspmv_tpu_torch.parallel.spmv import captured_allgather_task
+    t0 = time.monotonic()
+    with RankPool(["cuda:0"], timeout=60) as pool:
+        assert pool.run(captured_allgather_task, [(8, 1)]) == \
+            [{"equal": True}]
+        with pytest.raises(RankFailure, match="did not finish"):
+            pool.run(captured_allgather_task, [(8, 10 ** 9)], timeout=2)
+        assert not any(p.is_alive() for p in pool._procs)
+    assert time.monotonic() - t0 < 120
+
+
 # -- the loops captured in CUDA graphs: the chained protocol and CG ----------
 
 def _grew(before: dict, after: dict) -> dict:
@@ -512,9 +630,9 @@ def test_captured_chained_loop_equals_eager_on_card(name, backend):
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float64", "float32"])
 def test_captured_cg_equals_eager_on_card(precision):
-    """`cg` (one masked step captured and replayed, the flag read two steps
-    behind) against `cg_eager`: the same iterations, x and residual, bit
-    for bit; at most STEPS_AHEAD masked steps; the kernels' launches
+    """`cg` (one masked step captured and replayed, the iteration count
+    read a step behind) against `cg_eager`: the same iterations, x and
+    residual, bit for bit; at most STEPS_AHEAD masked steps; the kernels' launches
     counted through the replays; `maxiter` honoured; a converged start
     left as it is."""
     _needs_card()
