@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -439,6 +438,7 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
     from ellspmv_tpu_torch.bench.harness import benchmark_spmv
     from ellspmv_tpu_torch.config import value_dtype
     from ellspmv_tpu_torch.io.mtx import read_matrix, read_vector, write_vector
+    from ellspmv_tpu_torch.utils.timing import PhaseTimer
 
     if card_missing(program, opts.device):
         return 1
@@ -472,15 +472,19 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
                       "stream format, which stores int32 positions "
                       "regardless of --index-width\n")
 
-    # Phase 2: read the matrix (timed, like ellspmv.c:1264-1377)
-    t0 = time.perf_counter()
+    # Phase 2: read the matrix (timed, like ellspmv.c:1264-1377). Each phase
+    # is a span of its name (utils/timing.py); the lines are the JAX
+    # program's.
+    timer = PhaseTimer()
     try:
-        coo = read_matrix(opts.A_path, gzipped=opts.gzip or None,
-                          index_dtype=index_dtype, value_dtype=np.float64)
+        with timer.phase("mtxfile_read"):
+            coo = read_matrix(opts.A_path, gzipped=opts.gzip or None,
+                              index_dtype=index_dtype,
+                              value_dtype=np.float64)
     except Exception as e:
         sys.stderr.write(f"{program}: {opts.A_path}: {e}\n")
         return 1
-    t_read = time.perf_counter() - t0
+    t_read = timer.times["mtxfile_read"]
     if opts.verbose:
         try:
             mb = os.path.getsize(opts.A_path) / 1e6
@@ -498,30 +502,29 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
                              "matrix\n")
             return 1
         from ellspmv_tpu_torch.models.reorder import reorder_rcm
-        t0 = time.perf_counter()
-        reorder_map = reorder_rcm(coo)
+        with timer.phase("reorder_rcm"):
+            reorder_map = reorder_rcm(coo)
         coo = reorder_map.coo
         if opts.verbose:
-            log.write(f"reorder_rcm: {time.perf_counter() - t0:.6f} "
+            log.write(f"reorder_rcm: {timer.times['reorder_rcm']:.6f} "
                       "seconds\n")
 
     # Phase 3: convert (timed, like ellspmv.c:1379-1486). The time includes
     # the copy to the device (and, for ELL, the slot-major transpose there).
-    t0 = time.perf_counter()
     try:
-        mat, convert_name, per_row = _convert(coo, opts, index_dtype, device,
-                                              csr)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        with timer.phase("convert"):
+            mat, convert_name, per_row = _convert(coo, opts, index_dtype,
+                                                  device, csr)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
     except (MemoryError, torch.cuda.OutOfMemoryError) as e:
         sys.stderr.write(f"{program}: conversion failed: {e}\n")
         return 1
     except (CliError, NotImplementedError, ValueError) as e:
         sys.stderr.write(f"{program}: {e}\n")
         return 1
-    t_conv = time.perf_counter() - t0
     if opts.verbose:
-        log.write(f"{convert_name}: {t_conv:.6f} seconds, "
+        log.write(f"{convert_name}: {timer.times['convert']:.6f} seconds, "
                   f"{mat.num_rows:,} rows, {mat.num_nonzeros:,} nonzeros"
                   f"{per_row}\n")
         if devices:
@@ -619,13 +622,13 @@ def run(argv: list[str], program: str, csr: bool = False) -> int:
 
     # Phase 6: write y to stdout (ellspmv.c:1898-1912)
     if not opts.quiet:
-        t0 = time.perf_counter()
-        y_out = res.y.double().cpu().numpy()
-        if reorder_map is not None:
-            y_out = reorder_map.unpermute_y(y_out)
-        write_vector(sys.stdout, y_out)
+        with timer.phase("mtxfile_write"):
+            y_out = res.y.double().cpu().numpy()
+            if reorder_map is not None:
+                y_out = reorder_map.unpermute_y(y_out)
+            write_vector(sys.stdout, y_out)
         if opts.verbose:
-            log.write(f"mtxfile_write: {time.perf_counter() - t0:.6f} "
+            log.write(f"mtxfile_write: {timer.times['mtxfile_write']:.6f} "
                       "seconds\n")
     return 0
 

@@ -55,6 +55,7 @@ import torch
 
 from ellspmv_tpu_torch import config
 from ellspmv_tpu_torch.formats.coo import CooMatrix
+from ellspmv_tpu_torch.utils.timing import span
 
 # ELL padding acceptance (``ellspmv_tpu.formats.auto._MAX_PAD_RATIO``):
 # beyond this the JAX chooser leaves ELL for SELL or the stream format.
@@ -78,7 +79,24 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
 
     The decision is recorded on the returned matrix as `_auto_choice`
     ('dia', 'ell', 'sell' or 'stream') with `_auto_reason` for verbose
-    reporting. Only the chosen matrix is built on `device`."""
+    reporting. Only the chosen matrix is built on `device`.
+
+    The work is recorded in spans (``utils/timing.py``): the root
+    ``formats.auto_from_coo`` (attributes `rows`, `nonzeros`, `choice`),
+    ``formats.counts`` (what every candidate shares),
+    ``formats.price.<fmt>`` and ``formats.build.<fmt>`` for each candidate
+    priced or built on the host, and ``formats.upload`` for the copy of
+    the chosen one to a card."""
+    with span("formats.auto_from_coo", rows=coo.num_rows,
+              nonzeros=coo.num_nonzeros) as root:
+        matrix = _choose(coo, separate_diagonal, sort_rows, value_dtype,
+                         index_dtype, allow_dia, device)
+        root.set(choice=matrix._auto_choice)
+        return matrix
+
+
+def _choose(coo, separate_diagonal, sort_rows, value_dtype, index_dtype,
+            allow_dia, device):
     from ellspmv_tpu_torch.bench.traffic import (sell_seconds,
                                                  stream_bytes_estimate,
                                                  stream_seconds_estimate)
@@ -91,18 +109,19 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
                                                   stream_layout)
     from ellspmv_tpu_torch.ops.dia_cuda import MAX_DIAGS
 
-    expanded = coo.expand_symmetry()
-    n, m = expanded.num_rows, expanded.num_columns
-    nnz = max(expanded.num_nonzeros, 1)
-    counts = (np.bincount(expanded.rowidx, minlength=n)
-              if n else np.zeros(0, int))
-    rowsize = int(counts.max()) if counts.size else 0
-    ellsize = n * rowsize
+    with span("formats.counts"):
+        expanded = coo.expand_symmetry()
+        n, m = expanded.num_rows, expanded.num_columns
+        nnz = max(expanded.num_nonzeros, 1)
+        counts = (np.bincount(expanded.rowidx, minlength=n)
+                  if n else np.zeros(0, int))
+        rowsize = int(counts.max()) if counts.size else 0
+        ellsize = n * rowsize
 
-    dtype = config.value_dtype(expanded.values.dtype if value_dtype is None
-                               else value_dtype)
-    rate = config.pricing_rate(device)
-    stream_vb = torch.empty(0, dtype=compute_dtype(dtype)).element_size()
+        dtype = config.value_dtype(expanded.values.dtype
+                                   if value_dtype is None else value_dtype)
+        rate = config.pricing_rate(device)
+        stream_vb = torch.empty(0, dtype=compute_dtype(dtype)).element_size()
 
     def stream_bytes(narrow: bool) -> int:
         return stream_bytes_estimate(nnz, n, m, stream_vb, narrow)
@@ -111,7 +130,8 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
         """The stream format's plan and position-order products on the
         host, and its price by the column layout the products take."""
         layout = stream_layout(coo, separate_diagonal=separate_diagonal)
-        return layout, stream_bytes(layout.products_narrow())
+        with span("formats.price.stream"):
+            return layout, stream_bytes(layout.products_narrow())
 
     def pick_stream(layout, reason):
         sm = stream_from_layout(layout, value_dtype=dtype, device=device)
@@ -125,13 +145,16 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
         # format (no column locality), both built on the host and priced
         # by their bytes
         blow = f"ELL padding blowup ({ellsize:,} slots for {nnz:,} nonzeros)"
-        geometry = (rate, *config.k1_geometry(device, dtype))
         layout = stream_layout(coo, separate_diagonal=separate_diagonal)
-        price = stream_seconds_estimate(nnz, n, m, stream_vb,
-                                        layout.products_narrow(), *geometry)
+        with span("formats.price.stream"):
+            geometry = (rate, *config.k1_geometry(device, dtype))
+            price = stream_seconds_estimate(nnz, n, m, stream_vb,
+                                            layout.products_narrow(),
+                                            *geometry)
         sell = sell_from_coo(coo, sort_rows=True, length_sort=True,
                              value_dtype=dtype, index_dtype=index_dtype)
-        sell_price = sell_seconds(sell, *geometry)
+        with span("formats.price.sell"):
+            sell_price = sell_seconds(sell, *geometry)
         if sell_price <= price:
             sell = sell.to(device)
             sell._auto_choice = "sell"
@@ -142,15 +165,18 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
                                    f"split ({_ms(sell_price)})")
 
     vb = torch.empty(0, dtype=dtype).element_size()
-    ib = np.dtype(config.select_index_dtype(n, m, nnz, index_dtype)).itemsize
-    ell_bytes = (ellsize * vb + 2 * n * vb + index_bytes_estimate(
-        expanded.rowidx, expanded.colidx, n, m, rowsize, ib))
+    with span("formats.price.ell"):
+        ib = np.dtype(config.select_index_dtype(n, m, nnz,
+                                                index_dtype)).itemsize
+        ell_bytes = (ellsize * vb + 2 * n * vb + index_bytes_estimate(
+            expanded.rowidx, expanded.colidx, n, m, rowsize, ib))
     why_ell = None
     if allow_dia and separate_diagonal is False and nnz >= 3 * n:
         dia = dia_from_coo(coo, value_dtype=dtype)    # on the host
         if (dia is not None and dia.diasize <= 2 * nnz
                 and dia.num_diags <= MAX_DIAGS):
-            dia_bytes = (dia.diasize + 2 * n) * vb
+            with span("formats.price.dia"):
+                dia_bytes = (dia.diasize + 2 * n) * vb
             if dia_bytes < ell_bytes:
                 dia = dia.to(device)
                 dia._auto_choice = "dia"
@@ -163,7 +189,8 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
                        f"{dia.num_diags} diagonals "
                        f"({_cost(dia_bytes, rate)})")
     # 2-byte product columns are the stream format's least price
-    least = stream_bytes(True)
+    with span("formats.price.stream"):
+        least = stream_bytes(True)
     stream_price = f"at least {_cost(least, rate)}"
     if least < ell_bytes:
         layout, price = stream_on_host()

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 from ellspmv_tpu_torch import config
+from ellspmv_tpu_torch.formats import upload
+from ellspmv_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass
@@ -48,14 +50,18 @@ class DiaMatrix:
         return self.data.device
 
     def to(self, device) -> "DiaMatrix":
-        return DiaMatrix(self.data.to(device), self.offsets, self.num_rows,
-                         self.num_columns, self.num_nonzeros)
+        with upload(device, "dia", self):
+            return DiaMatrix(self.data.to(device), self.offsets,
+                             self.num_rows, self.num_columns,
+                             self.num_nonzeros)
 
 
 def _put(data: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     """Move host data to `device` and cast it there (bf16 rounds on the
     device, as in ``ell_from_coo``)."""
-    return torch.from_numpy(np.ascontiguousarray(data)).to(device).to(dtype)
+    data = np.ascontiguousarray(data)
+    with upload(device, "dia", data):
+        return torch.from_numpy(data).to(device).to(dtype)
 
 
 def dia_from_coo(coo, max_diags: int = 32, value_dtype=None,
@@ -65,20 +71,21 @@ def dia_from_coo(coo, max_diags: int = 32, value_dtype=None,
 
     `value_dtype` is a ``--precision`` name or a torch type (default: the
     COO's values' type)."""
-    coo = coo.expand_symmetry()
-    n, m = coo.num_rows, coo.num_columns
-    off = coo.colidx.astype(np.int64) - coo.rowidx.astype(np.int64)
-    offsets = np.unique(off)
-    if len(offsets) > max_diags:
-        return None
-    dtype = config.value_dtype(coo.values.dtype if value_dtype is None
-                               else value_dtype)
-    # bf16 has no numpy type: accumulate in float64, round on the device
-    host_dt = (np.dtype(np.float64) if dtype == torch.bfloat16
-               else torch.empty(0, dtype=dtype).numpy().dtype)
-    data = np.zeros((len(offsets), n), host_dt)
-    k = np.searchsorted(offsets, off)
-    np.add.at(data, (k, coo.rowidx.astype(np.int64)), coo.values)
+    with span("formats.build.dia"):
+        coo = coo.expand_symmetry()
+        n, m = coo.num_rows, coo.num_columns
+        off = coo.colidx.astype(np.int64) - coo.rowidx.astype(np.int64)
+        offsets = np.unique(off)
+        if len(offsets) > max_diags:
+            return None
+        dtype = config.value_dtype(coo.values.dtype if value_dtype is None
+                                   else value_dtype)
+        # bf16 has no numpy type: accumulate in float64, round on the device
+        host_dt = (np.dtype(np.float64) if dtype == torch.bfloat16
+                   else torch.empty(0, dtype=dtype).numpy().dtype)
+        data = np.zeros((len(offsets), n), host_dt)
+        k = np.searchsorted(offsets, off)
+        np.add.at(data, (k, coo.rowidx.astype(np.int64)), coo.values)
     return DiaMatrix(_put(data, dtype, device),
                      tuple(int(o) for o in offsets), n, m, coo.num_nonzeros)
 

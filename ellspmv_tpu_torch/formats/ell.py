@@ -45,7 +45,9 @@ import numpy as np
 import torch
 
 from ellspmv_tpu_torch import config
+from ellspmv_tpu_torch.formats import upload
 from ellspmv_tpu_torch.io import native
+from ellspmv_tpu_torch.utils.timing import span
 
 
 # Rows are padded to a multiple of this (as in the JAX package).
@@ -122,10 +124,11 @@ class EllMatrix:
     def to(self, device) -> "EllMatrix":
         def move(t):
             return None if t is None else t.to(device)
-        return EllMatrix(move(self.colidx), move(self.values),
-                         move(self.diag), self.num_rows, self.num_columns,
-                         self.num_nonzeros, move(self.lbase),
-                         move(self.lcol))
+        with upload(device, "ell", self):
+            return EllMatrix(move(self.colidx), move(self.values),
+                             move(self.diag), self.num_rows,
+                             self.num_columns, self.num_nonzeros,
+                             move(self.lbase), move(self.lcol))
 
 
 def narrow_bases(block: np.ndarray, cols: np.ndarray,
@@ -197,21 +200,26 @@ def index_bytes_estimate(rowidx: np.ndarray, colidx: np.ndarray,
 def ell_from_row_major(colidx: np.ndarray, values: np.ndarray,
                        diag: np.ndarray | None, num_rows: int,
                        num_columns: int, num_nonzeros: int,
-                       dtype: torch.dtype, device) -> EllMatrix:
+                       dtype: torch.dtype, device,
+                       fmt: str = "ell") -> EllMatrix:
     """Move row-major host arrays to `device`, transpose them to slot-major
     there, cast the values to `dtype`, and add the narrow column layout
-    where it holds."""
+    where it holds. The layout is found on the host in the span of the
+    build of format `fmt`, which the arrays are part of."""
+    with span(f"formats.build.{fmt}"):
+        narrow = narrow_columns(colidx)
+
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    narrow = narrow_columns(colidx)
-    lbase = lcol = None
-    if narrow is not None:
-        lbase, lcol = put(narrow[0]), put(narrow[1]).t().contiguous()
-    return EllMatrix(put(colidx).t().contiguous(),
-                     put(values).t().contiguous().to(dtype),
-                     None if diag is None else put(diag).to(dtype),
-                     num_rows, num_columns, num_nonzeros, lbase, lcol)
+    with upload(device, fmt, colidx, values, diag, narrow):
+        lbase = lcol = None
+        if narrow is not None:
+            lbase, lcol = put(narrow[0]), put(narrow[1]).t().contiguous()
+        return EllMatrix(put(colidx).t().contiguous(),
+                         put(values).t().contiguous().to(dtype),
+                         None if diag is None else put(diag).to(dtype),
+                         num_rows, num_columns, num_nonzeros, lbase, lcol)
 
 
 def ell_from_coo(coo, separate_diagonal: bool = False,
@@ -230,64 +238,68 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
     if row_tile <= 0 or row_tile % ROW_TILE:
         raise ValueError(f"row_tile {row_tile} is not a positive multiple "
                          f"of {ROW_TILE}")
-    coo = coo.expand_symmetry()
-    n, m = coo.num_rows, coo.num_columns
-    nnz_total = coo.num_nonzeros
+    with span("formats.build.ell"):
+        coo = coo.expand_symmetry()
+        n, m = coo.num_rows, coo.num_columns
+        nnz_total = coo.num_nonzeros
 
-    diag = None
-    if separate_diagonal:
-        coo, diag = coo.split_diagonal()
+        diag = None
+        if separate_diagonal:
+            coo, diag = coo.split_diagonal()
 
-    counts = np.bincount(coo.rowidx, minlength=n) if n else np.zeros(0, int)
-    natural_rowsize = int(counts.max()) if n and counts.size else 0
-    if rowsize is None:
-        rowsize = natural_rowsize
-    elif rowsize < natural_rowsize:
-        raise ValueError(f"requested rowsize {rowsize} < max row occupancy "
-                         f"{natural_rowsize}")
+        counts = (np.bincount(coo.rowidx, minlength=n) if n
+                  else np.zeros(0, int))
+        natural_rowsize = int(counts.max()) if n and counts.size else 0
+        if rowsize is None:
+            rowsize = natural_rowsize
+        elif rowsize < natural_rowsize:
+            raise ValueError(f"requested rowsize {rowsize} < max row "
+                             f"occupancy {natural_rowsize}")
 
-    idx_dt = config.select_index_dtype(n, m, max(nnz_total, 1), index_dtype)
-    dtype = config.value_dtype(coo.values.dtype if value_dtype is None
-                               else value_dtype)
-    # bf16 has no numpy type: pack in float64, round on the device
-    host_dt = (np.dtype(np.float64) if dtype == torch.bfloat16
-               else torch.empty(0, dtype=dtype).numpy().dtype)
+        idx_dt = config.select_index_dtype(n, m, max(nnz_total, 1),
+                                           index_dtype)
+        dtype = config.value_dtype(coo.values.dtype if value_dtype is None
+                                   else value_dtype)
+        # bf16 has no numpy type: pack in float64, round on the device
+        host_dt = (np.dtype(np.float64) if dtype == torch.bfloat16
+                   else torch.empty(0, dtype=dtype).numpy().dtype)
 
-    n_pad = max(_round_up(n, row_tile), row_tile)
-    colidx = values = None
-    if coo.num_nonzeros and rowsize and idx_dt == np.dtype(np.int32):
-        # the native counting-sort packer, where the host library is
-        # available (the reference packs in parallel C, ellspmv.c:1081-1127)
-        if native.available():
-            colidx, values = native.ell_pack(n, m, n_pad, rowsize,
-                                             coo.rowidx, coo.colidx,
-                                             coo.values, sort_rows)
-            values = values.astype(host_dt, copy=False)
-    if colidx is None:
-        # allocated only here: the native packer returns its own arrays
-        pad_col = np.minimum(np.arange(n_pad, dtype=idx_dt),
-                             max(m - 1, 0)).astype(idx_dt)
-        colidx = np.broadcast_to(pad_col[:, None], (n_pad, rowsize)).copy()
-        values = np.zeros((n_pad, rowsize), host_dt)
-        if coo.num_nonzeros and rowsize:
-            # One sort by (row [, col]) gives each entry its slot: the
-            # reference's per-row fill cursor (ellspmv.c:1097-1107) and
-            # rowsort.
-            if sort_rows:
-                order = np.lexsort((coo.colidx, coo.rowidx))
-            else:
-                order = np.argsort(coo.rowidx, kind="stable")
-            r = coo.rowidx[order]
-            rowptr = np.zeros(n + 1, dtype=np.int64)
-            rowptr[1:] = np.cumsum(counts)
-            slot = np.arange(len(r), dtype=np.int64) - rowptr[r]
-            colidx[r, slot] = coo.colidx[order].astype(idx_dt)
-            values[r, slot] = coo.values[order].astype(host_dt)
+        n_pad = max(_round_up(n, row_tile), row_tile)
+        colidx = values = None
+        if coo.num_nonzeros and rowsize and idx_dt == np.dtype(np.int32):
+            # the native counting-sort packer, where the host library is
+            # available (the reference packs in parallel C,
+            # ellspmv.c:1081-1127)
+            if native.available():
+                colidx, values = native.ell_pack(n, m, n_pad, rowsize,
+                                                 coo.rowidx, coo.colidx,
+                                                 coo.values, sort_rows)
+                values = values.astype(host_dt, copy=False)
+        if colidx is None:
+            # allocated only here: the native packer returns its own arrays
+            pad_col = np.minimum(np.arange(n_pad, dtype=idx_dt),
+                                 max(m - 1, 0)).astype(idx_dt)
+            colidx = np.broadcast_to(pad_col[:, None], (n_pad, rowsize)).copy()
+            values = np.zeros((n_pad, rowsize), host_dt)
+            if coo.num_nonzeros and rowsize:
+                # One sort by (row [, col]) gives each entry its slot: the
+                # reference's per-row fill cursor (ellspmv.c:1097-1107) and
+                # rowsort.
+                if sort_rows:
+                    order = np.lexsort((coo.colidx, coo.rowidx))
+                else:
+                    order = np.argsort(coo.rowidx, kind="stable")
+                r = coo.rowidx[order]
+                rowptr = np.zeros(n + 1, dtype=np.int64)
+                rowptr[1:] = np.cumsum(counts)
+                slot = np.arange(len(r), dtype=np.int64) - rowptr[r]
+                colidx[r, slot] = coo.colidx[order].astype(idx_dt)
+                values[r, slot] = coo.values[order].astype(host_dt)
 
-    if diag is not None:
-        d = np.zeros(n_pad, host_dt)
-        d[:len(diag)] = diag.astype(host_dt)
-        diag = d
+        if diag is not None:
+            d = np.zeros(n_pad, host_dt)
+            d[:len(diag)] = diag.astype(host_dt)
+            diag = d
 
     return ell_from_row_major(colidx, values, diag, n, m, nnz_total, dtype,
                               device)

@@ -34,11 +34,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from ellspmv_tpu_torch.formats import upload
 from ellspmv_tpu_torch.formats.coo import CooMatrix
 from ellspmv_tpu_torch.formats.csr import CsrMatrix, csr_from_coo
 from ellspmv_tpu_torch.formats.ell import ell_from_coo
 from ellspmv_tpu_torch.ops import ell_cuda
 from ellspmv_tpu_torch.ops.csr import csr_spmv_segment
+from ellspmv_tpu_torch.utils.timing import span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -103,13 +105,14 @@ class SellMatrix:
     def to(self, device) -> "SellMatrix":
         def move(t):
             return None if t is None else t.to(device)
-        return dataclasses.replace(
-            self, buckets=[b.to(device) for b in self.buckets],
-            order=self.order.to(device), tail=move(self.tail),
-            row_unperm=move(self.row_unperm),
-            extra_rows=move(self.extra_rows),
-            extra_owners=move(self.extra_owners),
-            extra_counts=move(self.extra_counts))
+        with upload(device, "sell", self):
+            return dataclasses.replace(
+                self, buckets=[b.to(device) for b in self.buckets],
+                order=self.order.to(device), tail=move(self.tail),
+                row_unperm=move(self.row_unperm),
+                extra_rows=move(self.extra_rows),
+                extra_owners=move(self.extra_owners),
+                extra_counts=move(self.extra_counts))
 
 
 def sell_from_coo(coo: CooMatrix, slice_rows: int = 1024,
@@ -122,156 +125,171 @@ def sell_from_coo(coo: CooMatrix, slice_rows: int = 1024,
     (``ellspmv_tpu.formats.sell.sell_from_coo``, its arguments and
     defaults). `value_dtype` is a ``--precision`` name or a torch type;
     `slice_rows` must be a multiple of 8 (``formats/ell.ROW_TILE``)."""
-    coo = coo.expand_symmetry()
-    n, m = coo.num_rows, coo.num_columns
-    n_out = n          # the caller-visible row count (before group padding)
-    nnz_total = coo.num_nonzeros
-    R = slice_rows
+    with span("formats.build.sell"):
+        coo = coo.expand_symmetry()
+        n, m = coo.num_rows, coo.num_columns
+        n_out = n      # the caller-visible row count (before group padding)
+        nnz_total = coo.num_nonzeros
+        R = slice_rows
 
-    def index(a):
-        return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+        def index(a):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(device)
 
-    if split_rows and n:
-        counts0 = np.bincount(coo.rowidx, minlength=n)
-        long_row = counts0 > split_len
-        if long_row.any():
-            # Split long rows by column band first (a bounded column span
-            # per sub-row), then by rank within a band (a bounded count).
-            order0 = np.lexsort((coo.colidx, coo.rowidx))
-            rows0 = coo.rowidx[order0].astype(np.int64)
-            cols0 = coo.colidx[order0].astype(np.int64)
-            band = np.where(long_row[rows0], cols0 // split_cols, 0)
-            grp_change = np.empty(len(rows0), bool)
-            grp_change[0] = True
-            grp_change[1:] = (rows0[1:] != rows0[:-1]) | (band[1:]
-                                                          != band[:-1])
-            grp_id = np.cumsum(grp_change) - 1
-            starts = np.flatnonzero(grp_change)
-            rank_in_grp = np.arange(len(rows0)) - starts[grp_id]
-            sub_change = grp_change | ((rank_in_grp > 0)
-                                       & (rank_in_grp % split_len == 0))
-            sub_seq = np.cumsum(sub_change) - 1       # row-major sub ids
-            sub_first = np.flatnonzero(sub_change)
-            sub_row = rows0[sub_first]                # original row per sub
-            nsub = np.bincount(sub_row, minlength=n)  # 0 for empty rows
-            sub_off = np.concatenate([[0], np.cumsum(nsub)])
-            ordinal = np.arange(len(sub_row)) - sub_off[sub_row]
-            nextra = np.maximum(nsub - 1, 0)
-            extra_off = np.concatenate([[0], np.cumsum(nextra)])
-            final = np.where(ordinal == 0, sub_row,
-                             n + extra_off[sub_row] + ordinal - 1)
-            num_sub = int(n + extra_off[-1])
-            sm = sell_from_coo(
-                CooMatrix(num_sub, m, final[sub_seq], coo.colidx[order0],
-                          coo.values[order0]),
-                slice_rows=slice_rows, tail_cap=max(tail_cap, split_len),
-                sort_rows=sort_rows, length_sort=length_sort,
-                split_rows=False, value_dtype=value_dtype,
-                index_dtype=index_dtype, device=device)
-            return dataclasses.replace(
-                sm, num_rows=n, num_nonzeros=nnz_total,
-                extra_rows=index(np.repeat(np.arange(n), nextra)),
-                num_sub_rows=num_sub, trivial_reassembly=False,
-                extra_owners=index(np.flatnonzero(nextra)),
-                extra_counts=index(nextra[nextra > 0]))
+        if split_rows and n:
+            counts0 = np.bincount(coo.rowidx, minlength=n)
+            long_row = counts0 > split_len
+            if long_row.any():
+                with span("sell.split"):
+                    # Split long rows by column band first (a bounded
+                    # column span per sub-row), then by rank within a band
+                    # (a bounded count).
+                    order0 = np.lexsort((coo.colidx, coo.rowidx))
+                    rows0 = coo.rowidx[order0].astype(np.int64)
+                    cols0 = coo.colidx[order0].astype(np.int64)
+                    band = np.where(long_row[rows0], cols0 // split_cols,
+                                    0)
+                    grp_change = np.empty(len(rows0), bool)
+                    grp_change[0] = True
+                    grp_change[1:] = ((rows0[1:] != rows0[:-1])
+                                      | (band[1:] != band[:-1]))
+                    grp_id = np.cumsum(grp_change) - 1
+                    starts = np.flatnonzero(grp_change)
+                    rank_in_grp = np.arange(len(rows0)) - starts[grp_id]
+                    sub_change = grp_change | (
+                        (rank_in_grp > 0) & (rank_in_grp % split_len == 0))
+                    sub_seq = np.cumsum(sub_change) - 1   # row-major ids
+                    sub_first = np.flatnonzero(sub_change)
+                    sub_row = rows0[sub_first]     # original row per sub
+                    nsub = np.bincount(sub_row, minlength=n)  # 0: empty rows
+                    sub_off = np.concatenate([[0], np.cumsum(nsub)])
+                    ordinal = np.arange(len(sub_row)) - sub_off[sub_row]
+                    nextra = np.maximum(nsub - 1, 0)
+                    extra_off = np.concatenate([[0], np.cumsum(nextra)])
+                    final = np.where(ordinal == 0, sub_row,
+                                     n + extra_off[sub_row] + ordinal - 1)
+                    num_sub = int(n + extra_off[-1])
+                sm = sell_from_coo(
+                    CooMatrix(num_sub, m, final[sub_seq],
+                              coo.colidx[order0], coo.values[order0]),
+                    slice_rows=slice_rows, tail_cap=max(tail_cap, split_len),
+                    sort_rows=sort_rows, length_sort=length_sort,
+                    split_rows=False, value_dtype=value_dtype,
+                    index_dtype=index_dtype, device=device)
+                return dataclasses.replace(
+                    sm, num_rows=n, num_nonzeros=nnz_total,
+                    extra_rows=index(np.repeat(np.arange(n), nextra)),
+                    num_sub_rows=num_sub, trivial_reassembly=False,
+                    extra_owners=index(np.flatnonzero(nextra)),
+                    extra_counts=index(nextra[nextra > 0]))
 
-    row_unperm = None
-    if length_sort and n:
-        cnt0 = np.bincount(coo.rowidx, minlength=n)
-        # primary key: the power-of-two length group (slices are bucketed
-        # by powers of two); then the column band and each row's least
-        # column, so that rows with nearby columns share a slice
-        first = np.full(n, m, np.int64)
-        np.minimum.at(first, coo.rowidx, coo.colidx.astype(np.int64))
-        lb = np.ceil(np.log2(np.maximum(cnt0, 1))).astype(np.int64)
-        band = first // max(split_cols, 1)
-        perm = np.lexsort((first, band, -lb))        # old row at position k
-        # pad each length group to a slice, and each band group within it
-        # to 128 rows, so that no slice or 128-row tile straddles two
-        lb_sorted = lb[perm]
-        band_sorted = band[perm]
-        new_lb = np.concatenate([[True],
-                                 lb_sorted[1:] != lb_sorted[:-1]])
-        new_grp = new_lb | np.concatenate(
-            [[True], band_sorted[1:] != band_sorted[:-1]])
-        starts = np.flatnonzero(new_grp)
-        sizes = np.diff(np.concatenate([starts, [n]]))
-        pos_sorted = np.empty(n, np.int64)
-        cum = 0
-        for g in range(len(starts)):
-            gran = R if new_lb[starts[g]] else 128
-            cum = -(-cum // gran) * gran
-            s0, sz = starts[g], sizes[g]
-            pos_sorted[s0:s0 + sz] = cum + np.arange(sz)
-            cum += sz
-        inv = np.empty(n, np.int64)
-        inv[perm] = pos_sorted
-        n_eff = _round_up(cum, R)                    # includes gap rows
-        coo = CooMatrix(n_eff, m, inv[coo.rowidx], coo.colidx, coo.values)
-        n = n_eff
-        row_unperm = inv                              # y_nat = y_sorted[inv]
+        row_unperm = None
+        if length_sort and n:
+            with span("sell.length_sort"):
+                cnt0 = np.bincount(coo.rowidx, minlength=n)
+                # primary key: the power-of-two length group (slices are
+                # bucketed by powers of two); then the column band and each
+                # row's least column, so that rows with nearby columns
+                # share a slice
+                first = np.full(n, m, np.int64)
+                np.minimum.at(first, coo.rowidx,
+                              coo.colidx.astype(np.int64))
+                lb = np.ceil(np.log2(np.maximum(cnt0, 1))).astype(np.int64)
+                band = first // max(split_cols, 1)
+                perm = np.lexsort((first, band, -lb))  # old row at k
+                # pad each length group to a slice, and each band group
+                # within it to 128 rows, so that no slice or 128-row tile
+                # straddles two
+                lb_sorted = lb[perm]
+                band_sorted = band[perm]
+                new_lb = np.concatenate([[True],
+                                         lb_sorted[1:] != lb_sorted[:-1]])
+                new_grp = new_lb | np.concatenate(
+                    [[True], band_sorted[1:] != band_sorted[:-1]])
+                starts = np.flatnonzero(new_grp)
+                sizes = np.diff(np.concatenate([starts, [n]]))
+                pos_sorted = np.empty(n, np.int64)
+                cum = 0
+                for g in range(len(starts)):
+                    gran = R if new_lb[starts[g]] else 128
+                    cum = -(-cum // gran) * gran
+                    s0, sz = starts[g], sizes[g]
+                    pos_sorted[s0:s0 + sz] = cum + np.arange(sz)
+                    cum += sz
+                inv = np.empty(n, np.int64)
+                inv[perm] = pos_sorted
+                n_eff = _round_up(cum, R)              # includes gap rows
+                coo = CooMatrix(n_eff, m, inv[coo.rowidx], coo.colidx,
+                                coo.values)
+                n = n_eff
+                row_unperm = inv                    # y_nat = y_sorted[inv]
 
-    if split_rows:
-        # rows are at most split_len long (naturally or after the split
-        # above), so nothing needs the tail
-        tail_cap = max(tail_cap, split_len)
+        if split_rows:
+            # rows are at most split_len long (naturally or after the split
+            # above), so nothing needs the tail
+            tail_cap = max(tail_cap, split_len)
 
-    n_pad = max(_round_up(n, R), R)
-    T = n_pad // R
+        n_pad = max(_round_up(n, R), R)
+        T = n_pad // R
 
-    # each entry's rank in its row (by file order, or by column when
-    # sorting, as rowsort orders them, ellspmv.c:960-1079)
-    if sort_rows:
-        order = np.lexsort((coo.colidx, coo.rowidx))
-    else:
-        order = np.argsort(coo.rowidx, kind="stable")
-    rows = coo.rowidx[order]
-    cols = coo.colidx[order]
-    vals = coo.values[order]
-    counts = np.bincount(rows, minlength=n_pad)
-    rowptr = np.concatenate([[0], np.cumsum(counts)])
-    rank = np.arange(len(rows)) - rowptr[rows]
+        with span("sell.row_sort"):
+            # each entry's rank in its row (by file order, or by column when
+            # sorting, as rowsort orders them, ellspmv.c:960-1079)
+            if sort_rows:
+                order = np.lexsort((coo.colidx, coo.rowidx))
+            else:
+                order = np.argsort(coo.rowidx, kind="stable")
+            rows = coo.rowidx[order]
+            cols = coo.colidx[order]
+            vals = coo.values[order]
+            counts = np.bincount(rows, minlength=n_pad)
+            rowptr = np.concatenate([[0], np.cumsum(counts)])
+            rank = np.arange(len(rows)) - rowptr[rows]
 
-    in_tail = rank >= tail_cap
-    tail = None
-    if in_tail.any():
-        tail = csr_from_coo(CooMatrix(n, m, rows[in_tail], cols[in_tail],
-                                      vals[in_tail]),
-                            value_dtype=value_dtype, index_dtype=index_dtype,
-                            device=device)
-    keep = ~in_tail
-    rows, cols, vals = rows[keep], cols[keep], vals[keep]
-
-    # each slice's width (capped), in power-of-two buckets of at least 4
-    capped = np.minimum(counts[:n_pad], tail_cap)
-    slice_s = capped.reshape(T, R).max(axis=1)
-    bucket_s = np.maximum(4, 2 ** np.ceil(
-        np.log2(np.maximum(slice_s, 1))).astype(np.int64))
-    bucket_sizes = sorted(set(int(b) for b in bucket_s))
-
-    buckets = []
-    concat_pos = np.zeros(T, np.int64)
-    pos = 0
-    tile_of_row = rows // R
-    for S in bucket_sizes:
-        tiles = np.nonzero(bucket_s == S)[0]
-        concat_pos[tiles] = pos + np.arange(len(tiles))
-        pos += len(tiles)
-        # the entries of these tiles, their rows renumbered contiguously
-        tile_rank = np.full(T, -1, np.int64)
-        tile_rank[tiles] = np.arange(len(tiles))
-        sel = tile_rank[tile_of_row] >= 0
-        sub_rows = tile_rank[tile_of_row[sel]] * R + rows[sel] % R
-        sub = CooMatrix(len(tiles) * R, m, sub_rows, cols[sel], vals[sel])
-        buckets.append(ell_from_coo(sub, sort_rows=sort_rows,
+        with span("sell.pack"):
+            in_tail = rank >= tail_cap
+            tail = None
+            if in_tail.any():
+                tail = csr_from_coo(CooMatrix(n, m, rows[in_tail],
+                                              cols[in_tail], vals[in_tail]),
                                     value_dtype=value_dtype,
-                                    index_dtype=index_dtype, device=device,
-                                    row_tile=R, rowsize=S))
-    return SellMatrix(buckets=buckets, order=index(concat_pos), slice_rows=R,
-                      tail=tail, num_rows=n_out, num_columns=m,
-                      num_nonzeros=nnz_total,
-                      row_unperm=(None if row_unperm is None
-                                  else index(row_unperm)))
+                                    index_dtype=index_dtype, device=device)
+            keep = ~in_tail
+            rows, cols, vals = rows[keep], cols[keep], vals[keep]
+
+            # each slice's width (capped), in power-of-two buckets of at
+            # least 4
+            capped = np.minimum(counts[:n_pad], tail_cap)
+            slice_s = capped.reshape(T, R).max(axis=1)
+            bucket_s = np.maximum(4, 2 ** np.ceil(
+                np.log2(np.maximum(slice_s, 1))).astype(np.int64))
+            bucket_sizes = sorted(set(int(b) for b in bucket_s))
+
+            buckets = []
+            concat_pos = np.zeros(T, np.int64)
+            pos = 0
+            tile_of_row = rows // R
+            for S in bucket_sizes:
+                tiles = np.nonzero(bucket_s == S)[0]
+                concat_pos[tiles] = pos + np.arange(len(tiles))
+                pos += len(tiles)
+                # the entries of these tiles, their rows renumbered
+                # contiguously
+                tile_rank = np.full(T, -1, np.int64)
+                tile_rank[tiles] = np.arange(len(tiles))
+                sel = tile_rank[tile_of_row] >= 0
+                sub_rows = tile_rank[tile_of_row[sel]] * R + rows[sel] % R
+                sub = CooMatrix(len(tiles) * R, m, sub_rows, cols[sel],
+                                vals[sel])
+                buckets.append(ell_from_coo(sub, sort_rows=sort_rows,
+                                            value_dtype=value_dtype,
+                                            index_dtype=index_dtype,
+                                            device=device, row_tile=R,
+                                            rowsize=S))
+            return SellMatrix(buckets=buckets, order=index(concat_pos),
+                              slice_rows=R, tail=tail, num_rows=n_out,
+                              num_columns=m, num_nonzeros=nnz_total,
+                              row_unperm=(None if row_unperm is None
+                                          else index(row_unperm)))
 
 
 def kernel_launches(sm: SellMatrix) -> int:

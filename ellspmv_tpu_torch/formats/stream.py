@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ellspmv_tpu_torch import config
+from ellspmv_tpu_torch.formats import upload
 from ellspmv_tpu_torch.formats.ell import (LBLOCK, EllMatrix,
                                           ell_from_row_major, narrow_bases)
 from ellspmv_tpu_torch.io import native
@@ -43,6 +44,7 @@ from ellspmv_tpu_torch.ops.permute import BLOCK
 from ellspmv_tpu_torch.ops.stream_sum import (StreamSumPlan,
                                               apply_stream_sum,
                                               build_stream_sum, position_map)
+from ellspmv_tpu_torch.utils.timing import span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -82,9 +84,10 @@ class StreamMatrix:
         return self.prod.device
 
     def to(self, device) -> "StreamMatrix":
-        return dataclasses.replace(
-            self, prod=self.prod.to(device), ddsum=self.ddsum.to(device),
-            diag=None if self.diag is None else self.diag.to(device))
+        with upload(device, "stream", self):
+            return dataclasses.replace(
+                self, prod=self.prod.to(device), ddsum=self.ddsum.to(device),
+                diag=None if self.diag is None else self.diag.to(device))
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -203,30 +206,34 @@ def stream_layout(coo, separate_diagonal: bool = False, cap: int = 128,
     """Sort the entries by column, pad them to `products_len`, build the
     sum plan over them (column chunks by `num_chunks`), and lay the
     products out in level 1's position order, on the host."""
-    coo = coo.expand_symmetry()
-    nnz_total = coo.num_nonzeros
-    coo, diag, order = _entries(coo, separate_diagonal)
-    n, m = coo.num_rows, coo.num_columns
-    nnz = coo.num_nonzeros
-    if m > np.iinfo(np.int32).max:
-        raise ValueError("stream format: column count exceeds int32")
+    with span("formats.build.stream"):
+        coo = coo.expand_symmetry()
+        nnz_total = coo.num_nonzeros
+        with span("stream.argsort"):
+            coo, diag, order = _entries(coo, separate_diagonal)
+        n, m = coo.num_rows, coo.num_columns
+        nnz = coo.num_nonzeros
+        if m > np.iinfo(np.int32).max:
+            raise ValueError("stream format: column count exceeds int32")
 
-    cols = coo.colidx[order].astype(np.int32, copy=False)
-    prod_len = products_len(nnz)
-    dest = np.full(prod_len, -1, np.int64)
-    dest[:nnz] = coo.rowidx[order]
+        cols = coo.colidx[order].astype(np.int32, copy=False)
+        prod_len = products_len(nnz)
+        dest = np.full(prod_len, -1, np.int64)
+        dest[:nnz] = coo.rowidx[order]
 
-    chunks = num_chunks(m, nnz, span_max, n_chunks)
-    chunk_starts = None
-    if chunks > 1:
-        width = -(-m // chunks)
-        edges = np.arange(1, chunks, dtype=np.int64) * width
-        cs = np.searchsorted(cols, edges).astype(np.int64)
-        chunk_starts = np.concatenate([[0], cs, [prod_len]])
-    plan = build_stream_sum(dest, n_rows=n, cap=cap,
-                            chunk_starts=chunk_starts)
-    pcol, pval = position_order(position_map(plan.levels[0]), cols,
-                                coo.values[order].astype(np.float64))
+        with span("stream.sum_plan"):
+            chunks = num_chunks(m, nnz, span_max, n_chunks)
+            chunk_starts = None
+            if chunks > 1:
+                width = -(-m // chunks)
+                edges = np.arange(1, chunks, dtype=np.int64) * width
+                cs = np.searchsorted(cols, edges).astype(np.int64)
+                chunk_starts = np.concatenate([[0], cs, [prod_len]])
+            plan = build_stream_sum(dest, n_rows=n, cap=cap,
+                                    chunk_starts=chunk_starts)
+        with span("stream.position_order"):
+            pcol, pval = position_order(position_map(plan.levels[0]), cols,
+                                        coo.values[order].astype(np.float64))
     return StreamLayout(plan=plan, pcol=pcol, pval=pval, diag=diag,
                         num_rows=n, num_columns=m, num_nonzeros=nnz_total,
                         num_products=nnz, prod_len=prod_len,
@@ -245,17 +252,20 @@ def stream_from_layout(layout: StreamLayout, value_dtype=None,
     n, plan = layout.num_rows, layout.plan
     prod = ell_from_row_major(layout.pcol[:, None], layout.pval[:, None],
                               None, plan.in_positions, layout.num_columns,
-                              layout.num_products, dtype, device)
-    prod.values = prod.values.to(compute)
-    diag = None
+                              layout.num_products, dtype, device, "stream")
+    d = None
     if layout.diag is not None:
-        d = np.zeros(n, np.float64)
-        d[:len(layout.diag)] = layout.diag
-        diag = torch.from_numpy(d).to(device).to(dtype).to(compute)
-    return StreamMatrix(prod=prod, ddsum=plan.to(device), diag=diag,
-                        num_rows=n, num_columns=layout.num_columns,
-                        num_nonzeros=layout.num_nonzeros,
-                        prod_len=layout.prod_len)
+        with span("formats.build.stream"):
+            d = np.zeros(n, np.float64)
+            d[:len(layout.diag)] = layout.diag
+    with upload(device, "stream", plan, d):
+        prod.values = prod.values.to(compute)
+        diag = (None if d is None
+                else torch.from_numpy(d).to(device).to(dtype).to(compute))
+        return StreamMatrix(prod=prod, ddsum=plan.to(device), diag=diag,
+                            num_rows=n, num_columns=layout.num_columns,
+                            num_nonzeros=layout.num_nonzeros,
+                            prod_len=layout.prod_len)
 
 
 def stream_from_coo(coo, separate_diagonal: bool = False, value_dtype=None,

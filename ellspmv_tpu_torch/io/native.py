@@ -30,6 +30,7 @@ import threading
 import numpy as np
 
 from ellspmv_tpu_torch.ops._build import BUILD_DIR
+from ellspmv_tpu_torch.utils.timing import span
 
 SRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "host"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
@@ -139,13 +140,21 @@ def _bind(lib):
 
 
 def _load():
-    """The library, built and loaded once per process; None without a C++
+    """The library, built and loaded once per process, in the span
+    ``native.library_load`` (`built`: whether g++ ran); None without a C++
     compiler."""
     with _lock:
         if "lib" not in _state:
-            cxx = find_cxx()
-            _state["lib"] = (None if cxx is None
-                             else _bind(ctypes.CDLL(str(build(cxx)))))
+            with span("native.library_load") as s:
+                cxx = find_cxx()
+                lib = None
+                if cxx is not None:
+                    path = library_path(cxx)
+                    built = not path.exists()
+                    s.set(built=built)
+                    lib = _bind(ctypes.CDLL(str(build(cxx) if built
+                                                else path)))
+                _state["lib"] = lib
         return _state["lib"]
 
 

@@ -20,6 +20,8 @@ import pathlib
 import shutil
 import subprocess
 
+from ellspmv_tpu_torch.utils.timing import span
+
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "ellspmv_tpu_torch"
@@ -112,8 +114,13 @@ def build(csrc_dir: pathlib.Path | None = None,
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """Build if needed and load the kernels' library (once per process)."""
-    return ctypes.CDLL(str(build()))
+    """Build if needed and load the kernels' library (once per process), in
+    the span ``ops.library_load`` (`built`: whether nvcc ran)."""
+    with span("ops.library_load") as s:
+        path = library_path()
+        built = not path.exists()
+        s.set(built=built)
+        return ctypes.CDLL(str(build() if built else path))
 
 
 @functools.cache

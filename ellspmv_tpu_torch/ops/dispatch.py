@@ -31,6 +31,7 @@ from ellspmv_tpu_torch.formats.sell import (SellMatrix, bucket_spmv,
 from ellspmv_tpu_torch.formats.stream import StreamMatrix, stream_spmv
 from ellspmv_tpu_torch.ops import dia_cuda
 from ellspmv_tpu_torch.ops.csr import csr_spmv, csr_spmv_segment
+from ellspmv_tpu_torch.utils.timing import span
 
 def spmv(matrix, x, y=None, backend: str = "auto"):
     """y := A*x + y on the device of `matrix` and `x`, through the
@@ -65,7 +66,8 @@ def traceable_spmv(matrix, backend: str = "auto"):
     probe and its host read on the first fp64 call on a card, the CSR's
     sliced-ELL repack on the host (cached on the matrix), the layout
     constants' checks. So before it returns, this makes one call on a zero
-    x, on the matrix's device, and waits for it. (A `SellMatrix` works out
+    x, on the matrix's device, and waits for it, in the span
+    ``dispatch.first_call``. (A `SellMatrix` works out
     `trivial_reassembly` from `order` at construction, and `to` carries
     it.) The operand is the matrix itself: a graph holds the addresses of
     its tensors, so the caller keeps it alive as long as the graph."""
@@ -73,10 +75,11 @@ def traceable_spmv(matrix, backend: str = "auto"):
                                SellMatrix, HybridMatrix, CsrMatrix)):
         raise TypeError(f"no traceable spmv for {type(matrix)}")
     values = matrix.data if isinstance(matrix, DiaMatrix) else matrix.values
-    spmv(matrix, torch.zeros(matrix.num_columns, dtype=values.dtype,
-                             device=values.device), None, backend)
-    if values.device.type == "cuda":
-        torch.cuda.synchronize(values.device)
+    with span("dispatch.first_call"):
+        spmv(matrix, torch.zeros(matrix.num_columns, dtype=values.dtype,
+                                 device=values.device), None, backend)
+        if values.device.type == "cuda":
+            torch.cuda.synchronize(values.device)
 
     def fn(operand, x, y=None):
         return spmv(operand, x, y, backend)

@@ -17,6 +17,7 @@ import torch
 
 from ellspmv_tpu_torch.formats.ell import LBLOCK, NARROW_SPAN, EllMatrix
 from ellspmv_tpu_torch.ops import _build
+from ellspmv_tpu_torch.utils.timing import span
 
 #: Kernel launches made by `ell_spmv` in this process.
 launches = 0
@@ -234,12 +235,13 @@ def fma_contraction_available(device) -> bool:
     """Whether the fused multiply-add on `device` rounds once: `fma_probe`
     on the probe inputs equals the exact residual and is not all zero (the
     test of ``ell_pallas.fma_contraction_available``). Probed once per
-    device and kept in `FMA_PROBE_RESULTS`."""
+    device and kept in `FMA_PROBE_RESULTS`, in the span ``ops.fma_probe``."""
     device = torch.device(device)
     if device not in FMA_PROBE_RESULTS:
-        a, b = probe_inputs(device)
-        got = fma_probe(a, b).cpu()
-        exact = fma_probe_torch(a.cpu(), b.cpu())
-        FMA_PROBE_RESULTS[device] = bool(torch.equal(got, exact)
-                                         and bool((exact != 0).any()))
+        with span("ops.fma_probe"):
+            a, b = probe_inputs(device)
+            got = fma_probe(a, b).cpu()
+            exact = fma_probe_torch(a.cpu(), b.cpu())
+            FMA_PROBE_RESULTS[device] = bool(torch.equal(got, exact)
+                                             and bool((exact != 0).any()))
     return FMA_PROBE_RESULTS[device]

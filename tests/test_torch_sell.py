@@ -141,6 +141,9 @@ CASES = {
     "length_sort_split": (lambda: jax_generators.dense_rows(
         4096, 4, num_dense=3, dense_nnz=2000, seed=2),
         dict(slice_rows=256, length_sort=True)),
+    "length_sort_split_cols": (lambda: jax_generators.dense_rows(
+        4096, 4, num_dense=3, dense_nnz=2000, seed=2),
+        dict(slice_rows=256, length_sort=True, split_cols=512)),
     "symmetric": (lambda: random_coo(np.random.RandomState(32), 200, 200,
                                      900, symmetric=True, with_dups=True),
                   dict(slice_rows=128)),
