@@ -37,7 +37,9 @@ must move, so that every report can also carry the physical share (at most
   index, a read and a write per sub-row), the extra sub-rows' sums (the
   zeroed sums, the extras and their indices read, then the rows' sums read
   and written with them), and y as a pass of its own (read, the result
-  read and written);
+  read and written); all of it read off the split's shape
+  (``formats/sell.SellShape``), which the chooser works out from the COO
+  without building the split;
 - CSR (``ops/csr.csr_spmv``): its cached SELL repack, the split diagonal's
   epilogue (the diagonal, x and the result read, the result written) and y
   as a pass of its own;
@@ -55,7 +57,8 @@ from ellspmv_tpu_torch.formats.csr import CsrMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import LBLOCK, EllMatrix
 from ellspmv_tpu_torch.formats.hybrid import HybridMatrix
-from ellspmv_tpu_torch.formats.sell import SellMatrix
+from ellspmv_tpu_torch.formats.sell import (BucketShape, SellMatrix,
+                                             SellShape)
 from ellspmv_tpu_torch.formats.stream import StreamMatrix
 from ellspmv_tpu_torch.ops.permute import BLOCK
 
@@ -135,48 +138,56 @@ def stream_seconds_estimate(nnz: int, num_rows: int, num_columns: int,
     return rest / rate + k1_launch_seconds(slots, 1, k1, rate, round_s, sms)
 
 
-def _bucket_bytes(b: EllMatrix) -> int:
+def _bucket_bytes(b: BucketShape) -> int:
     """K1's bytes on one SELL bucket without x: its slots' values, their
     columns at the width it reads them, its output."""
-    sv = b.values.element_size()
+    sv = b.value_bytes
     return b.rowsize * b.padded_rows * sv + b.index_bytes + b.num_rows * sv
 
 
-def sell_seconds(sm: SellMatrix, rate: float, round_s: float,
+def _shape(sm: SellMatrix | SellShape) -> SellShape:
+    return sm.shape if isinstance(sm, SellMatrix) else sm
+
+
+def sell_seconds(sm: SellMatrix | SellShape, rate: float, round_s: float,
                  sms: int) -> float:
     """`sell_bytes` (without y) as seconds at `rate`, with K1 on each
-    bucket priced by its geometry (`k1_launch_seconds`)."""
-    seconds = sell_bytes(sm, with_y=False) / rate
-    for b in sm.buckets:
+    bucket priced by its geometry (`k1_launch_seconds`). The chooser
+    prices the SELL split by the shape alone (``formats/sell.sell_shape``)
+    and builds it only where it is chosen."""
+    shape = _shape(sm)
+    seconds = sell_bytes(shape, with_y=False) / rate
+    for b in shape.buckets:
         k1 = _bucket_bytes(b)
         seconds += k1_launch_seconds(b.num_rows, b.rowsize, k1, rate,
                                      round_s, sms) - k1 / rate
     return seconds
 
 
-def sell_bytes(sm: SellMatrix, with_y: bool = True) -> int:
+def sell_bytes(sm: SellMatrix | SellShape, with_y: bool = True) -> int:
     """Bytes one `sell_spmv` on `sm` moves (the module's docstring), y read
-    and added when `with_y`."""
-    sv = sm.values.element_size()
-    n = sm.num_rows
-    total = sm.num_columns * sv                   # x, once for all buckets
-    for b in sm.buckets:
+    and added when `with_y`. They depend on the split's shape alone
+    (`SellMatrix.shape`, or ``formats/sell.sell_shape`` without a build),
+    so a matrix and its shape give the same count."""
+    s = _shape(sm)
+    sv = s.value_bytes
+    n = s.num_rows
+    total = s.num_columns * sv                    # x, once for all buckets
+    for b in s.buckets:
         total += _bucket_bytes(b)
-    if not sm.trivial_reassembly:
-        tiles = sum(b.num_rows for b in sm.buckets)
-        if len(sm.buckets) > 1:
+    if not s.trivial_reassembly:
+        tiles = sum(b.num_rows for b in s.buckets)
+        if len(s.buckets) > 1:
             total += 2 * tiles * sv               # the concatenation
-        total += 2 * tiles * sv + 8 * int(sm.order.shape[0])
-        if sm.tail is not None:
-            t = sm.tail
-            total += sum(a.numel() * a.element_size()
-                         for a in (t.rowids, t.colidx, t.values))
+        total += 2 * tiles * sv + 8 * s.num_tiles
+        if s.tail is not None:
+            t = s.tail
+            total += t.array_bytes
             total += 2 * t.csrsize * sv + 3 * t.num_rows * sv
-        if sm.row_unperm is not None:
-            total += int(sm.row_unperm.shape[0]) * (8 + 2 * sv)
-        if sm.extra_rows is not None:
-            extra = int(sm.extra_rows.shape[0])
-            total += n * sv + extra * (8 + sv) + 3 * n * sv
+        if s.unperm_rows is not None:
+            total += s.unperm_rows * (8 + 2 * sv)
+        if s.extra_rows is not None:
+            total += n * sv + s.extra_rows * (8 + sv) + 3 * n * sv
     return total + (3 * n * sv if with_y else 0)
 
 

@@ -23,9 +23,12 @@ matrix is built on `device`:
   indices at the width K1 will read them
   (``formats/ell.index_bytes_estimate``: 2 bytes a slot where the narrow
   layout holds, else the index type's);
-- SELL: ``bench/traffic.sell_bytes`` of the SELL split built on the host
-  (its buckets' slots and columns at the width K1 reads them, and the
-  reassembly passes), moved to `device` only when chosen;
+- SELL: ``bench/traffic.sell_bytes`` of the SELL split's shape (its
+  buckets' slots and columns at the width K1 reads them, and the
+  reassembly passes), worked out from the rows' counts and column extremes
+  (``formats/sell.sell_shape``, exactly the shape ``sell_from_coo``
+  builds); the split is built on the host, and moved to `device`, only
+  where it is chosen;
 - stream: ``bench/traffic.stream_bytes_estimate``, its products' indices
   by the same rule. The products lie in the sum plan's position order, so
   their layout is known only once the plan is built: where the stream
@@ -85,8 +88,10 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
     ``formats.auto_from_coo`` (attributes `rows`, `nonzeros`, `choice`),
     ``formats.counts`` (what every candidate shares),
     ``formats.price.<fmt>`` and ``formats.build.<fmt>`` for each candidate
-    priced or built on the host, and ``formats.upload`` for the copy of
-    the chosen one to a card."""
+    priced or built on the host (``formats.price.sell`` with the SELL
+    split's `buckets` and `slots`, and `built` False: it is priced from
+    its shape and built only where chosen), and ``formats.upload`` for the
+    copy of the chosen one to a card."""
     with span("formats.auto_from_coo", rows=coo.num_rows,
               nonzeros=coo.num_nonzeros) as root:
         matrix = _choose(coo, separate_diagonal, sort_rows, value_dtype,
@@ -103,7 +108,7 @@ def _choose(coo, separate_diagonal, sort_rows, value_dtype, index_dtype,
     from ellspmv_tpu_torch.formats.dia import dia_from_coo
     from ellspmv_tpu_torch.formats.ell import (ell_from_coo,
                                                index_bytes_estimate)
-    from ellspmv_tpu_torch.formats.sell import sell_from_coo
+    from ellspmv_tpu_torch.formats.sell import sell_from_coo, sell_shape
     from ellspmv_tpu_torch.formats.stream import (compute_dtype,
                                                   stream_from_layout,
                                                   stream_layout)
@@ -141,9 +146,9 @@ def _choose(coo, separate_diagonal, sort_rows, value_dtype, index_dtype,
 
     if ellsize > MAX_PAD_RATIO * nnz and ellsize > 1 << 20:
         # ELLPACK is out (rows x longest row, ellspmv.c:955). The SELL
-        # split (a few long rows over a local bulk) against the stream
-        # format (no column locality), both built on the host and priced
-        # by their bytes
+        # split (a few long rows over a local bulk), priced by its shape,
+        # against the stream format (no column locality), laid out on the
+        # host and priced by its bytes
         blow = f"ELL padding blowup ({ellsize:,} slots for {nnz:,} nonzeros)"
         layout = stream_layout(coo, separate_diagonal=separate_diagonal)
         with span("formats.price.stream"):
@@ -151,12 +156,14 @@ def _choose(coo, separate_diagonal, sort_rows, value_dtype, index_dtype,
             price = stream_seconds_estimate(nnz, n, m, stream_vb,
                                             layout.products_narrow(),
                                             *geometry)
-        sell = sell_from_coo(coo, sort_rows=True, length_sort=True,
-                             value_dtype=dtype, index_dtype=index_dtype)
-        with span("formats.price.sell"):
-            sell_price = sell_seconds(sell, *geometry)
+        sell_kw = dict(sort_rows=True, length_sort=True, value_dtype=dtype,
+                       index_dtype=index_dtype)
+        with span("formats.price.sell", built=False) as s:
+            shape = sell_shape(coo, **sell_kw)
+            sell_price = sell_seconds(shape, *geometry)
+            s.set(buckets=len(shape.buckets), slots=shape.slots)
         if sell_price <= price:
-            sell = sell.to(device)
+            sell = sell_from_coo(coo, **sell_kw).to(device)
             sell._auto_choice = "sell"
             sell._auto_reason = (f"{blow}; SELL split ({_ms(sell_price)}) "
                                  f"<= stream ({_ms(price)})")

@@ -30,8 +30,9 @@ each slot's column as a 16-bit offset from it (`lcol`, slot-major like
 Every constructor builds it through `ell_from_row_major` (`ell_from_coo`,
 `ell_from_jax_arrays` and the stream format's products). The rule is
 written once, in `narrow_bases`: `narrow_columns` applies it to the built
-rows, `narrow_columns_fit` to COO triplets (for the chooser's ELL price)
-and ``formats/stream.StreamLayout.products_narrow`` to the stream format's
+rows, `narrow_columns_fit` to COO triplets (for the chooser's ELL price),
+`narrow_rows_fit` to rows' counts and extremes (for the SELL price) and
+``formats/stream.StreamLayout.products_narrow`` to the stream format's
 products laid out on the host (for its price). The kernel's library
 reports its own `LBLOCK` and `NARROW_SPAN`, and the wrapper checks them
 against these.
@@ -183,6 +184,26 @@ def narrow_columns_fit(rowidx: np.ndarray, colidx: np.ndarray,
                            np.minimum(padded, max(num_columns - 1, 0))])
     return narrow_bases(rows // LBLOCK, cols,
                         -(-n_pad // LBLOCK)) is not None
+
+
+def narrow_rows_fit(counts: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+                    rowsize: int, num_columns: int) -> bool:
+    """`narrow_columns`'s answer for rows ``0..len(counts)`` of `rowsize`
+    slots from each row's entry count and least and greatest column (`lo`,
+    `hi`, read where the count is not 0): `narrow_bases` over those and,
+    in every row with fewer than `rowsize` entries, its padding column
+    ``min(i, num_columns - 1)``."""
+    p = len(counts)
+    if p == 0 or rowsize == 0:
+        return False
+    i = np.arange(p)
+    full, padded = counts > 0, counts < rowsize
+    block = i // LBLOCK
+    return narrow_bases(
+        np.concatenate([block[full], block[full], block[padded]]),
+        np.concatenate([lo[full], hi[full],
+                        np.minimum(i[padded], max(num_columns - 1, 0))]),
+        -(-p // LBLOCK)) is not None
 
 
 def index_bytes_estimate(rowidx: np.ndarray, colidx: np.ndarray,

@@ -1,8 +1,9 @@
 """The port's `auto_from_coo` against the JAX package's chooser: the same
 choice on the same matrices, the DIA it returns equal to JAX's, only the
 chosen matrix built, the SELL split or the stream format where the ELLPACK
-padding blows up (tests/test_torch_sell.py holds the SELL branch), and the
-stream format where it moves fewer bytes than ELL. The JAX chooser runs with
+padding blows up (tests/test_torch_sell.py holds the SELL branch; here the
+split is priced by its shape and built only where it wins), and the stream
+format where it moves fewer bytes than ELL. The JAX chooser runs with
 the interpret variable set, as its own tests do
 (tests/test_stream.py::test_auto_picks_dia_for_stencil)."""
 
@@ -12,15 +13,20 @@ import torch
 
 from ellspmv_tpu.formats.auto import auto_from_coo as jax_auto_from_coo
 from ellspmv_tpu.models.generators import banded_random, fem_mesh_2d, poisson2d
+from ellspmv_tpu_torch import config
 from ellspmv_tpu_torch.bench.traffic import stream_bytes_estimate
 from ellspmv_tpu_torch.formats import ell as port_ell
+from ellspmv_tpu_torch.formats import sell as port_sell
 from ellspmv_tpu_torch.formats import stream as port_stream
 from ellspmv_tpu_torch.formats.auto import auto_from_coo
 from ellspmv_tpu_torch.formats.coo import CooMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import EllMatrix
+from ellspmv_tpu_torch.formats.sell import SellMatrix
 from ellspmv_tpu_torch.formats.stream import StreamMatrix
+from ellspmv_tpu_torch.models.generators import dense_rows, power_law
 from ellspmv_tpu_torch.ops.dispatch import spmv
+from ellspmv_tpu_torch.utils import timing
 
 
 def port_coo(coo) -> CooMatrix:
@@ -224,3 +230,63 @@ def test_bf16_may_choose_dia():
     # port's kernel does, so the byte count decides (ROADMAP Queue 3)
     dia = auto_from_coo(port_coo(poisson2d(24)), value_dtype="bfloat16")
     assert dia._auto_choice == "dia" and dia.data.dtype == torch.bfloat16
+
+
+def test_the_blowup_prices_the_sell_split_without_building_it(monkeypatch):
+    """Where the stream format wins at the blowup gate, the SELL split is
+    priced by its shape and never built."""
+    def no_sell(*args, **kwargs):
+        raise AssertionError("the SELL split was built, not chosen")
+    monkeypatch.setattr(port_sell, "sell_from_coo", no_sell)
+    coo = power_law(20_000, 8, seed=0)
+    with timing.recording() as rec:
+        sm = auto_from_coo(coo, value_dtype="float64")
+    assert isinstance(sm, StreamMatrix) and sm._auto_choice == "stream"
+    assert ") < SELL split (" in sm._auto_reason
+    (price,) = rec.find("formats.price.sell")
+    shape = port_sell.sell_shape(coo, sort_rows=True, length_sort=True,
+                                 value_dtype="float64")
+    assert price.attrs == {"built": False, "buckets": len(shape.buckets),
+                           "slots": shape.slots}
+    assert not any(s.name == "formats.build.sell" or s.name.startswith(
+        "sell.") for s in rec.spans)
+
+
+def test_the_blowup_builds_the_sell_split_once_where_it_wins(monkeypatch):
+    """Where the SELL split's price is the lower (here by bytes alone),
+    it is built once, after the price, and is ``sell_from_coo``'s."""
+    monkeypatch.setitem(config.K1_ROUND_SECONDS, config.HOST_PRICED_CARD,
+                        0.0)
+    real, built, depth = port_sell.sell_from_coo, [], []
+
+    def counted(*args, **kwargs):
+        # the split's recursion calls it too, one level down
+        depth.append(None)
+        try:
+            sm = real(*args, **kwargs)
+        finally:
+            depth.pop()
+        if not depth:
+            built.append(sm)
+        return sm
+    monkeypatch.setattr(port_sell, "sell_from_coo", counted)
+    coo = dense_rows(100_000, 8, num_dense=16, dense_nnz=12_500, seed=0)
+    with timing.recording() as rec:
+        got = auto_from_coo(coo, value_dtype="float64")
+    assert isinstance(got, SellMatrix) and got._auto_choice == "sell"
+    assert len(built) == 1
+    (price,) = rec.find("formats.price.sell")
+    # the split's recursion opens a build span inside the first
+    builds = rec.find("formats.build.sell")
+    assert price.attrs["built"] is False
+    assert builds and all(b.start_ns > price.start_ns for b in builds)
+    want = real(coo, sort_rows=True, length_sort=True, value_dtype="float64")
+    assert got.shape == want.shape
+    for field in ("order", "row_unperm", "extra_rows", "extra_owners",
+                  "extra_counts"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    for g, w in zip(got.buckets, want.buckets):
+        for field in ("colidx", "values", "lbase", "lcol"):
+            a, b = getattr(g, field), getattr(w, field)
+            assert (a is None) == (b is None), field
+            assert a is None or torch.equal(a, b), field

@@ -3,7 +3,9 @@ package's on the same seeded inputs: `dense_rows` bit for bit,
 `ell_from_coo(row_tile=, rowsize=)` and `sell_from_coo` field for field on
 the inputs of tests/test_sell.py, `sell_spmv` (K1's plain version on the
 CPU) against JAX's ``sell_spmv`` and the NumPy oracle, the metrics and
-bytes, the chooser's SELL branch, and `ellspmv --format=sell|auto`.
+bytes, the shape the chooser prices without a build (`sell_shape`) against
+the built matrix's, the chooser's SELL branch, and `ellspmv
+--format=sell|auto`.
 Tolerances, per row relative to sum |a*x| + |y|: fp64 1e-13, f32 1e-5. The
 ``cuda`` tests hold the kernel route against the plain one on a card."""
 
@@ -29,11 +31,13 @@ from ellspmv_tpu_torch.bench.traffic import (estimate_actual_bytes,
 from ellspmv_tpu_torch.cli import ellspmv
 from ellspmv_tpu_torch.formats.auto import auto_from_coo
 from ellspmv_tpu_torch.formats.coo import CooMatrix
-from ellspmv_tpu_torch.formats.ell import ell_from_coo
+from ellspmv_tpu_torch.formats.ell import LBLOCK, ell_from_coo, narrow_bases
 from ellspmv_tpu_torch.formats.sell import (SellMatrix, kernel_launches,
-                                            sell_from_coo, sell_spmv)
+                                            sell_from_coo, sell_shape,
+                                            sell_spmv)
 from ellspmv_tpu_torch.formats.stream import StreamMatrix
-from ellspmv_tpu_torch.models.generators import dense_rows
+from ellspmv_tpu_torch.models.generators import (banded_random, dense_rows,
+                                                 power_law)
 from ellspmv_tpu_torch.ops import ell_cuda
 from ellspmv_tpu_torch.ops.dispatch import spmv
 from tests.conftest import random_coo
@@ -237,6 +241,142 @@ def test_bytes_count_every_pass():
     assert len(sm.buckets) > 1
     assert sell_bytes(sm, with_y=False) == want
     assert estimate_actual_bytes(sm) == want + 3 * n * sv
+
+
+def _kronecker(scale: int, seed: int = 2**33 + 7) -> CooMatrix:
+    """The benchmark's Graph500 Kronecker graph (``spmv_bench/generators/
+    kronecker.py``), on the CPU: rows in (row, column) order, skewed
+    degrees, empty rows."""
+    from spmv_bench.generators import kronecker
+    g = kronecker.generate({"scale": scale, "edgefactor": 16, "a": 0.57,
+                            "b": 0.19, "c": 0.19}, seed, "cpu")
+    return CooMatrix(g.num_rows, g.num_rows, g.rows.numpy().astype(np.int32),
+                     g.cols.numpy().astype(np.int32), g.values.numpy())
+
+
+def _shuffled(coo: CooMatrix, seed: int = 0) -> CooMatrix:
+    p = np.random.RandomState(seed).permutation(coo.num_nonzeros)
+    return CooMatrix(coo.num_rows, coo.num_columns, coo.rowidx[p],
+                     coo.colidx[p], coo.values[p], coo.symmetry)
+
+
+def _upper_symmetric(coo: CooMatrix) -> CooMatrix:
+    """A symmetric matrix stored as its lower triangle."""
+    keep = coo.rowidx >= coo.colidx
+    return CooMatrix(coo.num_rows, coo.num_columns, coo.rowidx[keep],
+                     coo.colidx[keep], coo.values[keep], "symmetric")
+
+
+def _far_from_padding() -> CooMatrix:
+    """2,048 rows of 3 entries at columns 150,000 + i .. + 2 of 200,000:
+    each block of 256 rows spans 258 columns, but the padding column of
+    row i (one slot in each row of the width-4 bucket) is i, so the block
+    spans about 150,000 with it and the narrow layout fails through the
+    padding alone."""
+    rows = np.repeat(np.arange(2048), 3)
+    cols = 150_000 + rows + np.tile(np.arange(3), 2048)
+    return CooMatrix(2048, 200_000, rows.astype(np.int32),
+                     cols.astype(np.int32), np.ones(len(rows)))
+
+
+def _far_entry_first() -> CooMatrix:
+    """512 rows of 4 entries, listed as every row's entry at column
+    190,000 first, then every row's i, i + 1, i + 2: past a tail cap of 3,
+    a row keeps i .. i + 2 by column (the narrow layout holds), but
+    190,000, i, i + 1 in file order (it fails)."""
+    rows = np.concatenate([np.arange(512), np.repeat(np.arange(512), 3)])
+    cols = np.concatenate([np.full(512, 190_000),
+                           np.repeat(np.arange(512), 3)
+                           + np.tile(np.arange(3), 512)])
+    return CooMatrix(512, 200_000, rows.astype(np.int32),
+                     cols.astype(np.int32), np.ones(len(rows)))
+
+
+def _sparse_rows() -> CooMatrix:
+    """3,000 rows of which only every third holds entries (4 each), and
+    rows 1, 4 and 7 with 700: empty rows beside split ones."""
+    rng = np.random.RandomState(40)
+    rows = np.concatenate([np.repeat(np.arange(0, 3000, 3), 4),
+                           np.repeat([1, 4, 7], 700)])
+    cols = rng.randint(0, 3000, len(rows))
+    return CooMatrix(3000, 3000, rows.astype(np.int32), cols.astype(np.int32),
+                     rng.randn(len(rows)))
+
+
+# name -> (matrix, sell_from_coo keywords): the chooser's keywords are
+# sort_rows and length_sort, the split's defaults
+CHOOSER = dict(sort_rows=True, length_sort=True)
+SHAPE_CASES = {
+    **{f"jax_{name}": (lambda make=make: port_coo(make()), kw)
+       for name, (make, kw) in CASES.items()},
+    "kronecker_s12": (lambda: _kronecker(12), CHOOSER),
+    "kronecker_s12_bands": (lambda: _kronecker(12),
+                            dict(CHOOSER, split_cols=1024)),
+    "kronecker_s15_bands": (lambda: _kronecker(15), CHOOSER),
+    "kronecker_s12_shuffled": (lambda: _shuffled(_kronecker(12)),
+                               dict(CHOOSER, split_cols=512)),
+    "kronecker_s12_symmetric": (lambda: _upper_symmetric(_kronecker(12)),
+                                CHOOSER),
+    "kronecker_s12_f32_int32": (lambda: _kronecker(12),
+                                dict(CHOOSER, value_dtype="float32",
+                                     index_dtype="int32")),
+    "kronecker_s12_bf16_natural": (lambda: _kronecker(12),
+                                   dict(value_dtype="bfloat16")),
+    "kronecker_s12_tail": (lambda: _kronecker(12),
+                           dict(CHOOSER, split_rows=False, tail_cap=32)),
+    "shuffled_tail_file_order": (lambda: _shuffled(power_law(3000, 8,
+                                                             seed=1)),
+                                 dict(slice_rows=256, tail_cap=16,
+                                      sort_rows=False, split_rows=False,
+                                      length_sort=True)),
+    "shuffled_tail_by_column": (lambda: _shuffled(power_law(3000, 8,
+                                                            seed=1)),
+                                dict(slice_rows=256, tail_cap=16,
+                                     split_rows=False)),
+    "shuffled_many_long_entries": (lambda: _shuffled(dense_rows(
+        4096, 4, num_dense=200, dense_nnz=1000, seed=5)), CHOOSER),
+    "tail_by_column_narrow": (lambda: _far_entry_first(),
+                              dict(slice_rows=256, tail_cap=3,
+                                   split_rows=False)),
+    "tail_file_order_wide": (lambda: _far_entry_first(),
+                             dict(slice_rows=256, tail_cap=3,
+                                  sort_rows=False, split_rows=False)),
+    "banded_narrow": (lambda: banded_random(5000, 8, 100, seed=1),
+                      dict(slice_rows=256)),
+    "wide_by_padding": (lambda: _far_from_padding(), dict(slice_rows=256)),
+    "sparse_rows_split": (lambda: _sparse_rows(), dict(CHOOSER,
+                                                       slice_rows=128)),
+    "sparse_rows_natural": (lambda: _sparse_rows(), dict(slice_rows=128)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHAPE_CASES))
+def test_sell_shape_equals_the_built_shape(name):
+    """`sell_shape` without a build gives the built split's shape field
+    for field, and so the same bytes and price to the bit."""
+    make, kw = SHAPE_CASES[name]
+    coo = make()
+    built = sell_from_coo(coo, **kw)
+    shape = sell_shape(coo, **kw)
+    assert shape == built.shape
+    geometry = (3.35e12, *config.k1_geometry("cpu"))
+    assert sell_seconds(shape, *geometry) == sell_seconds(built, *geometry)
+    assert sell_bytes(shape) == sell_bytes(built)
+    if name in ("banded_narrow", "tail_by_column_narrow"):
+        assert all(b.lcol is not None for b in built.buckets)
+    if name == "tail_file_order_wide":
+        assert all(b.lcol is None for b in built.buckets)
+    if name == "wide_by_padding":
+        (bucket,) = built.buckets
+        assert bucket.lcol is None
+        # the entries alone would take the narrow layout
+        assert narrow_bases(coo.rowidx // LBLOCK,
+                            coo.colidx.astype(np.int64), 8) is not None
+    if name.startswith("kronecker_s15"):
+        # rows split across the column bands of 8,192
+        assert coo.num_columns >= 4 * 8192 and shape.extra_rows
+    if name == "sparse_rows_split":
+        assert shape.extra_rows and shape.unperm_rows
 
 
 def _blowup_rows():

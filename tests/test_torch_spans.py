@@ -126,6 +126,8 @@ def test_phase_timer_phases_are_spans():
 
 
 def test_skewed_matrix_records_both_candidates(skewed):
+    """Both candidates are priced; the SELL split is priced by its shape
+    and built (its build spans recorded) only where it is chosen."""
     with timing.recording() as rec:
         matrix = auto_from_coo(skewed, value_dtype="float64")
         traceable_spmv(matrix)
@@ -134,10 +136,17 @@ def test_skewed_matrix_records_both_candidates(skewed):
     assert choice == matrix._auto_choice in ("sell", "stream")
     assert root.attrs["rows"] == 20000
     assert root.attrs["nonzeros"] == skewed.num_nonzeros
-    assert {"formats.counts", "formats.build.sell", "formats.build.stream",
-            "formats.price.sell", "formats.price.stream", "stream.argsort",
-            "stream.sum_plan", "stream.position_order", "sell.row_sort",
-            "sell.pack", "dispatch.first_call"} <= _names(rec)
+    assert {"formats.counts", "formats.build.stream", "formats.price.sell",
+            "formats.price.stream", "stream.argsort", "stream.sum_plan",
+            "stream.position_order", "dispatch.first_call"} <= _names(rec)
+    (price,) = rec.find("formats.price.sell")
+    assert price.attrs["built"] is False
+    assert price.attrs["buckets"] > 0 and price.attrs["slots"] > 0
+    sell_build = {"formats.build.sell", "sell.row_sort", "sell.pack"}
+    if choice == "sell":
+        assert sell_build <= _names(rec)
+    else:
+        assert not sell_build & _names(rec)
     assert "formats.upload" not in _names(rec)      # the host builds it
     assert all(s.parent == 0 for s in rec.spans
                if s.name.startswith(("formats.price", "formats.counts")))
@@ -150,6 +159,9 @@ def test_skewed_matrix_records_both_candidates(skewed):
     assert split["convert_discarded_s"] == pytest.approx(
         rec.total_s(f"formats.build.{other}")
         + rec.total_s(f"formats.price.{other}"))
+    if choice == "stream":
+        # what is discarded is the SELL price alone
+        assert split["convert_discarded_s"] == pytest.approx(price.seconds)
     assert split["convert_build_s"] > 0 and split["upload_s"] == 0.0
     assert split["first_call_s"] == rec.find("dispatch.first_call")[0].seconds
     children = sum(c.seconds for c in rec.children(0))
