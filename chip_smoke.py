@@ -235,6 +235,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                        "ellspmv_tpu/ops/stream_sum.py:65"),
     "permute": ("ellspmv_tpu_torch/csrc/permute.cu",
                 "ellspmv_tpu/ops/permute.py:531"),
+    # HPCG's SymGS, one colour a launch: no TPU kernel before it
+    "dia_symgs": ("ellspmv_tpu_torch/csrc/dia_symgs.cu", None),
 }
 # config3 of the suite (ellspmv_tpu/bench/suite.py), BASELINE.json
 # configs[3]: the stream path's full width.
@@ -256,6 +258,10 @@ CG_SETTINGS = {"float64": (1e-8, 1000), "float32": (1e-4, 1000)}
 # x of the fp64 solve with the kernels against the one with the plain
 # versions, relative to max |x|.
 CG_X_TOLERANCE = 1e-10
+# HPCG at the size of the benchmark's cell hpcg_256.pcg: the fine grid (four
+# levels, down to 32³) and the iterations of a set.
+HPCG_GRID = (256, 256, 256)
+HPCG_ITERATIONS = 50
 # CG's time per iteration: the slope of solves of these many steps that
 # never converge (tol 0), captured and launched eagerly.
 CG_SLOPE_STEPS = (20, 220)
@@ -538,6 +544,229 @@ def phase_dia_vs_plain(device="cuda"):
         check(launched >= cases, "the DIA kernel's launch count did not move")
 
 
+def _symgs_gap(dia, r, x0, grid, colour, slot) -> float:
+    """K8 against its plain version on one colour, both from x0: the
+    widest gap of the colour's rows, each over (|r| + Σ_{j≠i} |a_ij·x_j|)
+    / |a_ii|, the size of what the row sums; every other row must keep its
+    bits."""
+    import torch
+
+    from ellspmv_tpu_torch.ops import symgs_cuda
+    n = dia.num_rows
+    got, want = x0.clone(), x0.clone()
+    symgs_cuda.dia_symgs(dia, r, got, grid, colour, slot)
+    symgs_cuda.dia_symgs_torch(dia, r, want, grid, colour, slot)
+    rows = symgs_cuda.colour_rows(grid, colour, x0.device)
+    check(torch.equal(got.index_fill(0, rows, 0), x0.index_fill(0, rows, 0)),
+          f"symgs {grid} colour {colour}: K8 wrote a row of another colour")
+    j = rows + torch.tensor(dia.offsets, device=x0.device)[:, None]
+    inside = (j >= 0) & (j < n)
+    inside[slot] = False
+    terms = (dia.data[:, rows] * x0[j.clamp(0, n - 1)]).abs()
+    scale = (torch.where(inside, terms, 0.0).sum(0) + r[rows].abs()) \
+        / dia.data[slot, rows].abs()
+    return float(((got - want)[rows].abs() / scale).max())
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """K8, K2 and K6 replaced by their plain versions where the port calls
+    them, for as long as the block runs."""
+    from ellspmv_tpu_torch.ops import dia_cuda, dot_cuda, symgs_cuda
+    kernels = symgs_cuda.dia_symgs, dia_cuda.dia_spmv, dot_cuda.vdot
+    symgs_cuda.dia_symgs = symgs_cuda.dia_symgs_torch
+    dia_cuda.dia_spmv = dia_cuda.dia_spmv_torch
+    dot_cuda.vdot = dot_cuda.vdot_torch
+    try:
+        yield
+    finally:
+        symgs_cuda.dia_symgs, dia_cuda.dia_spmv, dot_cuda.vdot = kernels
+
+
+def _vcycle_gap(hierarchy, r) -> float:
+    """One V-cycle through the kernels against one through their plain
+    versions, relative to max |x|; the plain one launches nothing."""
+    got = hierarchy(r).clone()
+    before = _counts()
+    with _plain_kernels():
+        want = hierarchy(r).clone()
+    check(_counts() == before, "the plain V-cycle launched a kernel")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_symgs_vs_plain(device="cuda"):
+    """K8 against its plain version, colour by colour, on a cube, a grid
+    that is not one and a grid of odd sides; then one V-cycle of HPCG's
+    four levels at 32³ through the kernels against the same V-cycle
+    through the plain versions (K8's and K2's) on the same card."""
+    import torch
+
+    from ellspmv_tpu_torch.formats.dia import dia_from_coo
+    from ellspmv_tpu_torch.models import multigrid
+    from ellspmv_tpu_torch.models.generators import hpcg_27pt
+    from ellspmv_tpu_torch.ops import symgs_cuda
+    before = symgs_cuda.launches
+    cases = 0
+    for grid in ((32, 32, 32), (16, 24, 32), (3, 5, 6)):
+        dia = dia_from_coo(hpcg_27pt(*grid), device=device)
+        slot = dia.offsets.index(0)
+        rng = np.random.RandomState(5)
+        r = torch.from_numpy(rng.rand(dia.num_rows)).to(device)
+        x0 = torch.from_numpy(rng.rand(dia.num_rows)).to(device)
+        for c in range(8):
+            _agree(f"symgs {'x'.join(map(str, grid)):9s} colour {c}",
+                   "float64", _symgs_gap(dia, r, x0, grid, c, slot))
+            cases += 1
+    port = multigrid.hpcg(32, device=device)
+    r = torch.from_numpy(np.random.RandomState(6).rand(32 ** 3)).to(device)
+    _agree("V-cycle 32^3, 4 levels, kernels vs plain", "float64",
+           _vcycle_gap(port, r))
+    launched = symgs_cuda.launches - before
+    log(f"K8 vs plain: {cases} colours and a V-cycle agree; {launched} "
+        "kernel launches")
+    if device == "cuda":
+        check(launched >= cases + 8 * 14, "K8's launch count did not move")
+
+
+def phase_hpcg_path(device="cuda"):
+    """HPCG at the cell's size: the four levels of `HPCG_GRID` built
+    through the chooser onto the card (``models/multigrid.hpcg``); each
+    level's eight K8 colours against the plain version at that level's
+    shape; one V-cycle through K8 and K2 against one through their plain
+    versions; then, the launch counts zeroed, one PCG set of
+    `HPCG_ITERATIONS` captured in a CUDA graph and replayed, as the
+    cell's driver runs it (``models/solvers.pcg_set``): its launches
+    against the set's, its x and residual norms against an eager set
+    through the plain versions of K8, K2 and K6. Returns the hierarchy,
+    for the timing, and the path's launch counts."""
+    import torch
+
+    from ellspmv_tpu_torch.models import multigrid, solvers
+    from ellspmv_tpu_torch.utils.graphs import Graph
+    t0 = time.perf_counter()
+    hierarchy = multigrid.hpcg(*HPCG_GRID, device=device)
+    levels = hierarchy.levels
+    log(f"  HPCG {'x'.join(map(str, HPCG_GRID))}: {len(levels)} levels "
+        f"built through the chooser in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{'x'.join(map(str, lv.grid))} "
+                    f"({lv.matrix.num_rows:,} rows, "
+                    f"{lv.matrix.num_diags} diagonals)" for lv in levels))
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def rand(n):
+        return torch.rand(n, dtype=torch.float64, device=device,
+                          generator=gen)
+    for k, lv in enumerate(levels):
+        n = lv.matrix.num_rows
+        r, x0 = rand(n), rand(n)
+        gap = max(_symgs_gap(lv.matrix, r, x0, lv.grid, c, lv.diag_slot)
+                  for c in range(8))
+        _agree(f"symgs level {k} {'x'.join(map(str, lv.grid))}, worst of "
+               "8 colours", "float64", gap)
+    fine = levels[0]
+    n = fine.matrix.num_rows
+    _agree(f"V-cycle {'x'.join(map(str, HPCG_GRID))}, {len(levels)} levels, "
+           "kernels vs plain", "float64", _vcycle_gap(hierarchy, rand(n)))
+    b = fine.fn(fine.matrix, torch.ones(n, dtype=torch.float64,
+                                        device=device))
+    s = solvers.pcg_set_state(b, HPCG_ITERATIONS)
+
+    def one_set():
+        solvers.pcg_set(s, fine.fn, b, precond=hierarchy,
+                        operand=fine.matrix)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with Graph(one_set, device) as graph:   # its warm-up runs one set
+        graph.replay()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    sets = 2
+    want = {"dia_symgs": HPCG_ITERATIONS * 8 * sum(
+                hierarchy.sweeps_per_cycle()),
+            # A·p and each coarse level's residual, and r = b - A·x once
+            "dia_spmv": 1 + HPCG_ITERATIONS * len(levels),
+            # r·z, p·Ap and r·r, and r·r once
+            "dot": 1 + 3 * HPCG_ITERATIONS}
+    log(f"  HPCG set: captured and replayed in {seconds:.2f} s; launches "
+        f"{counts}, {sets} sets of {want}")
+    for k, c in want.items():
+        check(counts[k] == sets * c, f"HPCG set: {counts[k]} {k} launches, "
+                                     f"expected {sets * c}")
+    x, norms = s.x.clone(), s.norms.clone()
+    with _plain_kernels():
+        one_set()
+    rel_x = float((x - s.x).abs().max() / s.x.abs().max())
+    rel_norms = float(((norms - s.norms) / s.norms).abs().max())
+    log(f"  HPCG set: |r| {float(norms[0]):.6e} -> {float(norms[-1]):.6e} "
+        f"in {HPCG_ITERATIONS} iterations; against the plain versions' set "
+        f"x {rel_x:.3e} of max |x|, norms {rel_norms:.3e} (tol "
+        f"{CG_X_TOLERANCE:g})")
+    check(rel_x <= CG_X_TOLERANCE and rel_norms <= CG_X_TOLERANCE,
+          f"the captured HPCG set disagrees with the plain versions' set: "
+          f"x {rel_x:.3e}, norms {rel_norms:.3e}")
+    del s, b
+    return hierarchy, counts
+
+
+def phase_symgs_timing(hierarchy, peak_bw):
+    """K8 at each of HPCG's levels (`phase_hpcg_path`'s hierarchy): one
+    forward sweep (8 launches, in a CUDA graph) in turns with its plain
+    version (plain, kernel, kernel, plain), beside the bytes of the
+    level's DIA storage and the least bytes of its independent values at
+    the data sheet's peak, and beside K2 over the same matrix, since a
+    colour reads every other row of each diagonal. Returns K8's entry of
+    the timing: the fine level's sweep, and K8's device time a V-cycle."""
+    import torch
+
+    from ellspmv_tpu_torch.ops import dia_cuda, symgs_cuda
+    device = hierarchy.levels[0].matrix.device
+    gen = torch.Generator(device=device).manual_seed(8)
+    vcycle_ms, fine = 0.0, None
+    for k, (lv, sweeps) in enumerate(zip(hierarchy.levels,
+                                         hierarchy.sweeps_per_cycle())):
+        dia, grid, slot = lv.matrix, lv.grid, lv.diag_slot
+        n = dia.num_rows
+        r = torch.rand(n, dtype=torch.float64, device=device, generator=gen)
+        x = torch.rand(n, dtype=torch.float64, device=device, generator=gen)
+
+        def sweep(fn, x):
+            def run():
+                for c in range(8):
+                    fn(dia, r, x, grid, c, slot)
+            return run
+        kernel = sweep(symgs_cuda.dia_symgs, x)
+        plain = sweep(symgs_cuda.dia_symgs_torch, x)
+        p1, k1, k2, p2 = (time_ms(plain, 3), graph_ms(kernel),
+                          graph_ms(kernel), time_ms(plain, 3))
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        spmv_ms = graph_ms(lambda: dia_cuda.dia_spmv(dia, x))
+        got, want = x.clone(), x.clone()
+        sweep(symgs_cuda.dia_symgs, got)()
+        sweep(symgs_cuda.dia_symgs_torch, want)()
+        err = float((got - want).abs().max())
+        nnz = math.prod(3 * g - 2 for g in grid)
+        dia_ms = 8 * (dia.num_diags * n + 3 * n) / peak_bw * 1e3
+        least_ms = 8 * ((nnz + n) // 2 + 3 * n) / peak_bw * 1e3
+        vcycle_ms += sweeps * k_ms
+        log(f"  K8 sweep level {k} {'x'.join(map(str, grid))} ({n:,} rows, "
+            f"{nnz:,} nonzeros): kernel {k1:.4f} / {k2:.4f} ms, plain "
+            f"{p1:.4f} / {p2:.4f} ms; bound {dia_ms:.4f} ms on the DIA "
+            f"storage ({dia_ms / k_ms:.1%}), {least_ms:.4f} ms on the "
+            f"independent values ({least_ms / k_ms:.1%}); K2 over the same "
+            f"matrix {spmv_ms:.4f} ms; max |kernel - plain| {err:.3e}")
+        if fine is None:
+            fine = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                        max_abs_err=err, bound_ms=dia_ms, bound_by="bytes",
+                        least_bound_ms=least_ms, spmv_ms=spmv_ms)
+    log(f"  K8 a V-cycle ({hierarchy.sweeps_per_cycle()} sweeps a level): "
+        f"{vcycle_ms:.4f} ms on the device")
+    fine["vcycle_ms"] = vcycle_ms
+    torch.cuda.synchronize()
+    return {("dia_symgs", "float64"): fine}
+
+
 def phase_probe_vs_plain():
     """The FMA probe kernel against its plain version on the card: the
     residuals must be equal, bit for bit."""
@@ -759,20 +988,21 @@ def _reset_counts():
     """Counts to 0, and a first fp64 call that probes the card again, as
     in a fresh process."""
     from ellspmv_tpu_torch.ops import (dia_cuda, dot_cuda, ell_cuda, permute,
-                                       stream_sum)
+                                       stream_sum, symgs_cuda)
     ell_cuda.FMA_PROBE_RESULTS.clear()
     ell_cuda.launches = ell_cuda.probe_launches = dia_cuda.launches = 0
     dot_cuda.launches = permute.launches = stream_sum.launches = 0
-    stream_sum.src_launches = 0
+    stream_sum.src_launches = symgs_cuda.launches = 0
 
 
 def _counts():
     from ellspmv_tpu_torch.ops import (dia_cuda, dot_cuda, ell_cuda, permute,
-                                       stream_sum)
+                                       stream_sum, symgs_cuda)
     return {"ell_spmv": ell_cuda.launches, "dia_spmv": dia_cuda.launches,
             "fma_probe": ell_cuda.probe_launches, "dot": dot_cuda.launches,
             "permute": permute.launches, "stream_sum": stream_sum.launches,
-            "stream_sum_src": stream_sum.src_launches}
+            "stream_sum_src": stream_sum.src_launches,
+            "dia_symgs": symgs_cuda.launches}
 
 
 def phase_ell_path(coo, x64, sample, device="cuda"):
@@ -3446,6 +3676,7 @@ def main() -> int:
     timed("card tests", phase_card_tests)
     timed("K1 vs plain", phase_kernel_vs_plain)
     timed("K2 vs plain", phase_dia_vs_plain)
+    timed("K8 vs plain", phase_symgs_vs_plain)
     timed("K7 vs plain", phase_probe_vs_plain)
     timed("K6 vs plain", phase_dot_vs_plain)
     timed("stream vs plain", phase_stream_vs_plain)
@@ -3512,6 +3743,7 @@ def main() -> int:
     sell_runs, sell_counts, chosen = timed("SELL path", phase_sell_path,
                                            dr_coo, dr_x64, dr_want, dr_scale)
     del dr_want, dr_scale
+    hpcg, hpcg_counts = timed("HPCG path", phase_hpcg_path)
     log("phase 6: timing")
     timing = timed("ELL and DIA timing", phase_timing, coo, ell_runs,
                    dia_runs, peak_bw)
@@ -3522,6 +3754,8 @@ def main() -> int:
           chosen)
     timed("hybrid timing", phase_hybrid_timing, pl_coo, hybrid_runs,
           stream_runs, peak_bw)
+    timing.update(timed("K8 timing", phase_symgs_timing, hpcg, peak_bw))
+    del hpcg
     timed("K7 floor", probe_floor)
     window_verdict()
     del ell_runs, dia_runs, csr_runs, stream_runs, hybrid_runs, sell_runs
@@ -3536,10 +3770,10 @@ def main() -> int:
     paths = [*native_counts, ell_counts, dia_counts, *cg_counts.values(),
              *stream_counts.values(), *csr_counts.values(),
              *sell_counts.values(), *hybrid_counts.values(), multi_counts,
-             suite_counts]
-    launches = {name: sum(c[name] for c in paths)
+             suite_counts, hpcg_counts]
+    launches = {name: sum(c.get(name, 0) for c in paths)
                 for name in ("ell_spmv", "dia_spmv", "fma_probe", "permute",
-                             "stream_sum", "stream_sum_src")}
+                             "stream_sum", "stream_sum_src", "dia_symgs")}
     launches["dot"] = cg_counts["float64"]["dot"] + multi_counts["dot"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths was not launched: {launches}")
@@ -3547,7 +3781,8 @@ def main() -> int:
     for name, key in (("ell_spmv", "float64"), ("fma_probe", "float32"),
                       ("dia_spmv", "float64"), ("dot", "float64"),
                       ("stream_sum", "float64"),
-                      ("stream_sum_src", "float64"), ("permute", "float64")):
+                      ("stream_sum_src", "float64"), ("permute", "float64"),
+                      ("dia_symgs", "float64")):
         source, replaces = KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

@@ -10,7 +10,10 @@ no large files on disk. Each gives arrays identical to its counterpart in
 - `power_law`: skewed rows and hub columns, the webbase-1M class that the
   stream format serves (BASELINE.json configs[3]);
 - `dense_rows`: a few long random rows over a local bulk, the class that
-  the SELL length sort and long-row split serve.
+  the SELL length sort and long-row split serve;
+- `hpcg_27pt`: HPCG's 27-point 3-D stencil, whose levels the multigrid
+  preconditioner (``models/multigrid.py``) generates. It has no
+  counterpart in the JAX package.
 """
 
 from __future__ import annotations
@@ -163,3 +166,39 @@ def dense_rows(n: int, base_nnz: int, num_dense: int, dense_nnz: int,
     vals = rng.randn(len(rows)).astype(value_dtype)
     idx_dt = _index_dtype(n)
     return CooMatrix(n, n, rows.astype(idx_dt), cols.astype(idx_dt), vals)
+
+
+def hpcg_27pt(nx: int, ny: int | None = None,
+              nz: int | None = None) -> CooMatrix:
+    """HPCG 3.1's matrix (GenerateProblem_ref): the 27-point stencil on an
+    nx×ny×nz grid in natural order, row ``(iz*ny + iy)*nx + ix``, each
+    point coupled to itself with 26 and to each of its up to 26 neighbours
+    with -1, so SPD. Rows in order, columns sorted within each row,
+    ``(3*nx - 2)*(3*ny - 2)*(3*nz - 2)`` entries."""
+    ny = nx if ny is None else ny
+    nz = nx if nz is None else nz
+    n = nx * ny * nz
+    idx = np.arange(n, dtype=np.int64)
+    ix, iy, iz = idx % nx, (idx // nx) % ny, idx // (nx * ny)
+    counts, inside = np.zeros(n, np.int64), []
+    # the neighbours in increasing column order: dz, then dy, then dx
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                ok = ((ix + dx >= 0) & (ix + dx < nx) & (iy + dy >= 0)
+                      & (iy + dy < ny) & (iz + dz >= 0) & (iz + dz < nz))
+                inside.append(((dz * ny + dy) * nx + dx, ok))
+                counts += ok
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    nnz = int(counts.sum())
+    idx_dt = _index_dtype(n)
+    rows = np.repeat(idx, counts).astype(idx_dt)
+    cols = np.empty(nnz, idx_dt)
+    vals = np.empty(nnz, np.float64)
+    fill = starts.copy()
+    for off, ok in inside:
+        at = fill[ok]
+        cols[at] = idx[ok] + off
+        vals[at] = 26.0 if off == 0 else -1.0
+        fill[ok] += 1
+    return CooMatrix(n, n, rows, cols, vals)

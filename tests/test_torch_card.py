@@ -692,3 +692,118 @@ def test_capturing_a_host_read_raises_on_card():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("raised:")
+
+
+# -- HPCG's multigrid: K8 and the PCG set -------------------------------------
+
+def _symgs_scale(dia, r, x, rows, slot):
+    """Per row of `rows`: (|r| + Σ_{j≠i} |a_ij·x_j|) / |a_ii|, the size of
+    what K8 sums for it."""
+    n = dia.num_rows
+    j = rows + torch.tensor(dia.offsets, device=r.device)[:, None]
+    inside = (j >= 0) & (j < n)
+    inside[slot] = False
+    terms = (dia.data[:, rows] * x[j.clamp(0, n - 1)]).abs()
+    total = torch.where(inside, terms, 0.0).sum(0) + r[rows].abs()
+    return total / dia.data[slot, rows].abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(32, 32, 32), (16, 24, 32), (3, 5, 6)])
+def test_symgs_kernel_matches_plain_on_card(grid):
+    """K8 against its plain version, colour by colour: the colour's rows
+    within fp64's 1e-13 of what they sum, every other row untouched bit
+    for bit, one launch a colour."""
+    _needs_card()
+    from ellspmv_tpu_torch.formats.dia import dia_from_coo
+    from ellspmv_tpu_torch.models.generators import hpcg_27pt
+    from ellspmv_tpu_torch.ops import symgs_cuda
+    dia = dia_from_coo(hpcg_27pt(*grid), device="cuda")
+    slot = dia.offsets.index(0)
+    rng = np.random.RandomState(11)
+    r = torch.from_numpy(rng.rand(dia.num_rows)).cuda()
+    x0 = torch.from_numpy(rng.rand(dia.num_rows)).cuda()
+    colour = symgs_cuda.colour_of(grid, "cuda")
+    for c in range(8):
+        before = symgs_cuda.launches
+        got, want = x0.clone(), x0.clone()
+        symgs_cuda.dia_symgs(dia, r, got, grid, c, slot)
+        symgs_cuda.dia_symgs_torch(dia, r, want, grid, c, slot)
+        torch.cuda.synchronize()
+        assert symgs_cuda.launches == before + 1
+        rows = symgs_cuda.colour_rows(grid, c, "cuda")
+        assert torch.equal(got[colour != c], x0[colour != c])
+        err = (got[rows] - want[rows]).abs() / _symgs_scale(dia, r, x0,
+                                                            rows, slot)
+        assert float(err.max()) <= 1e-13, (c, float(err.max()))
+
+
+def _hpcg_on_card(grid, depth):
+    from ellspmv_tpu_torch.models import multigrid
+    port = multigrid.hpcg(*grid, depth=depth, device="cuda")
+    lv = port.levels[0]
+    b = lv.fn(lv.matrix, torch.ones(lv.matrix.num_rows, dtype=torch.float64,
+                                    device="cuda"))
+    return port, lv, b
+
+
+@pytest.mark.cuda
+def test_captured_pcg_set_equals_eager_on_card():
+    """One HPCG set (50 iterations, tolerance 0) captured once and
+    replayed twice against the same set launched eagerly: x and every
+    residual norm bit for bit, each replay restarting from x = 0; the
+    launches counted through the replays; and the set against the plain
+    reference on the card (fp64, sums in another order: 1e-12 of x, and of
+    the first norm)."""
+    _needs_card()
+    import reference_hpcg as ref
+
+    from ellspmv_tpu_torch.models import solvers
+    from ellspmv_tpu_torch.utils.graphs import Graph
+    port, lv, b = _hpcg_on_card((32, 32, 32), 4)
+    s = solvers.pcg_set_state(b, 50)
+
+    def one_set():
+        solvers.pcg_set(s, lv.fn, b, precond=port, operand=lv.matrix)
+    one_set()
+    torch.cuda.synchronize()
+    want = [t.clone() for t in s]
+    with Graph(one_set, "cuda") as graph:
+        for _ in range(2):
+            for t in s:
+                t.fill_(7.0)
+            before = launch_counts()
+            graph.replay()
+            torch.cuda.synchronize()
+            grew = _grew(before, launch_counts())
+            for a, c in zip(s, want):
+                assert torch.equal(a, c)
+            # per iteration: 8 colours x (4 sweeps at 3 levels + 2 at the
+            # coarsest); K2 for A·p and 3 residuals, plus r = b - A·x once;
+            # K6 for r·z, p·Ap and r·r, plus r·r once
+            assert grew["dia_symgs"] == 50 * 8 * (3 * 4 + 2)
+            assert grew["dia_spmv"] == 1 + 50 * 4
+            assert grew["dot"] == 1 + 50 * 3
+    reference = ref.hierarchy(32, 32, 32, device="cuda")
+    x, norms = ref.pcg_set(reference, b, 50)
+    torch.testing.assert_close(want[0], x, rtol=1e-12, atol=0)
+    torch.testing.assert_close(want[4] / norms[0], norms / norms[0], rtol=0,
+                               atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_captured_preconditioned_cg_equals_eager_on_card():
+    """`cg` with the V-cycle as `precond` (a masked step, preconditioner
+    and all, captured once) against `cg_eager` with it: iterations, x and
+    residual bit for bit, and well under plain CG's iterations."""
+    _needs_card()
+    from ellspmv_tpu_torch.models.solvers import cg, cg_eager
+    port, lv, b = _hpcg_on_card((16, 24, 32), 3)
+    kw = dict(tol=1e-10, operand=lv.matrix)
+    want = cg_eager(lv.fn, b, precond=port, **kw)
+    got = cg(lv.fn, b, precond=port, **kw)
+    plain = cg(lv.fn, b, **kw)
+    assert got.iterations == want.iterations
+    assert torch.equal(got.x, want.x)
+    assert got.residual_norm == want.residual_norm
+    assert 2 * got.iterations < plain.iterations

@@ -294,7 +294,8 @@ def test_library_path_tracks_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libellspmv_tpu_torch_")
-    assert [p.name for p in _build.sources()] == ["dia_spmv.cu", "dot.cu",
+    assert [p.name for p in _build.sources()] == ["dia_spmv.cu",
+                                                  "dia_symgs.cu", "dot.cu",
                                                   "ell_spmv.cu",
                                                   "fma_probe.cu",
                                                   "permute.cu",
