@@ -544,18 +544,19 @@ def phase_dia_vs_plain(device="cuda"):
         check(launched >= cases, "the DIA kernel's launch count did not move")
 
 
-def _symgs_gap(dia, r, x0, grid, colour, slot) -> float:
-    """K8 against its plain version on one colour, both from x0: the
-    widest gap of the colour's rows, each over (|r| + Σ_{j≠i} |a_ij·x_j|)
-    / |a_ii|, the size of what the row sums; every other row must keep its
-    bits."""
+def _symgs_gap(dia, cm, r, x0, colour) -> float:
+    """K8 against its plain version on one colour, both from x0 and on the
+    colour-major copy `cm` of `dia`'s values: the widest gap of the
+    colour's rows, each over (|r| + Σ_{j≠i} |a_ij·x_j|) / |a_ii| (from the
+    natural-order `dia`), the size of what the row sums; every other row
+    must keep its bits."""
     import torch
 
     from ellspmv_tpu_torch.ops import symgs_cuda
-    n = dia.num_rows
+    n, grid, slot = dia.num_rows, cm.grid, cm.diag_slot
     got, want = x0.clone(), x0.clone()
-    symgs_cuda.dia_symgs(dia, r, got, grid, colour, slot)
-    symgs_cuda.dia_symgs_torch(dia, r, want, grid, colour, slot)
+    symgs_cuda.dia_symgs(cm, r, got, colour)
+    symgs_cuda.dia_symgs_torch(cm, r, want, colour)
     rows = symgs_cuda.colour_rows(grid, colour, x0.device)
     check(torch.equal(got.index_fill(0, rows, 0), x0.index_fill(0, rows, 0)),
           f"symgs {grid} colour {colour}: K8 wrote a row of another colour")
@@ -609,13 +610,13 @@ def phase_symgs_vs_plain(device="cuda"):
     cases = 0
     for grid in ((32, 32, 32), (16, 24, 32), (3, 5, 6)):
         dia = dia_from_coo(hpcg_27pt(*grid), device=device)
-        slot = dia.offsets.index(0)
+        cm = symgs_cuda.colour_major(dia, grid, dia.offsets.index(0))
         rng = np.random.RandomState(5)
         r = torch.from_numpy(rng.rand(dia.num_rows)).to(device)
         x0 = torch.from_numpy(rng.rand(dia.num_rows)).to(device)
         for c in range(8):
             _agree(f"symgs {'x'.join(map(str, grid)):9s} colour {c}",
-                   "float64", _symgs_gap(dia, r, x0, grid, c, slot))
+                   "float64", _symgs_gap(dia, cm, r, x0, c))
             cases += 1
     port = multigrid.hpcg(32, device=device)
     r = torch.from_numpy(np.random.RandomState(6).rand(32 ** 3)).to(device)
@@ -659,7 +660,7 @@ def phase_hpcg_path(device="cuda"):
     for k, lv in enumerate(levels):
         n = lv.matrix.num_rows
         r, x0 = rand(n), rand(n)
-        gap = max(_symgs_gap(lv.matrix, r, x0, lv.grid, c, lv.diag_slot)
+        gap = max(_symgs_gap(lv.matrix, lv.colour_major, r, x0, c)
                   for c in range(8))
         _agree(f"symgs level {k} {'x'.join(map(str, lv.grid))}, worst of "
                "8 colours", "float64", gap)
@@ -715,9 +716,9 @@ def phase_symgs_timing(hierarchy, peak_bw):
     forward sweep (8 launches, in a CUDA graph) in turns with its plain
     version (plain, kernel, kernel, plain), beside the bytes of the
     level's DIA storage and the least bytes of its independent values at
-    the data sheet's peak, and beside K2 over the same matrix, since a
-    colour reads every other row of each diagonal. Returns K8's entry of
-    the timing: the fine level's sweep, and K8's device time a V-cycle."""
+    the data sheet's peak, and beside K2 over the same matrix, which reads
+    the same values once, in natural order. Returns K8's entry of the
+    timing: the fine level's sweep, and K8's device time a V-cycle."""
     import torch
 
     from ellspmv_tpu_torch.ops import dia_cuda, symgs_cuda
@@ -726,7 +727,7 @@ def phase_symgs_timing(hierarchy, peak_bw):
     vcycle_ms, fine = 0.0, None
     for k, (lv, sweeps) in enumerate(zip(hierarchy.levels,
                                          hierarchy.sweeps_per_cycle())):
-        dia, grid, slot = lv.matrix, lv.grid, lv.diag_slot
+        dia, cm, grid = lv.matrix, lv.colour_major, lv.grid
         n = dia.num_rows
         r = torch.rand(n, dtype=torch.float64, device=device, generator=gen)
         x = torch.rand(n, dtype=torch.float64, device=device, generator=gen)
@@ -734,7 +735,7 @@ def phase_symgs_timing(hierarchy, peak_bw):
         def sweep(fn, x):
             def run():
                 for c in range(8):
-                    fn(dia, r, x, grid, c, slot)
+                    fn(cm, r, x, c)
             return run
         kernel = sweep(symgs_cuda.dia_symgs, x)
         plain = sweep(symgs_cuda.dia_symgs_torch, x)

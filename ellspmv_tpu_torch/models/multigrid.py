@@ -11,9 +11,16 @@ hierarchy from level 0's matrix and its grid:
   (``formats/auto.auto_from_coo``) like any matrix;
 - every level must come out DIA, since K2 (``ops/dia_cuda``, through
   ``ops/dispatch.traceable_spmv``) multiplies it and K8
-  (``ops/symgs_cuda``) sweeps the same storage: a level that is not DIA,
-  or whose diagonals are not the grid's 27-point stencil, raises. Nothing
+  (``ops/symgs_cuda``) sweeps its values: a level that is not DIA, or
+  whose diagonals are not the grid's 27-point stencil, raises. Nothing
   falls back. Values are read as stored: nothing assumes HPCG's constants;
+- each level keeps, beside its DIA array, a colour-major copy of its
+  values (``symgs_cuda.ColourMajor``), in K8's thread order, so that a
+  colour reads every sector it loads; from the natural-order array a
+  colour would read every other value of each diagonal and a sweep would
+  move the values twice. K2 still multiplies the natural-order array (the
+  residual, A·p and b), so the copy costs each level's DIA storage once
+  more: 3.62 GB at 256³ and 4.14 GB over HPCG's four levels, in fp64;
 - the transfers use HPCG's injection map f2c, fine point (2i, 2j, 2k) for
   coarse point (i, j, k). In natural order that is the fine vector viewed
   as (nz, ny, nx) and stepped by 2 on each axis, so restriction and
@@ -73,13 +80,13 @@ def points(v: torch.Tensor, grid) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Level:
-    """One grid: its DIA operator and where its diagonal lies, the SpMV
-    that multiplies it, and its vectors: the correction x and, below the
-    fine level, the restricted residual r."""
+    """One grid: its DIA operator, the SpMV that multiplies it, the
+    colour-major copy of its values that K8 sweeps, and its vectors: the
+    correction x and, below the fine level, the restricted residual r."""
     grid: tuple
     matrix: DiaMatrix
-    diag_slot: int
     fn: object
+    colour_major: symgs_cuda.ColourMajor
     x: torch.Tensor
     r: torch.Tensor | None
 
@@ -99,8 +106,7 @@ class Hierarchy:
     def sweep(self, k: int, r: torch.Tensor, colours) -> None:
         lv = self.levels[k]
         for c in colours:
-            symgs_cuda.dia_symgs(lv.matrix, r, lv.x, lv.grid, c,
-                                 lv.diag_slot)
+            symgs_cuda.dia_symgs(lv.colour_major, r, lv.x, c)
 
     def symgs(self, k: int, r: torch.Tensor) -> None:
         """One symmetric Gauss-Seidel on level k's x."""
@@ -159,8 +165,15 @@ def _level(matrix, grid, k: int) -> Level:
                          "27-point stencil's with its own: the colours "
                          "would couple")
     operand, fn = traceable_spmv(matrix)
-    zeros = torch.zeros(n, dtype=matrix.data.dtype, device=matrix.device)
-    return Level(grid, operand, matrix.offsets.index(0), fn, zeros,
+    data = operand.data
+    with span("multigrid.colour_order", level=k,
+              bytes=data.numel() * data.element_size()):
+        colour_major = symgs_cuda.colour_major(operand, grid,
+                                               operand.offsets.index(0))
+        if data.device.type == "cuda":
+            torch.cuda.synchronize(data.device)
+    zeros = torch.zeros(n, dtype=data.dtype, device=data.device)
+    return Level(grid, operand, fn, colour_major, zeros,
                  zeros.clone() if k else None)
 
 
@@ -170,7 +183,9 @@ def build(fine, grid, depth: int = DEPTH) -> Hierarchy:
     fine one's device. Each dimension must be divisible by
     ``2**(depth-1)``. Recorded in the span ``multigrid.build``, with a
     ``multigrid.level`` (inside it ``multigrid.generate``, the chooser's
-    ``formats.*`` and ``dispatch.first_call``) for each coarse level."""
+    ``formats.*``, ``dispatch.first_call`` and ``multigrid.colour_order``)
+    for each coarse level; level 0's ``dispatch.first_call`` and
+    ``multigrid.colour_order`` lie directly inside the build's span."""
     grid = tuple(int(g) for g in grid)
     step = 2 ** (depth - 1)
     if depth < 1 or any(g < step or g % step for g in grid):

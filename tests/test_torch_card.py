@@ -711,15 +711,17 @@ def _symgs_scale(dia, r, x, rows, slot):
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", [(32, 32, 32), (16, 24, 32), (3, 5, 6)])
 def test_symgs_kernel_matches_plain_on_card(grid):
-    """K8 against its plain version, colour by colour: the colour's rows
-    within fp64's 1e-13 of what they sum, every other row untouched bit
-    for bit, one launch a colour."""
+    """K8 against its plain version, colour by colour, both on the
+    colour-major copy of the DIA values: the colour's rows within fp64's
+    1e-13 of what they sum, every other row untouched bit for bit, one
+    launch a colour."""
     _needs_card()
     from ellspmv_tpu_torch.formats.dia import dia_from_coo
     from ellspmv_tpu_torch.models.generators import hpcg_27pt
     from ellspmv_tpu_torch.ops import symgs_cuda
     dia = dia_from_coo(hpcg_27pt(*grid), device="cuda")
     slot = dia.offsets.index(0)
+    cm = symgs_cuda.colour_major(dia, grid, slot)
     rng = np.random.RandomState(11)
     r = torch.from_numpy(rng.rand(dia.num_rows)).cuda()
     x0 = torch.from_numpy(rng.rand(dia.num_rows)).cuda()
@@ -727,8 +729,8 @@ def test_symgs_kernel_matches_plain_on_card(grid):
     for c in range(8):
         before = symgs_cuda.launches
         got, want = x0.clone(), x0.clone()
-        symgs_cuda.dia_symgs(dia, r, got, grid, c, slot)
-        symgs_cuda.dia_symgs_torch(dia, r, want, grid, c, slot)
+        symgs_cuda.dia_symgs(cm, r, got, c)
+        symgs_cuda.dia_symgs_torch(cm, r, want, c)
         torch.cuda.synchronize()
         assert symgs_cuda.launches == before + 1
         rows = symgs_cuda.colour_rows(grid, c, "cuda")

@@ -23,6 +23,8 @@ times the gaps measured, and below any gap that a wrong colour, sweep
 order, transfer or coefficient gives, which is of the size of x itself.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -103,6 +105,61 @@ def test_no_two_rows_of_one_colour_couple(grid):
             np.sort(ref.f2c(*grid).numpy()))
 
 
+@pytest.mark.parametrize("grid", [(4, 4, 4), (3, 5, 6), (16, 24, 32)])
+def test_colour_major_holds_each_colours_dia_columns(grid):
+    """Column t of colour c's block is the DIA column of the colour's row
+    t, for every colour: on (3, 5, 6) the colours differ in size. The
+    blocks fill the buffer end to end."""
+    dia = dia_from_coo(hpcg_27pt(*grid))
+    cm = symgs_cuda.colour_major(dia, grid, dia.offsets.index(0))
+    assert cm.values.shape == (dia.num_diags * dia.num_rows,)
+    assert cm.offsets == dia.offsets and cm.grid == grid
+    counts = [symgs_cuda.colour_count(grid, c) for c in range(8)]
+    assert sum(counts) == dia.num_rows
+    if grid == (3, 5, 6):
+        assert len(set(counts)) > 1
+    end = 0
+    for c in range(8):
+        rows = symgs_cuda.colour_rows(grid, c)
+        assert counts[c] == len(rows)
+        assert cm.starts[c] == end
+        block = cm.block(c)
+        assert block.shape == (dia.num_diags, counts[c])
+        assert torch.equal(block, dia.data[:, rows])
+        end += block.numel()
+    assert end == cm.values.numel()
+
+
+def _natural_colour_update(dia, r, x, grid, colour, slot):
+    """One colour of the update on the natural-order DIA array: the plain
+    formula before the colour-major copy, the oracle of the copy's
+    indexing."""
+    n = dia.num_rows
+    rows = symgs_cuda.colour_rows(grid, colour)
+    j = rows + torch.tensor(dia.offsets)[:, None]
+    inside = (j >= 0) & (j < n)
+    inside[slot] = False
+    products = dia.data[:, rows] * x[j.clamp(0, n - 1)]
+    acc = torch.where(inside, products, 0.0).sum(0)
+    x[rows] = (r[rows] - acc) / dia.data[slot, rows]
+
+
+@pytest.mark.parametrize("grid", [(4, 4, 4), (3, 5, 6), (16, 24, 32)])
+def test_colour_major_update_equals_the_natural_one_bit_for_bit(grid):
+    dia = dia_from_coo(hpcg_27pt(*grid))
+    slot = dia.offsets.index(0)
+    cm = symgs_cuda.colour_major(dia, grid, slot)
+    n = dia.num_rows
+    r, x = _rand(n, 6), _rand(n, 7)
+    for c in range(8):
+        want = x.clone()
+        _natural_colour_update(dia, r, want, grid, c, slot)
+        got = x.clone()
+        symgs_cuda.dia_symgs_torch(cm, r, got, c)
+        assert torch.equal(got, want), c
+        x = want
+
+
 def test_every_level_is_dia(pair):
     port, reference = pair
     assert len(port.levels) == len(reference)
@@ -110,7 +167,8 @@ def test_every_level_is_dia(pair):
         assert lv.grid == rl.grid
         assert lv.matrix._auto_choice == "dia"
         assert set(lv.matrix.offsets) == multigrid.stencil_offsets(lv.grid)
-        assert lv.matrix.offsets[lv.diag_slot] == 0
+        assert lv.colour_major.offsets == lv.matrix.offsets
+        assert lv.matrix.offsets[lv.colour_major.diag_slot] == 0
 
 
 def test_a_level_that_is_not_dia_raises():
@@ -133,17 +191,29 @@ def test_the_kernel_refuses_what_it_does_not_take():
     dia = dia_from_coo(hpcg_27pt(4, 4, 4))
     r, x = _rand(64, 0), torch.zeros(64, dtype=F64)
     slot = dia.offsets.index(0)
+    cm = symgs_cuda.colour_major(dia, (4, 4, 4), slot)
     with pytest.raises(ValueError, match="not the diagonal"):
-        symgs_cuda.dia_symgs(dia, r, x, (4, 4, 4), 0, slot + 1)
+        symgs_cuda.dia_symgs(dataclasses.replace(cm, diag_slot=slot + 1),
+                             r, x, 0)
     with pytest.raises(ValueError, match="one buffer"):
-        symgs_cuda.dia_symgs(dia, x, x, (4, 4, 4), 0, slot)
+        symgs_cuda.dia_symgs(cm, x, x, 0)
     with pytest.raises(ValueError, match="grid"):
-        symgs_cuda.dia_symgs(dia, r, x, (4, 4, 8), 0, slot)
+        symgs_cuda.dia_symgs(dataclasses.replace(cm, grid=(4, 4, 8)), r, x,
+                             0)
+    with pytest.raises(ValueError, match="values for a 4x4x4 grid"):
+        symgs_cuda.dia_symgs(dataclasses.replace(cm, values=cm.values[1:]),
+                             r, x, 0)
+    with pytest.raises(ValueError, match="starts .* 4x4x4 grid"):
+        symgs_cuda.dia_symgs(dataclasses.replace(
+            cm, starts=symgs_cuda.colour_starts((4, 4, 4), 26)), r, x, 0)
     with pytest.raises(ValueError, match="colour 8"):
-        symgs_cuda.dia_symgs(dia, r, x, (4, 4, 4), 8, slot)
+        symgs_cuda.dia_symgs(cm, r, x, 8)
+    with pytest.raises(ValueError, match="grid"):
+        symgs_cuda.colour_major(dia, (4, 4, 8), slot)
     f32 = dia_from_coo(hpcg_27pt(4, 4, 4), value_dtype="float32")
     with pytest.raises(TypeError, match="fp64"):
-        symgs_cuda.dia_symgs(f32, r.float(), x.float(), (4, 4, 4), 0, slot)
+        symgs_cuda.dia_symgs(symgs_cuda.colour_major(f32, (4, 4, 4), slot),
+                             r.float(), x.float(), 0)
 
 
 @pytest.mark.parametrize("colour", [0, 5, 7])
@@ -154,7 +224,7 @@ def test_one_colour_equals_the_reference(pair, colour):
     want = x.clone()
     rl.colour_update(r, want, colour)
     got = x.clone()
-    symgs_cuda.dia_symgs(lv.matrix, r, got, lv.grid, colour, lv.diag_slot)
+    symgs_cuda.dia_symgs(lv.colour_major, r, got, colour)
     others = symgs_cuda.colour_of(lv.grid) != colour
     assert torch.equal(got[others], x[others])
     torch.testing.assert_close(got, want, rtol=ONE_STEP, atol=ONE_STEP)
@@ -249,7 +319,14 @@ def test_the_build_is_recorded_in_spans():
     for s in levels:
         names = [c.name for c in rec.children(rec.spans.index(s))]
         assert names == ["multigrid.generate", "formats.auto_from_coo",
-                         "dispatch.first_call"]
+                         "dispatch.first_call", "multigrid.colour_order"]
+    # the colour-major copies: level 0's inside the build, the others
+    # inside their level; each the size of its level's DIA values
+    orders = rec.find("multigrid.colour_order")
+    assert [s.attrs["level"] for s in orders] == [0, 1, 2]
+    assert orders[0] in rec.children(index)
+    for s, n in zip(orders, (16 * 24 * 32, 8 * 12 * 16, 4 * 6 * 8)):
+        assert s.attrs["bytes"] == 27 * n * 8
 
 
 def _lexicographic(levels):
