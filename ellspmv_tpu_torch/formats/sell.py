@@ -31,6 +31,8 @@ index bytes, the tiles, the tail, the rows reassembled) is all its price
 reads (``bench/traffic.sell_bytes``). `SellMatrix.shape` reads it off a
 built matrix; `sell_shape` works out the same shape from the COO without
 packing anything, so the chooser prices the split without building it.
+The split rule lives in `_split` alone, which both functions read, and
+`_row_order` is the module's one sort of entries by row and column.
 """
 
 from __future__ import annotations
@@ -269,45 +271,30 @@ def sell_from_coo(coo: CooMatrix, slice_rows: int = 1024,
             long_row = counts0 > split_len
             if long_row.any():
                 with span("sell.split"):
-                    # Split long rows by column band first (a bounded
-                    # column span per sub-row), then by rank within a band
-                    # (a bounded count).
-                    order0 = np.lexsort((coo.colidx, coo.rowidx))
-                    rows0 = coo.rowidx[order0].astype(np.int64)
-                    cols0 = coo.colidx[order0].astype(np.int64)
-                    band = np.where(long_row[rows0], cols0 // split_cols,
-                                    0)
-                    grp_change = np.empty(len(rows0), bool)
-                    grp_change[0] = True
-                    grp_change[1:] = ((rows0[1:] != rows0[:-1])
-                                      | (band[1:] != band[:-1]))
-                    grp_id = np.cumsum(grp_change) - 1
-                    starts = np.flatnonzero(grp_change)
-                    rank_in_grp = np.arange(len(rows0)) - starts[grp_id]
-                    sub_change = grp_change | (
-                        (rank_in_grp > 0) & (rank_in_grp % split_len == 0))
-                    sub_seq = np.cumsum(sub_change) - 1   # row-major ids
-                    sub_first = np.flatnonzero(sub_change)
-                    sub_row = rows0[sub_first]     # original row per sub
-                    nsub = np.bincount(sub_row, minlength=n)  # 0: empty rows
-                    sub_off = np.concatenate([[0], np.cumsum(nsub)])
-                    ordinal = np.arange(len(sub_row)) - sub_off[sub_row]
-                    nextra = np.maximum(nsub - 1, 0)
-                    extra_off = np.concatenate([[0], np.cumsum(nextra)])
-                    final = np.where(ordinal == 0, sub_row,
-                                     n + extra_off[sub_row] + ordinal - 1)
-                    num_sub = int(n + extra_off[-1])
+                    # the entries in (row, column) order, the long rows'
+                    # renumbered by `_split`
+                    order0 = _row_order(coo.rowidx, coo.colidx, m)
+                    rows0, cols0 = coo.rowidx[order0], coo.colidx[order0]
+                    lo, hi = _row_extremes(rows0, cols0, counts0, m, True)
+                    in_long = long_row[rows0]
+                    sub, _, _, sub_of = _split(cols0[in_long], counts0, lo,
+                                               hi, split_len, split_cols, m)
+                    sub_rows = rows0.astype(np.int64)
+                    sub_rows[in_long] = sub_of
+                    owner = np.empty(len(sub), np.int64)  # a sub-row's row
+                    owner[sub_rows] = rows0
+                    nextra = np.bincount(owner[n:], minlength=n)
                 sm = sell_from_coo(
-                    CooMatrix(num_sub, m, final[sub_seq],
-                              coo.colidx[order0], coo.values[order0]),
+                    CooMatrix(len(sub), m, sub_rows, cols0,
+                              coo.values[order0]),
                     slice_rows=slice_rows, tail_cap=max(tail_cap, split_len),
                     sort_rows=sort_rows, length_sort=length_sort,
                     split_rows=False, value_dtype=value_dtype,
                     index_dtype=index_dtype, device=device)
                 return dataclasses.replace(
                     sm, num_rows=n, num_nonzeros=nnz_total,
-                    extra_rows=index(np.repeat(np.arange(n), nextra)),
-                    num_sub_rows=num_sub, trivial_reassembly=False,
+                    extra_rows=index(owner[n:]), num_sub_rows=len(sub),
+                    trivial_reassembly=False,
                     extra_owners=index(np.flatnonzero(nextra)),
                     extra_counts=index(nextra[nextra > 0]))
 
@@ -336,10 +323,7 @@ def sell_from_coo(coo: CooMatrix, slice_rows: int = 1024,
         with span("sell.row_sort"):
             # each entry's rank in its row (by file order, or by column when
             # sorting, as rowsort orders them, ellspmv.c:960-1079)
-            if sort_rows:
-                order = np.lexsort((coo.colidx, coo.rowidx))
-            else:
-                order = np.argsort(coo.rowidx, kind="stable")
+            order = _row_order(coo.rowidx, coo.colidx, m, sort_rows)
             rows = coo.rowidx[order]
             cols = coo.colidx[order]
             vals = coo.values[order]
@@ -402,10 +386,9 @@ def sell_shape(coo: CooMatrix, slice_rows: int = 1024, tail_cap: int = 64,
     Every slice holds rows of one length group, so a slice's width does
     not depend on the order of the rows inside it, and the narrow column
     layout needs only each row's extremes (``formats/ell.narrow_rows_fit``).
-    The split's sub-rows take the long rows' entries in (row, column)
-    order: as they are where one pass shows the COO is in that order, else
-    sorted alone (``io/native.argsort``). The length sort sorts the rows,
-    not the entries."""
+    The split (`_split`) takes the long rows' entries alone in (row,
+    column) order (`_row_order`). The length sort sorts the rows, not the
+    entries."""
     coo = coo.expand_symmetry()
     n, m = coo.num_rows, coo.num_columns
     dtype = config.value_dtype(coo.values.dtype if value_dtype is None
@@ -414,13 +397,13 @@ def sell_shape(coo: CooMatrix, slice_rows: int = 1024, tail_cap: int = 64,
     rows, cols = coo.rowidx, coo.colidx
     counts = (np.bincount(rows, minlength=n) if n
               else np.zeros(0, np.int64))
-    ordered = _in_row_order(rows, cols)
-    lo, hi = _row_extremes(rows, cols, counts, m, ordered)
+    lo, hi = _row_extremes(rows, cols, counts, m, _in_row_order(rows, cols))
     common = dict(m=m, R=slice_rows, value_bytes=value_bytes,
                   index_dtype=index_dtype)
     if split_rows and n and (counts > split_len).any():
-        sub, lo, hi = _split(rows, cols, counts, lo, hi, split_len,
-                             split_cols, m, ordered)
+        sub, lo, hi, _ = _split(
+            _columns_of(rows, cols, counts > split_len, True, m), counts, lo,
+            hi, split_len, split_cols, m)
         # the split's recursion: no tail, and the length sort's band at
         # its default
         built = _shape_of_rows(sub, lo, lo, hi, tail_cap=max(tail_cap,
@@ -436,7 +419,7 @@ def sell_shape(coo: CooMatrix, slice_rows: int = 1024, tail_cap: int = 64,
     if tail_cap and over.any():
         # such a row keeps its first `tail_cap` entries, by column when
         # sorting, else in file order; the rest go to the tail
-        c = _columns_of(rows, cols, over, sort_rows, m, ordered)
+        c = _columns_of(rows, cols, over, sort_rows, m)
         lens = counts[over]
         kept = c[((np.cumsum(lens) - lens)[:, None]
                   + np.arange(tail_cap)).ravel()].reshape(-1, tail_cap)
@@ -457,6 +440,20 @@ def _in_row_order(rows, cols) -> bool:
     return bool((np.diff(cols)[step == 0] >= 0).all())
 
 
+def _row_order(rows, cols, m: int, by_column: bool = True):
+    """The stable order that puts the entries row after row, each row's by
+    column (`by_column`) or in file order, duplicates in file order: the
+    native radix argsort (``io/native.argsort``) of row·m + column (or of
+    the row), or all of them as they stand (a slice) where one pass shows
+    they are in (row, column) order already."""
+    if _in_row_order(rows, cols):
+        return slice(None)
+    key = rows.astype(np.uint64)
+    if by_column:
+        key = key * np.uint64(m) + cols.astype(np.uint64)
+    return native.argsort(key)
+
+
 def _row_extremes(rows, cols, counts, m: int, ordered: bool):
     """Each row's least and greatest column (`m` and -1 where it is
     empty): read at the rows' ends where the entries are `ordered`, else
@@ -475,30 +472,25 @@ def _row_extremes(rows, cols, counts, m: int, ordered: bool):
     return lo, hi
 
 
-def _columns_of(rows, cols, selected, by_column: bool, m: int,
-                ordered: bool):
-    """The columns of the `selected` rows' entries, row after row, each
-    row's by column (`by_column`) or in file order, stably: only these
-    entries are sorted, and none where the COO is `ordered`."""
+def _columns_of(rows, cols, selected, by_column: bool, m: int):
+    """The columns of the `selected` rows' entries in `_row_order`: only
+    these entries are sorted."""
     keep = selected[rows]
     c = cols[keep]
-    if not ordered:
-        key = (np.cumsum(selected) - 1)[rows[keep]].astype(np.uint64)
-        if by_column:
-            key = key * np.uint64(m) + c.astype(np.uint64)
-        c = c[native.argsort(key)]
-    return c
+    return c[_row_order(rows[keep], c, m, by_column)]
 
 
-def _split(rows, cols, counts, lo, hi, split_len: int, split_cols: int,
-           m: int, ordered: bool):
-    """The rows `sell_from_coo`'s split makes, in their final order: the
-    rows, then each row's extra sub-rows. Each one's count and least and
-    greatest column (0, `m` and -1 where empty)."""
+def _split(c, counts, lo, hi, split_len: int, split_cols: int, m: int):
+    """The split rule: each row longer than `split_len` is cut first by
+    column band (`split_cols`), then into sub-rows of `split_len`; a row's
+    first sub-row keeps its number, the others follow the `n` rows, row
+    after row. `c` holds the long rows' columns in (row, column) order,
+    `counts`, `lo` and `hi` every row's count and least and greatest
+    column. Returns each sub-row's count and least and greatest column
+    (0, `m` and -1 where empty), and the sub-row of each entry of `c`."""
     n = len(counts)
     long_row = counts > split_len
     long_rows = np.flatnonzero(long_row)
-    c = _columns_of(rows, cols, long_row, True, m, ordered)
     lens = counts[long_rows]
     row_start = np.cumsum(lens) - lens
     # a long row's column bands, each cut into sub-rows of split_len
@@ -532,7 +524,7 @@ def _split(rows, cols, counts, lo, hi, split_len: int, split_cols: int,
     sub_lo[:n], sub_hi[:n] = lo, hi
     sub[final] = end - start
     sub_lo[final], sub_hi[final] = c[start], c[end - 1]
-    return sub, sub_lo, sub_hi
+    return sub, sub_lo, sub_hi, np.repeat(final, end - start)
 
 
 def _shape_of_rows(counts, first, lo, hi, m: int, R: int, tail_cap: int,

@@ -26,15 +26,11 @@ fp64 dot products go through the hand-written kernel K6 (`ops.dot_cuda`,
 the counterpart of the Pallas double-double ``dd_vdot``); float32 ones
 through ``torch.dot``, as the JAX solver leaves ``jnp.vdot`` to XLA.
 
-`precond` makes either solver preconditioned CG: z = M·r, with α and β
-taken from r·z, while the test stays ``r·r > tol²·(b·b)``. Without it
-both run exactly the operations they ran before it existed.
-
-`pcg_set` is HPCG's timed unit (CG.cpp with tolerance 0): a fixed number
-of preconditioned iterations from x = 0, every tensor restarted on the
-device, nothing read by the host. Its tensors (`PcgSet`) live across
-sets, so a driver captures one set in a CUDA graph once and replays it for
-every later set.
+`pcg_set` is the one preconditioned CG, HPCG's timed unit (CG.cpp with
+tolerance 0): a fixed number of preconditioned iterations from x = 0,
+every tensor restarted on the device, nothing read by the host. Its
+tensors (`PcgSet`) live across sets, so a driver captures one set in a
+CUDA graph once and replays it for every later set.
 
 The JAX package's ``cg_dd`` (and ``ops/dd_vec.py``) carry fp64 vectors as
 f32 hi/lo pairs because the TPU has no fp64; native fp64 CG computes the
@@ -65,8 +61,7 @@ class CgResult(NamedTuple):
 class CgState(NamedTuple):
     """CG's tensors on the device, which `masked_step` updates in place: x,
     the residual r, the direction p, rs = r·r, tol2 = tol²·(b·b), the
-    iterations k (int32), the flag ``active = rs > tol2`` and, when
-    preconditioned, rz = r·z."""
+    iterations k (int32) and the flag ``active = rs > tol2``."""
     x: torch.Tensor
     r: torch.Tensor
     p: torch.Tensor
@@ -74,7 +69,6 @@ class CgState(NamedTuple):
     tol2: torch.Tensor
     k: torch.Tensor
     active: torch.Tensor
-    rz: torch.Tensor | None = None
 
 
 def _operators(matvec, b, operand, vdot):
@@ -85,48 +79,34 @@ def _operators(matvec, b, operand, vdot):
 
 
 def cg_start(mv: Callable, vdot: Callable, b: torch.Tensor,
-             x0: torch.Tensor | None, tol: float,
-             precond: Callable | None = None) -> CgState:
-    """r = b - A·x0, p = r, rs = r·r, tol2 = tol²·(b·b), k = 0; with
-    `precond`, z = M·r, p = z and rz = r·z."""
+             x0: torch.Tensor | None, tol: float) -> CgState:
+    """r = b - A·x0, p = r, rs = r·r, tol2 = tol²·(b·b), k = 0."""
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - mv(x)
-    z = r if precond is None else precond(r)
-    p = z.clone()
+    p = r.clone()
     rs = vdot(r, r)
     tol2 = torch.tensor(tol, dtype=rs.dtype, device=rs.device) ** 2 \
         * vdot(b, b)
     k = torch.zeros((), dtype=torch.int32, device=b.device)
-    rz = None if precond is None else vdot(r, z)
-    return CgState(x, r, p, rs, tol2, k, rs > tol2, rz)
+    return CgState(x, r, p, rs, tol2, k, rs > tol2)
 
 
-def masked_step(s: CgState, mv: Callable, vdot: Callable,
-                precond: Callable | None = None):
+def masked_step(s: CgState, mv: Callable, vdot: Callable):
     """One CG step on `s`, in place, masked by ``s.active``: where it holds,
     the ops and values of `cg_eager`'s iteration, and the count goes up;
-    where it does not, α and β are 0, so x, r, rs (rz) and k keep their
-    values (and their bits, but that a zero entry of x or r may change
-    sign, which only a -0 in b or x0 can start) and p becomes r (z),
-    finite, so nothing overflows however many masked steps run. Then
-    ``s.active`` becomes ``rs > tol2``."""
+    where it does not, α and β are 0, so x, r, rs and k keep their values
+    (and their bits, but that a zero entry of x or r may change sign, which
+    only a -0 in b or x0 can start) and p becomes r, finite, so nothing
+    overflows however many masked steps run. Then ``s.active`` becomes
+    ``rs > tol2``."""
     ap = mv(s.p)
-    rho = s.rs if precond is None else s.rz
-    alpha = torch.where(s.active, rho / vdot(s.p, ap), 0.0)
+    alpha = torch.where(s.active, s.rs / vdot(s.p, ap), 0.0)
     s.x.addcmul_(alpha, s.p)                     # x += alpha * p
     s.r.addcmul_(alpha, ap, value=-1)            # r -= alpha * ap
     rs_new = vdot(s.r, s.r)
-    if precond is None:
-        # p = r + (rs_new/rs) * p
-        torch.addcmul(s.r, torch.where(s.active, rs_new / s.rs, 0.0), s.p,
-                      out=s.p)
-    else:
-        z = precond(s.r)
-        rz_new = vdot(s.r, z)
-        # p = z + (rz_new/rz) * p
-        torch.addcmul(z, torch.where(s.active, rz_new / s.rz, 0.0), s.p,
-                      out=s.p)
-        torch.where(s.active, rz_new, s.rz, out=s.rz)
+    # p = r + (rs_new/rs) * p
+    torch.addcmul(s.r, torch.where(s.active, rs_new / s.rs, 0.0), s.p,
+                  out=s.p)
     torch.where(s.active, rs_new, s.rs, out=s.rs)
     s.k.add_(s.active)
     torch.gt(s.rs, s.tol2, out=s.active)
@@ -134,8 +114,7 @@ def masked_step(s: CgState, mv: Callable, vdot: Callable,
 
 def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
        tol: float = 1e-8, maxiter: int = 1000, operand=None,
-       vdot: Callable | None = None,
-       precond: Callable | None = None) -> CgResult:
+       vdot: Callable | None = None) -> CgResult:
     """Conjugate gradient for SPD A, starting from r = b - A·x0, p = r.
 
     Stops when r·r <= tol²·(b·b) or after `maxiter` iterations. `matvec(v)`
@@ -144,18 +123,16 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
     ``ops.dispatch.traceable_spmv``'s is). `vdot` replaces the dot product
     (default: K6 for fp64 vectors, ``torch.dot`` otherwise); the smoke run
     passes the plain versions through `matvec` and `vdot` to solve the same
-    system without the kernels. `precond(r)` returns M·r, for an SPD M,
-    and is captured with the step (``models/multigrid.Hierarchy`` is
-    capturable); its result is read before its next call. Iterations, x
-    and the residual equal `cg_eager`'s bit for bit."""
+    system without the kernels. Iterations, x and the residual equal
+    `cg_eager`'s bit for bit."""
     mv, vdot = _operators(matvec, b, operand, vdot)
-    s = cg_start(mv, vdot, b, x0, tol, precond)
+    s = cg_start(mv, vdot, b, x0, tol)
     cuda = b.device.type == "cuda"
     lag = STEPS_AHEAD - 1
     count = torch.zeros((), dtype=s.k.dtype, pin_memory=cuda)
 
     def step():
-        masked_step(s, mv, vdot, precond)
+        masked_step(s, mv, vdot)
         if cuda:
             count.copy_(s.k, non_blocking=True)
 
@@ -191,29 +168,21 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
 def cg_eager(matvec: Callable, b: torch.Tensor,
              x0: torch.Tensor | None = None, tol: float = 1e-8,
              maxiter: int = 1000, operand=None,
-             vdot: Callable | None = None,
-             precond: Callable | None = None) -> CgResult:
+             vdot: Callable | None = None) -> CgResult:
     """`cg`'s solve as a loop launched eagerly that reads the convergence
     test ``rs > tol2`` on the host before every iteration: α and β stay on
     the device as 0-d tensors, so that is its one synchronisation an
-    iteration. `matvec` (and `precond`) need not be capturable."""
+    iteration. `matvec` need not be capturable."""
     mv, vdot = _operators(matvec, b, operand, vdot)
-    s = cg_start(mv, vdot, b, x0, tol, precond)
-    x, r, p, rs, tol2, rz = s.x, s.r, s.p, s.rs, s.tol2, s.rz
+    x, r, p, rs, tol2, _, _ = cg_start(mv, vdot, b, x0, tol)
     k = 0
     while k < maxiter and bool(rs > tol2):
         ap = mv(p)
-        alpha = (rs if precond is None else rz) / vdot(p, ap)
+        alpha = rs / vdot(p, ap)
         x.addcmul_(alpha, p)                      # x += alpha * p
         r.addcmul_(alpha, ap, value=-1)           # r -= alpha * ap
         rs_new = vdot(r, r)
-        if precond is None:
-            torch.addcmul(r, rs_new / rs, p, out=p)   # p = r + (rs_new/rs) p
-        else:
-            z = precond(r)
-            rz_new = vdot(r, z)
-            torch.addcmul(z, rz_new / rz, p, out=p)   # p = z + (rz_new/rz) p
-            rz = rz_new
+        torch.addcmul(r, rs_new / rs, p, out=p)   # p = r + (rs_new/rs) * p
         rs = rs_new
         k += 1
     return CgResult(x=x, iterations=k, residual_norm=float(torch.sqrt(rs)),

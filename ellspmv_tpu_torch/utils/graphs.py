@@ -29,9 +29,9 @@ replay (``parallel/launch.RankPool``'s deadline still fails a rank stuck
 there), and its polling of eager works from another thread does not spoil
 a capture under the default capture mode: captures of 3,000 allgathers
 and all_reduces (150-190 ms each) with 20 eager works left pending all
-matched, drained first or not (``scripts/nccl_capture_probe.py``, torch
-2.11, NCCL 2.28.9, an H100), so `Graph` drains nothing and keeps that
-mode. Gloo's collectives on a card cannot be captured (gloo waits for the
+matched, drained first or not (PERF.md §6, the bring-up's findings;
+torch 2.11, NCCL 2.28.9, an H100), so `Graph` drains nothing and keeps
+that mode. Gloo's collectives on a card cannot be captured (gloo waits for the
 card's tensors on the host): the capture raises, and
 ``parallel/mesh.traceable_loops`` keeps those ranks on eager loops.
 """

@@ -791,21 +791,3 @@ def test_captured_pcg_set_equals_eager_on_card():
     torch.testing.assert_close(want[0], x, rtol=1e-12, atol=0)
     torch.testing.assert_close(want[4] / norms[0], norms / norms[0], rtol=0,
                                atol=1e-12)
-
-
-@pytest.mark.cuda
-def test_captured_preconditioned_cg_equals_eager_on_card():
-    """`cg` with the V-cycle as `precond` (a masked step, preconditioner
-    and all, captured once) against `cg_eager` with it: iterations, x and
-    residual bit for bit, and well under plain CG's iterations."""
-    _needs_card()
-    from ellspmv_tpu_torch.models.solvers import cg, cg_eager
-    port, lv, b = _hpcg_on_card((16, 24, 32), 3)
-    kw = dict(tol=1e-10, operand=lv.matrix)
-    want = cg_eager(lv.fn, b, precond=port, **kw)
-    got = cg(lv.fn, b, precond=port, **kw)
-    plain = cg(lv.fn, b, **kw)
-    assert got.iterations == want.iterations
-    assert torch.equal(got.x, want.x)
-    assert got.residual_norm == want.residual_norm
-    assert 2 * got.iterations < plain.iterations

@@ -1,7 +1,6 @@
 """HPCG's multigrid PCG in the port (``models/multigrid.py``, K8's plain
-version in ``ops/symgs_cuda.py``, ``models/solvers.pcg_set`` and `cg`'s
-`precond`) against the plain reference ``tests/reference_hpcg.py``, on the
-CPU.
+version in ``ops/symgs_cuda.py`` and ``models/solvers.pcg_set``) against
+the plain reference ``tests/reference_hpcg.py``, on the CPU.
 
 Grids: 16³ and 16×24×32 (not a cube, so that swapped axes show) at three
 levels, and 32³ at HPCG's four. Four levels need a fine grid of at least
@@ -292,20 +291,21 @@ def test_a_set_without_preconditioner_is_cg():
         plain.residual_norm, dtype=F64), rtol=1e-9, atol=0)
 
 
-def test_preconditioned_cg_equals_its_eager_loop():
+def test_the_vcycle_needs_under_half_of_cgs_iterations():
+    """`pcg_set` with the V-cycle reaches ‖r‖/‖r0‖ <= 1e-10 in under half
+    the iterations that `pcg_set` without it needs."""
     port = multigrid.hpcg(16, 24, 32, depth=3)
     lv = port.levels[0]
     b = lv.fn(lv.matrix, torch.ones(lv.matrix.num_rows, dtype=F64))
-    got = solvers.cg(lv.fn, b, tol=1e-10, operand=lv.matrix, precond=port)
-    want = solvers.cg_eager(lv.fn, b, tol=1e-10, operand=lv.matrix,
-                            precond=port)
-    plain = solvers.cg(lv.fn, b, tol=1e-10, operand=lv.matrix)
-    assert got.iterations == want.iterations
-    assert torch.equal(got.x, want.x)
-    assert got.residual_norm == want.residual_norm
-    # the V-cycle cuts the iterations to well under half of plain CG's
-    assert 2 * got.iterations < plain.iterations
-    torch.testing.assert_close(got.x, torch.ones_like(b), rtol=1e-8, atol=0)
+    reached = []
+    for precond, iterations in ((port, 40), (None, 80)):
+        s = solvers.pcg_set_state(b, iterations)
+        solvers.pcg_set(s, lv.fn, b, precond=precond, operand=lv.matrix)
+        below = torch.nonzero(s.norms <= 1e-10 * s.norms[0]).flatten()
+        assert len(below), f"1e-10 not reached in {iterations} iterations"
+        reached.append(int(below[0]))
+    vcycle, plain = reached
+    assert 2 * vcycle < plain
 
 
 def test_the_build_is_recorded_in_spans():

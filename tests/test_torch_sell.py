@@ -9,6 +9,7 @@ the built matrix's, the chooser's SELL branch, and `ellspmv
 Tolerances, per row relative to sum |a*x| + |y|: fp64 1e-13, f32 1e-5. The
 ``cuda`` tests hold the kernel route against the plain one on a card."""
 
+import dataclasses
 import io
 
 import numpy as np
@@ -125,7 +126,30 @@ def assert_sell_equal(got: SellMatrix, want):
         assert getattr(got, attr) == getattr(want, attr), attr
 
 
-# name -> (matrix, sell_from_coo keywords): the inputs of tests/test_sell.py
+def _jax_shuffled(coo, seed: int = 0):
+    """`coo`'s entries in a random order: out of row order."""
+    p = np.random.RandomState(seed).permutation(coo.num_nonzeros)
+    return dataclasses.replace(coo, rowidx=coo.rowidx[p],
+                               colidx=coo.colidx[p], values=coo.values[p])
+
+
+def _long_rows_with_duplicates():
+    """512 random rows, then rows 7 and 300 with 400 entries each among
+    columns 0 .. 149, appended unsorted: each long row holds duplicate
+    (row, column) entries whose values differ, so their file order shows
+    in the built buckets."""
+    rng = np.random.RandomState(35)
+    base = random_coo(rng, 512, 512, 1500)
+    rows = np.repeat(np.array([7, 300], np.int32), 400)
+    cols = rng.randint(0, 150, len(rows)).astype(np.int32)
+    return dataclasses.replace(
+        base, rowidx=np.concatenate([base.rowidx, rows]),
+        colidx=np.concatenate([base.colidx, cols]),
+        values=np.concatenate([base.values, rng.randn(len(rows))]))
+
+
+# name -> (matrix, sell_from_coo keywords): the inputs of tests/test_sell.py,
+# and two of the split's entry order (file order within a row, duplicates)
 CASES = {
     "power_law_tail": (lambda: jax_generators.power_law(3000, 8, seed=1),
                        dict(slice_rows=256, tail_cap=16, split_rows=False)),
@@ -157,6 +181,12 @@ CASES = {
                   dict(slice_rows=128, value_dtype="float32",
                        index_dtype="int64")),
     "banded_trivial": (lambda: jax_generators.fem_mesh_2d(32), {}),
+    "split_shuffled_file_order": (lambda: _jax_shuffled(
+        jax_generators.dense_rows(1024, 3, num_dense=2, dense_nnz=500,
+                                  seed=3)),
+        dict(slice_rows=128, tail_cap=8, sort_rows=False)),
+    "split_duplicates": (_long_rows_with_duplicates,
+                         dict(slice_rows=128, split_cols=64)),
 }
 
 
@@ -182,6 +212,8 @@ def test_the_cases_cover_every_branch():
     assert both.row_unperm is not None and both.extra_rows is not None
     assert shapes["banded_trivial"].trivial_reassembly
     assert all(b.rowsize <= 128 for b in shapes["power_law_split"].buckets)
+    for name in ("split_shuffled_file_order", "split_duplicates"):
+        assert shapes[name].extra_rows is not None
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
