@@ -233,6 +233,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     # K3 reading through a map: the sums of K3 and the deliveries of K4
     "stream_sum_src": ("ellspmv_tpu_torch/csrc/stream_sum.cu",
                        "ellspmv_tpu/ops/stream_sum.py:65"),
+    # K3 reading level 1 as products: the sums of K3 and K1's products
+    "stream_sum_prod": ("ellspmv_tpu_torch/csrc/stream_sum.cu",
+                        "ellspmv_tpu/ops/stream_sum.py:65"),
     "permute": ("ellspmv_tpu_torch/csrc/permute.cu",
                 "ellspmv_tpu/ops/permute.py:531"),
     # HPCG's SymGS, one colour a launch: no TPU kernel before it
@@ -286,7 +289,6 @@ COLUMN_ORDER_MS = {("stream_spmv", "float64"): 0.1911,
                    ("stream_spmv eager", "float64"): 0.3922,
                    ("products", "float64"): 0.0492,
                    ("products", "float32"): 0.0302,
-                   ("K3", "float64"): 0.0315, ("K3", "float32"): 0.0241,
                    ("K4", "float64"): 0.1015, ("K4", "float32"): 0.0765}
 # The x window in shared memory (a K1 variant staged by a TMA bulk copy, the
 # counterpart of the TPU kernel's VMEM window), measured against the gather
@@ -993,7 +995,8 @@ def _reset_counts():
     ell_cuda.FMA_PROBE_RESULTS.clear()
     ell_cuda.launches = ell_cuda.probe_launches = dia_cuda.launches = 0
     dot_cuda.launches = permute.launches = stream_sum.launches = 0
-    stream_sum.src_launches = symgs_cuda.launches = 0
+    stream_sum.src_launches = stream_sum.product_launches = 0
+    symgs_cuda.launches = 0
 
 
 def _counts():
@@ -1003,6 +1006,7 @@ def _counts():
             "fma_probe": ell_cuda.probe_launches, "dot": dot_cuda.launches,
             "permute": permute.launches, "stream_sum": stream_sum.launches,
             "stream_sum_src": stream_sum.src_launches,
+            "stream_sum_prod": stream_sum.product_launches,
             "dia_symgs": symgs_cuda.launches}
 
 
@@ -1550,6 +1554,27 @@ def _stream_test_plans():
     }
 
 
+def _products_for(plan, dtype, narrow, device, rng):
+    """Random products over level 1 of `plan` on `device` (`Products`), with
+    NaN in the alignment gaps' values, which no run reads: columns over
+    40,000 columns take the narrow layout, over 300,000 int32 columns."""
+    import torch
+
+    from ellspmv_tpu_torch.formats.ell import ell_from_row_major
+    from ellspmv_tpu_torch.ops import stream_sum
+    p, m = plan.in_positions, (40_000 if narrow else 300_000)
+    values = rng.randn(p)
+    values[stream_sum.position_map(plan.levels[0]) < 0] = np.nan
+    ell = ell_from_row_major(rng.randint(0, m, (p, 1)).astype(np.int32),
+                             values[:, None], None, p, m, p, dtype, device,
+                             "stream")
+    check((ell.lcol is not None) == narrow,
+          f"the products' column layout is not the one asked for "
+          f"(narrow={narrow})")
+    return stream_sum.Products(ell, torch.from_numpy(rng.rand(m)).to(
+        device, dtype))
+
+
 def phase_stream_vs_plain(device="cuda"):
     """K3 and the gather against their plain versions on the card, bit for
     bit, in fp64 and f32, on sum plans with one level, several levels,
@@ -1557,13 +1582,16 @@ def phase_stream_vs_plain(device="cuda"):
     K3 stages at once: every level's sums with the stream read in place and
     read through a map (level 1's over its entries, a deeper level's into
     the output buffer), K3 through a map also against the gather kernel and
-    K3 in place, the gather by level 1's map and by the final one, and the
-    whole plan (`apply_stream_sum`) against its plain version."""
+    K3 in place, level 1 read as products (narrow and int32 columns, NaN
+    in the gaps) also against K1 then K3 in place, the gather by level 1's
+    map and by the final one, and the whole plan (`apply_stream_sum`, on a
+    stream and on products) against its plain version."""
     import torch
 
-    from ellspmv_tpu_torch.ops import permute, stream_sum
-    before = (permute.launches, stream_sum.launches, stream_sum.src_launches)
-    sums = src_sums = gathers = plans = deeper = 0
+    from ellspmv_tpu_torch.ops import ell_cuda, permute, stream_sum
+    before = (permute.launches, stream_sum.launches, stream_sum.src_launches,
+              stream_sum.product_launches)
+    sums = src_sums = prod_sums = gathers = plans = deeper = 0
     for name, (dest, n, cap, starts) in _stream_test_plans().items():
         plan = stream_sum.build_stream_sum(dest, n, cap=cap,
                                            chunk_starts=starts).to(device)
@@ -1615,23 +1643,45 @@ def phase_stream_vs_plain(device="cuda"):
             _sync(device)
             check(torch.equal(got, want), f"apply_stream_sum {name} {dtype}:"
                                           " kernels != plain")
-            plans += 1
-            deeper += len(plan.levels) - 1
+            sums += 1
+            for narrow in (True, False):
+                layout = "narrow" if narrow else "int32"
+                prod = _products_for(plan, dtype, narrow, device, rng)
+                table = plan.levels[0].table
+                got = stream_sum.stream_sum(table, prod)
+                want = stream_sum.stream_sum_torch(table, prod)
+                two = stream_sum.stream_sum(
+                    table, ell_cuda.ell_spmv(prod.ell, prod.x))
+                _sync(device)
+                check(torch.equal(got, want) and torch.equal(got, two),
+                      f"stream_sum {name} level 1 {dtype} as products "
+                      f"({layout} columns): kernel != plain or K1 then K3")
+                prod_sums += 1
+                sums += 1
+                got = stream_sum.apply_stream_sum(plan, prod)
+                want = apply_stream_sum_plain(plan, prod)
+                _sync(device)
+                check(torch.equal(got, want), f"apply_stream_sum {name} "
+                      f"{dtype} on products ({layout}): kernels != plain")
+                prod_sums += 1
+            plans += 3
+            deeper += 3 * (len(plan.levels) - 1)
         log(f"  stream plan {name:31s}: {len(plan.levels)} levels, "
             f"buckets {[len(lv.buckets) for lv in plan.levels]}, folded "
             f"{sum(b.sub > 1 for lv in plan.levels for b in lv.buckets)}, "
             f"chunks {max(len(plan.chunk_bases) - 1, 0)}, subtiles "
             f"{[lv.table.num_subtiles for lv in plan.levels]}, buffer "
-            f"{plan.buffer_len:,}: gathers, sums in place and through maps, "
-            "and the whole plan bit-equal to plain (fp64, f32)")
+            f"{plan.buffer_len:,}: gathers, sums in place, through maps and "
+            "as products, and the whole plan bit-equal to plain (fp64, f32)")
     grew = (permute.launches - before[0], stream_sum.launches - before[1],
-            stream_sum.src_launches - before[2])
+            stream_sum.src_launches - before[2],
+            stream_sum.product_launches - before[3])
     log(f"stream kernels vs plain: {gathers} gathers, {sums} level sums in "
-        f"place, {src_sums} through a map and {plans} plans bit-equal; "
-        f"{grew[0]} gather, {grew[1]} stream_sum and {grew[2]} "
-        "stream_sum_src launches")
+        f"place, {src_sums} through a map, {prod_sums} as products and "
+        f"{plans} plans bit-equal; {grew[0]} gather, {grew[1]} stream_sum, "
+        f"{grew[2]} stream_sum_src and {grew[3]} stream_sum_prod launches")
     if device == "cuda":
-        check(grew == (gathers + plans, sums + plans, src_sums + deeper),
+        check(grew == (gathers + plans, sums, src_sums + deeper, prod_sums),
               "the stream kernels' launch counts did not move by one per "
               "case")
 
@@ -1755,7 +1805,7 @@ def phase_stream_path(coo, x64, want, scale, device="cuda"):
         log(f"  stream {prec}: launches on the path {counts[prec]}")
         check(device != "cuda" or all(counts[prec][k] > 0 for k in per_call
                                       if per_call[k]),
-              f"the stream path did not launch K1, K3 and the gather: "
+              f"the stream path did not launch K3 and the gather: "
               f"{counts[prec]}")
         if prec == "float64" and device == "cuda":
             check(counts[prec]["fma_probe"] == 1,
@@ -1781,11 +1831,12 @@ def _all_rows_check(label, y, n, got, err, tol):
 
 
 def stream_launches_per_call(sm):
-    """The kernel launches of one `stream_spmv` on `sm`: K1, K3 in place on
-    level 1 and through its map on each deeper level, and one gather."""
+    """The kernel launches of one `stream_spmv` on `sm`: K3 as products on
+    level 1 and through its map on each deeper level, and one gather; no
+    K1 and no K3 in place."""
     levels = len(sm.ddsum.levels)
-    return {"ell_spmv": 1, "stream_sum": 1, "stream_sum_src": levels - 1,
-            "permute": 1}
+    return {"ell_spmv": 0, "stream_sum": 0, "stream_sum_prod": 1,
+            "stream_sum_src": levels - 1, "permute": 1}
 
 
 def apply_stream_sum_plain(plan, v):
@@ -1804,8 +1855,8 @@ def apply_stream_sum_plain(plan, v):
 
 def stream_spmv_plain(sm, x):
     """`stream_spmv` with every kernel replaced by its plain version."""
-    from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
-    return apply_stream_sum_plain(sm.ddsum, ell_spmv_torch(sm.prod, x))
+    from ellspmv_tpu_torch.ops.stream_sum import Products
+    return apply_stream_sum_plain(sm.ddsum, Products(sm.prod, x))
 
 
 def _sum_output_map(table, n_inputs, src=None, first=0):
@@ -1834,13 +1885,52 @@ def _beside(name, prec) -> str:
                                   f"per level: {ms:.4f} ms)")
 
 
+def product_sum_bytes(table, ell, value_bytes: int) -> int:
+    """Bytes of level 1's sums read as products (`stream_sum_prod`): those
+    of the sums in place (`sum_bytes`), each live position's column (2
+    bytes and the blocks' 4-byte bases in the narrow layout, else 4), and x
+    once."""
+    from ellspmv_tpu_torch.bench.traffic import sum_bytes
+    live = int(table.run_count.sum())
+    cols = (2 * live + 4 * ell.lbase.numel() if ell.lcol is not None
+            else 4 * live)
+    return sum_bytes(table, value_bytes) + cols + ell.num_columns * value_bytes
+
+
+def level1_forms(label, sm, x):
+    """Level 1 of `sm`'s plan read as products against K1 over them and
+    then K3 in place (the two launches it replaces), in turns (products,
+    two, two, products), each in a CUDA graph, held bit for bit:
+    (products ms, two launches ms)."""
+    import torch
+
+    from ellspmv_tpu_torch.ops import ell_cuda, stream_sum
+    table = sm.ddsum.levels[0].table
+    products = stream_sum.Products(sm.prod, x)
+    fns = {"products": lambda: stream_sum.stream_sum(table, products),
+           "two": lambda: stream_sum.stream_sum(
+               table, ell_cuda.ell_spmv(sm.prod, x))}
+    ms = {k: [] for k in fns}
+    for k in ("products", "two", "two", "products"):
+        ms[k].append(graph_ms(fns[k]))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    check(torch.equal(fns["products"](), fns["two"]()),
+          f"{label}: K3 as products disagrees with K1 then K3 in place")
+    log(f"  {label} level 1, in turns (CUDA graph): K3 as products "
+        f"{mean['products']:.4f} ms ({ms['products'][0]:.4f}, "
+        f"{ms['products'][1]:.4f}), K1 then K3 in place {mean['two']:.4f} "
+        f"ms ({ms['two'][0]:.4f}, {ms['two'][1]:.4f}); products/two "
+        f"{mean['products'] / mean['two']:.3f} (bit-equal)")
+    return mean["products"], mean["two"]
+
+
 def phase_stream_timing(coo, runs, peak_bw):
-    """At config3's shapes: K3 per level (in place on level 1, through its
-    map on the deeper ones), the final gather, K1 at the product shape and
-    the whole stream_spmv, each in turns with its plain version and beside
-    one PyTorch call, each held against its plain version on every output;
-    the launches of one stream_spmv; then one stream_spmv split by the
-    profiler."""
+    """At config3's shapes: K3 per level (as products on level 1, through
+    its map on the deeper ones), level 1 against K1 then K3 in place, the
+    final gather, K1 at the product shape and the whole stream_spmv, each
+    in turns with its plain version and beside one PyTorch call, each held
+    against its plain version on every output; the launches of one
+    stream_spmv; then one stream_spmv split by the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1855,7 +1945,8 @@ def phase_stream_timing(coo, runs, peak_bw):
         plan = sm.ddsum
         totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                              max_abs_err=0.0, bound_ms=0.0, nbytes=0, flops=0)
-                  for name in ("stream_sum", "stream_sum_src", "permute")}
+                  for name in ("stream_sum_prod", "stream_sum_src",
+                               "permute")}
 
         def add(name, k_ms, p_ms, lib_ms, nbytes, flops):
             t = totals[name]
@@ -1865,14 +1956,16 @@ def phase_stream_timing(coo, runs, peak_bw):
             t["nbytes"] += nbytes
             t["flops"] += flops
 
-        v = ell_cuda.ell_spmv(sm.prod, x)
+        products = stream_sum.Products(sm.prod, x)
+        cols = sm.prod.columns()[0].long()
         buffer = torch.empty(plan.buffer_len, dtype=x.dtype, device=x.device)
         for i, lv in enumerate(plan.levels):
             table, U = lv.table, lv.table.num_subtiles
             dest = buffer[lv.out_offset:lv.out_offset + lv.out_len]
             if lv.src is None:
-                name, form, inputs, first = "stream_sum", "in place", v, 0
-                args = (table, v, None, dest)
+                name, form, first = "stream_sum_prod", "as products", 0
+                inputs = sm.prod.values[0]
+                args = (table, products, None, dest)
             else:
                 prev = plan.levels[i - 1]
                 first = prev.out_offset
@@ -1887,9 +1980,10 @@ def phase_stream_timing(coo, runs, peak_bw):
             def plain(args=args):
                 return stream_sum.stream_sum_torch(*args[:3])
 
-            def library(inputs=inputs, out_map=out_map, U=U):
+            def library(inputs=inputs, out_map=out_map, U=U,
+                        products=lv.src is None):
                 return inputs.new_zeros(U * 1024 + 1).index_add_(
-                    0, out_map, inputs)
+                    0, out_map, inputs * x[cols] if products else inputs)
             label = f"stream_sum level {i + 1} {prec} ({form})"
             k_ms, p_ms, lib_ms = _turns(f"{label} (CUDA graph, per call)",
                                         kernel, plain, library, "index_add_",
@@ -1900,7 +1994,8 @@ def phase_stream_timing(coo, runs, peak_bw):
                                           "config3")
             lib_err = float((library()[:-1] - want).abs().max())
             live = int(table.run_count.sum())
-            nbytes = sum_bytes(table, sv, with_map=lv.src is not None)
+            nbytes = (product_sum_bytes(table, sm.prod, sv) if lv.src is None
+                      else sum_bytes(table, sv, with_map=True))
             bound_ms, bound_by = _bound(nbytes, live, prec, peak_bw)
             level_kernels.setdefault(i, {})[prec] = kernel
             log(f"  {label}: kernel {k_ms:.4f} ms on the device "
@@ -1911,6 +2006,7 @@ def phase_stream_timing(coo, runs, peak_bw):
                 f"{live:,} live elements; bit-equal to plain; "
                 f"|index_add_ - plain| {lib_err:.3e}")
             add(name, k_ms, p_ms, lib_ms, nbytes, live)
+        out["level1_forms", prec] = level1_forms(f"config3 {prec}", sm, x)
         src = plan.final_src
         # each call on the next of several copies of its inputs, more bytes
         # together than the 50 MB L2, so that no call finds them there
@@ -1947,15 +2043,16 @@ def phase_stream_timing(coo, runs, peak_bw):
                                                   t.pop("flops"), prec,
                                                   peak_bw)
             out[name, prec] = t
-        k3 = {k: out["stream_sum", prec][k] + out["stream_sum_src", prec][k]
+        k3 = {k: out["stream_sum_prod", prec][k]
+              + out["stream_sum_src", prec][k]
               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         for row, t in (("K3", k3), ("K4", out["permute", prec])):
             log(f"  {row} row {prec}, all its launches in one stream_spmv, "
                 f"on the device: kernel {t['ms']:.4f} ms{_beside(row, prec)} "
                 f"vs plain {t['plain_ms']:.4f} vs yardstick "
                 f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms"
-                + (" (K3: level 1 in place, the deeper levels through their "
-                   "maps)" if row == "K3" else
+                + (" (K3: level 1 as products, the deeper levels through "
+                   "their maps)" if row == "K3" else
                    " (the final gather; the deeper levels' deliveries run "
                    "inside K3, level 1's in the products' layout)"))
         # K1 at the product shape, on the device: eagerly, the wrapper's
@@ -2026,7 +2123,7 @@ def phase_stream_timing(coo, runs, peak_bw):
             _sync(x.device.type)
             host_ms = (time.perf_counter() - t0) / 10 * 1e3
         stream_breakdown(prof, host_ms, 10, prec,
-                         {"K1": 1, "K3": 1, "K3 src": len(plan.levels) - 1,
+                         {"K3 prod": 1, "K3 src": len(plan.levels) - 1,
                           "gather": 1})
     # K3 in f32 against fp64 on the same positions, in turns
     for i, by_prec in sorted(level_kernels.items()):
@@ -2061,14 +2158,16 @@ def stream_breakdown(prof, host_ms, calls, prec, per_call):
     profiler may drop the events of a call); the rest is spread over the
     calls."""
     times = device_times_us(prof)
-    groups = {g: [0.0, 0] for g in ("K1", "K3", "K3 src", "gather", "rest")}
+    groups = {g: [0.0, 0] for g in ("K1", "K3", "K3 src", "K3 prod",
+                                    "gather", "rest")}
     for key, (count, us) in times.items():
-        # K3's two forms are one template, <V, false> and <V, true>
-        through_map = "true>" in key or "Lb1E" in key
+        # K3's three forms are one template, <V, form, C>: 0 in place, 1
+        # through a map, 2 as products (demangled, or mangled as Li<form>E)
+        form = re.search(r"stream_sum_kernel(?:<[^,]+, |I.Li)(\d)", key)
         group = ("K1" if "ell_spmv_kernel" in key else
                  "gather" if "permute_kernel" in key else
-                 ("K3 src" if through_map else "K3")
-                 if "stream_sum_kernel" in key else "rest")
+                 ("K3", "K3 src", "K3 prod")[int(form.group(1))]
+                 if form else "rest")
         groups[group][0] += us
         groups[group][1] += count
     split = {g: (us / max(n, 1) * per_call[g] if g in per_call
@@ -2081,7 +2180,8 @@ def stream_breakdown(prof, host_ms, calls, prec, per_call):
     log(f"  stream_spmv {prec} under the profiler: {host_ms:.4f} ms per call "
         f"on the host clock; device {device_ms:.4f} ms "
         f"({100 * device_ms / host_ms:.1f}%: K1 {split['K1']:.4f}, K3 in "
-        f"place {split['K3']:.4f}, K3 through maps {split['K3 src']:.4f}, "
+        f"place {split['K3']:.4f}, K3 as products {split['K3 prod']:.4f}, "
+        f"K3 through maps {split['K3 src']:.4f}, "
         f"the gather {split['gather']:.4f}, the rest {split['rest']:.4f}); "
         f"host and idle {host_ms - device_ms:.4f} ms")
     for key, (count, us) in sorted(times.items(), key=lambda t: -t[1][1]):
@@ -3461,7 +3561,7 @@ def phase_multi_device(coo, pl_coo, pl_x64, pl_want, pl_scale,
                                 [(b,) for b in ss.split_x(px)])[0]
             totals += launches + res.rank_launches
             _rank_launches(f"(b) config3 stream {partition}", launches,
-                           ["ell_spmv", "stream_sum", "permute"], device)
+                           ["stream_sum_prod", "permute"], device)
             _ranks_report(f"(b) config3 stream, partition {partition}: "
                           f"every row within {err:.3e} of sum|a*x|; the "
                           f"ranks' plans {plan_s:.1f} s on the host", res,
@@ -3774,14 +3874,14 @@ def main() -> int:
              suite_counts, hpcg_counts]
     launches = {name: sum(c.get(name, 0) for c in paths)
                 for name in ("ell_spmv", "dia_spmv", "fma_probe", "permute",
-                             "stream_sum", "stream_sum_src", "dia_symgs")}
+                             "stream_sum_prod", "stream_sum_src", "dia_symgs")}
     launches["dot"] = cg_counts["float64"]["dot"] + multi_counts["dot"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths was not launched: {launches}")
     kernels = []
     for name, key in (("ell_spmv", "float64"), ("fma_probe", "float32"),
                       ("dia_spmv", "float64"), ("dot", "float64"),
-                      ("stream_sum", "float64"),
+                      ("stream_sum_prod", "float64"),
                       ("stream_sum_src", "float64"), ("permute", "float64"),
                       ("dia_symgs", "float64")):
         source, replaces = KERNELS[name]

@@ -92,12 +92,46 @@
 //   own slice of one buffer and reads only the slice of the level before,
 //   as the read-only loads need.
 //
+// The products form (the stream_sum_prod_* entry points). Level 1's input
+// is the stream format's products a_k * x[col_k], laid out in its position
+// order on the host (formats/stream.py). They used to reach K3 through
+// device memory: K1 over the products' rowsize-1 ELL (csrc/ell_spmv.cu)
+// read each value and column, gathered x and wrote each product, and K3 in
+// place read the product back, in the same order, in the next launch: 28
+// bytes a position in fp64 (K1's 8 + 4 read and 8 written, K3's 8 read), and
+// two launches. Here K3 reads position p as values[p] * x[col(p)] itself:
+// col(p) is the products' int32 column, or in the narrow layout (where every
+// block of kLBlock positions spans fewer than 65,536 columns)
+// lbase[p / kLBlock] + the uint16 lcol[p]. That is 12 bytes a position
+// (6 + the block's base, narrow) plus x, which a column chunk keeps in L2,
+// and one launch. Values and columns are read evict-first, as the stream
+// was; x through the read-only path. A batch's gathers of x go out with
+// the next batch's value and column loads, all before the batch's first
+// multiply. Batches of kProdBatch = 4 runs, timed with
+// scripts/kernel_variants.py on an H100 80GB HBM3 at 700 W: level 1 of
+// the Graph500 graph at SCALE 21 (63.7M positions, fp64) took 0.5075 ms
+// at 4, 0.5022 at 2, 0.5209 at 8 and 0.6160 at 16; config3's 0.0654 ms
+// at 4 and 0.0694 at 8. No batch or load order moved it far: what bounds
+// it is the gathers of x, one 32-byte L2 sector each, not the bytes. Its
+// f32 form, with a third fewer bytes, takes 0.4535 ms; K1 over the same
+// products, the same gathers, took about 0.5 ms alone, and K1 then K3 in
+// place 0.6978 ms.
+//
+// The result is K1 then K3 in place, bit for bit. K1 forms each product as
+// fma(v, x, +0.0), which is v * x rounded once (and +0.0 for a product of
+// -0.0, which no sum can tell apart: an accumulator that starts at +0.0
+// never holds -0.0). So the product here is an explicit round-to-nearest
+// multiply (__dmul_rn, __fmul_rn), which nvcc does not contract with the
+// add that follows into an fma, and the runs are added in the in-place
+// form's order. Alignment gaps (value 0, the column of the slot before)
+// lie outside every run's count and are not read.
+//
 // Binding: plain C entry points, one per value type and form, loaded with
 // ctypes. Each launches on the stream it is given, does not synchronise, and
 // returns cudaGetLastError(). The output may be a slice of a larger buffer
 // that also holds the map's sources, at other addresses. The host reads the
-// grid's constants back (stream_sum_rows, stream_sum_parts) and checks its
-// table against them.
+// grid's constants back (stream_sum_rows, stream_sum_parts,
+// stream_sum_rows_per_base) and checks its table and layout against them.
 
 #include <cstdint>
 
@@ -113,7 +147,16 @@ constexpr int kThreads = kRows / kParts;   // one output each
 template <typename V>
 constexpr int kBatch = sizeof(V) == 8 ? 8 : 4;
 constexpr int kMapBatch = 8;        // the same, read through a map
+constexpr int kProdBatch = 4;       // the same, read as products
 constexpr int kTable = kThreads;    // runs staged in shared memory at a time
+constexpr int kLBlock = 256;        // positions per lbase entry (narrow)
+
+// How a level's position p is read: stream[p] (level 1 given in position
+// order), stream[src[p]] (a deeper level, through its map), or
+// stream[p] * x[col(p)] (level 1 as products; stream holds the values).
+constexpr int kInPlace = 0;
+constexpr int kThroughMap = 1;
+constexpr int kProducts = 2;
 
 // The stream element at a where p holds, else +0.0: an evict-first load
 // under a predicate, not a branch, so that a batch's loads all issue before
@@ -143,8 +186,18 @@ __device__ __forceinline__ int load_if(bool p, const int* a) {
   return v;
 }
 
+__device__ __forceinline__ unsigned short load_if(bool p,
+                                                  const unsigned short* a) {
+  unsigned short v = 0;
+  asm("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
+      " @q ld.global.cs.u16 %0, [%1];\n}"
+      : "+h"(v)
+      : "l"(a), "r"(static_cast<unsigned>(p)));
+  return v;
+}
+
 // The value at a where p holds, else +0.0, through the read-only path (the
-// gathered reads of the map's sources).
+// gathered reads of the map's sources and of x, the narrow bases).
 __device__ __forceinline__ double load_nc_if(bool p, const double* a) {
   double v = 0.0;
   asm("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
@@ -160,6 +213,23 @@ __device__ __forceinline__ float load_nc_if(bool p, const float* a) {
       : "+f"(v)
       : "l"(a), "r"(static_cast<unsigned>(p)));
   return v;
+}
+
+__device__ __forceinline__ int load_nc_if(bool p, const int* a) {
+  int v = 0;
+  asm("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
+      " @q ld.global.nc.s32 %0, [%1];\n}"
+      : "+r"(v)
+      : "l"(a), "r"(static_cast<unsigned>(p)));
+  return v;
+}
+
+// A product rounded once, never contracted into the add that takes it.
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
 }
 
 // The map entries of the runs s0 .. s0 + kMapBatch - 1 of the staged table
@@ -178,8 +248,35 @@ __device__ __forceinline__ void map_batch(int s0, int nt, int r,
   }
 }
 
-// kMap: position p is read as stream[src[p]] (else as stream[p]).
-template <typename V, bool kMap>
+// The values and columns of the runs s0 .. s0 + kProdBatch - 1 of the
+// staged table (values[start + r] and col(start + r)), each under its run's
+// predicate, which `live` keeps for the gathers of x. C is the stored
+// column type: int (col = cols[p]) or unsigned short (narrow: col =
+// lbase[p / kLBlock] + cols[p], the base one load a warp, as a warp's
+// positions lie in one block).
+template <typename V, typename C>
+__device__ __forceinline__ void product_batch(
+    int s0, int nt, int r, const int* s_start, const int* s_count,
+    const V* values, const C* cols, const int* lbase,
+    bool (&live)[kProdBatch], V (&val)[kProdBatch], int (&col)[kProdBatch]) {
+#pragma unroll
+  for (int k = 0; k < kProdBatch; ++k) {
+    const int s = min(s0 + k, nt - 1);
+    live[k] = s0 + k < nt && r < s_count[s];
+    const int64_t p = static_cast<int64_t>(s_start[s]) + r;
+    val[k] = load_if(live[k], values + p);
+    if constexpr (sizeof(C) == sizeof(int)) {
+      col[k] = load_if(live[k], cols + p);
+    } else {
+      col[k] = load_nc_if(live[k], lbase + p / kLBlock) +
+               static_cast<int>(load_if(live[k], cols + p));
+    }
+  }
+}
+
+// kForm: how position p is read (kInPlace, kThroughMap, kProducts); C: the
+// products' column type (unused by the other forms).
+template <typename V, int kForm, typename C>
 __global__ void __launch_bounds__(kThreads)
 stream_sum_kernel(const int* __restrict__ run_start,
                   const int* __restrict__ run_count,
@@ -187,7 +284,9 @@ stream_sum_kernel(const int* __restrict__ run_start,
                   const int* __restrict__ block_first,
                   const int* __restrict__ block_runs,
                   const int* __restrict__ src,
-                  const V* __restrict__ stream, V* __restrict__ out) {
+                  const V* __restrict__ stream, const C* __restrict__ cols,
+                  const int* __restrict__ lbase, const V* __restrict__ x,
+                  V* __restrict__ out) {
   __shared__ int s_start[kTable];
   __shared__ int s_count[kTable];
   // the block's part j, its first run and its run count, all indexed by
@@ -206,7 +305,7 @@ stream_sum_kernel(const int* __restrict__ run_start,
       s_count[threadIdx.x] = __ldg(run_count + first + t0 + threadIdx.x);
     }
     __syncthreads();
-    if constexpr (kMap) {
+    if constexpr (kForm == kThroughMap) {
       // a batch's values go out with the next batch's map entries: one
       // trip to memory a batch, where loading the map, then the values,
       // took two
@@ -221,6 +320,26 @@ stream_sum_kernel(const int* __restrict__ run_start,
         map_batch(s0 + kMapBatch, nt, r, s_start, s_count, src, live, from);
 #pragma unroll
         for (int k = 0; k < kMapBatch; ++k) acc += v[k];
+      }
+    } else if constexpr (kForm == kProducts) {
+      // a batch's gathers of x go out with the next batch's values and
+      // columns, as the map form's value loads do with its map entries
+      bool live[kProdBatch];
+      V val[kProdBatch];
+      int col[kProdBatch];
+      product_batch(0, nt, r, s_start, s_count, stream, cols, lbase, live,
+                    val, col);
+      for (int s0 = 0; s0 < nt; s0 += kProdBatch) {
+        V a[kProdBatch], b[kProdBatch];
+#pragma unroll
+        for (int k = 0; k < kProdBatch; ++k) {
+          a[k] = val[k];
+          b[k] = load_nc_if(live[k], x + col[k]);
+        }
+        product_batch(s0 + kProdBatch, nt, r, s_start, s_count, stream, cols,
+                      lbase, live, val, col);
+#pragma unroll
+        for (int k = 0; k < kProdBatch; ++k) acc += mul_rn(a[k], b[k]);
       }
     } else {
       for (int s0 = 0; s0 < nt; s0 += kBatch<V>) {
@@ -244,19 +363,22 @@ stream_sum_kernel(const int* __restrict__ run_start,
   out[u * kRows + r] = acc;
 }
 
-template <typename V, bool kMap>
+template <typename V, int kForm, typename C = int>
 int launch(const void* run_start, const void* run_count, const void* order,
            const void* block_first, const void* block_runs, const void* src,
-           const void* stream_in, void* out, int64_t num_blocks,
-           void* stream) {
+           const void* stream_in, const void* cols, const void* lbase,
+           const void* x, void* out, int64_t num_blocks, void* stream) {
   if (num_blocks < 1 || num_blocks > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  stream_sum_kernel<V, kMap><<<static_cast<unsigned>(num_blocks), kThreads,
-                               0, static_cast<cudaStream_t>(stream)>>>(
+  stream_sum_kernel<V, kForm, C><<<static_cast<unsigned>(num_blocks),
+                                   kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(run_start), static_cast<const int*>(run_count),
       static_cast<const int*>(order), static_cast<const int*>(block_first),
       static_cast<const int*>(block_runs), static_cast<const int*>(src),
-      static_cast<const V*>(stream_in), static_cast<V*>(out));
+      static_cast<const V*>(stream_in), static_cast<const C*>(cols),
+      static_cast<const int*>(lbase), static_cast<const V*>(x),
+      static_cast<V*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -267,9 +389,9 @@ int launch(const void* run_start, const void* run_count, const void* order,
                       const void* order, const void* block_first,            \
                       const void* block_runs, const void* stream_in,         \
                       void* out, int64_t num_blocks, void* stream) {         \
-    return launch<V, false>(run_start, run_count, order, block_first,        \
-                            block_runs, nullptr, stream_in, out, num_blocks, \
-                            stream);                                         \
+    return launch<V, kInPlace>(run_start, run_count, order, block_first,     \
+                               block_runs, nullptr, stream_in, nullptr,      \
+                               nullptr, nullptr, out, num_blocks, stream);   \
   }
 
 #define STREAM_SUM_SRC_ENTRY(NAME, V)                                        \
@@ -278,16 +400,40 @@ int launch(const void* run_start, const void* run_count, const void* order,
                       const void* block_runs, const void* src,               \
                       const void* stream_in, void* out, int64_t num_blocks,  \
                       void* stream) {                                        \
-    return launch<V, true>(run_start, run_count, order, block_first,         \
-                           block_runs, src, stream_in, out, num_blocks,      \
-                           stream);                                          \
+    return launch<V, kThroughMap>(run_start, run_count, order, block_first,  \
+                                  block_runs, src, stream_in, nullptr,       \
+                                  nullptr, nullptr, out, num_blocks,         \
+                                  stream);                                   \
+  }
+
+// values: the products' values in position order; cols: their int32
+// columns with lbase null, or the narrow layout's uint16 offsets from
+// lbase's int32 bases, one per kLBlock positions.
+#define STREAM_SUM_PROD_ENTRY(NAME, V)                                       \
+  extern "C" int NAME(const void* run_start, const void* run_count,          \
+                      const void* order, const void* block_first,            \
+                      const void* block_runs, const void* values,            \
+                      const void* cols, const void* lbase, const void* x,    \
+                      void* out, int64_t num_blocks, void* stream) {         \
+    if (lbase == nullptr)                                                    \
+      return launch<V, kProducts, int>(run_start, run_count, order,          \
+                                       block_first, block_runs, nullptr,     \
+                                       values, cols, nullptr, x, out,        \
+                                       num_blocks, stream);                  \
+    return launch<V, kProducts, unsigned short>(                             \
+        run_start, run_count, order, block_first, block_runs, nullptr,       \
+        values, cols, lbase, x, out, num_blocks, stream);                    \
   }
 
 STREAM_SUM_ENTRY(stream_sum_f64, double)
 STREAM_SUM_ENTRY(stream_sum_f32, float)
 STREAM_SUM_SRC_ENTRY(stream_sum_src_f64, double)
 STREAM_SUM_SRC_ENTRY(stream_sum_src_f32, float)
+STREAM_SUM_PROD_ENTRY(stream_sum_prod_f64, double)
+STREAM_SUM_PROD_ENTRY(stream_sum_prod_f32, float)
 
 // Outputs per subtile, and blocks per subtile.
 extern "C" int stream_sum_rows() { return kRows; }
 extern "C" int stream_sum_parts() { return kParts; }
+// Positions per base of the products' narrow columns.
+extern "C" int stream_sum_rows_per_base() { return kLBlock; }

@@ -6,8 +6,8 @@ Counterpart of ``ellspmv_tpu.formats.stream``, with its semantics
 its plans:
 
 1. entries are sorted by column, which sets the sum plan's entry order
-   (and its column chunks), and the products ``a_k * x[col_k]`` are one
-   rowsize-1 ELLPACK SpMV (K1, ``ops/ell_cuda.py``);
+   (and its column chunks); the products ``a_k * x[col_k]`` are those of
+   a rowsize-1 ELLPACK matrix (in the JAX package, one K1 SpMV over it);
 2. the sum plan (``ops/stream_sum.py``) sums the products in row-tiled runs
    level by level, then gathers the row sums into row order.
 
@@ -15,10 +15,11 @@ The JAX package delivers the products to the plan's positions on every
 call, through a TPU router (K4, K5) fed by a reorder of the products that
 fits its budget. Here the products' values and columns are static, and so
 is the plan, so the delivery is done once, on the host: the product ELL is
-laid out in level 1's position order (``stream_sum.position_map``) and K1
-writes each product where K3 reads it. Alignment-gap slots hold the value 0
-and the column of the slot before them; K3 never reads them. Within each
-column chunk K1's reads of x then scatter over the chunk's columns. The JAX
+laid out in level 1's position order (``stream_sum.position_map``), and
+level 1's K3 forms each product where it adds it (``stream_sum.Products``):
+no product is stored. Alignment-gap slots hold the value 0 and the column
+of the slot before them; K3 never reads them. Within each column chunk
+K3's reads of x then scatter over the chunk's columns. The JAX
 knobs that shape the sum plan are keyword arguments here, with the JAX
 defaults: `cap`
 (``ELLSPMV_TPU_SUM_CAP``), `span_max` (``ELLSPMV_TPU_STREAM_SPAN``) and
@@ -39,9 +40,8 @@ from ellspmv_tpu_torch.formats import upload
 from ellspmv_tpu_torch.formats.ell import (LBLOCK, EllMatrix,
                                           ell_from_row_major, narrow_bases)
 from ellspmv_tpu_torch.io import native
-from ellspmv_tpu_torch.ops import ell_cuda
 from ellspmv_tpu_torch.ops.permute import BLOCK
-from ellspmv_tpu_torch.ops.stream_sum import (StreamSumPlan,
+from ellspmv_tpu_torch.ops.stream_sum import (Products, StreamSumPlan,
                                               apply_stream_sum,
                                               build_stream_sum, position_map)
 from ellspmv_tpu_torch.utils.timing import span
@@ -281,12 +281,13 @@ def stream_from_coo(coo, separate_diagonal: bool = False, value_dtype=None,
 
 def stream_spmv(sm: StreamMatrix, x: torch.Tensor,
                 y: torch.Tensor | None = None) -> torch.Tensor:
-    """y := A*x + y: the products (K1), written in level 1's position
-    order, the sum plan (K3 per level, then one gather), the split diagonal
-    and y, in the compute type (float32 for bfloat16)."""
+    """y := A*x + y: the sum plan over the products (K3 per level, level 1
+    forming each product from its value and gathered x, then one gather),
+    the split diagonal and y, in the compute type (float32 for
+    bfloat16)."""
     dtype = sm.values.dtype
     x = x.to(dtype)
-    out = apply_stream_sum(sm.ddsum, ell_cuda.ell_spmv(sm.prod, x))
+    out = apply_stream_sum(sm.ddsum, Products(sm.prod, x))
     if sm.diag is not None and sm.num_columns > 0:
         xi = torch.arange(sm.num_rows, device=x.device).clamp_(
             max=sm.num_columns - 1)

@@ -11,4 +11,5 @@ def launch_counters() -> dict:
             "fma_probe": (ell_cuda, "probe_launches"),
             "dot": (dot_cuda, "launches"), "permute": (permute, "launches"),
             "stream_sum": (stream_sum, "launches"),
-            "stream_sum_src": (stream_sum, "src_launches")}
+            "stream_sum_src": (stream_sum, "src_launches"),
+            "stream_sum_prod": (stream_sum, "product_launches")}

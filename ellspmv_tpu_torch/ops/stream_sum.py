@@ -23,7 +23,9 @@ drives differs:
   (`position_map`), and is applied where it costs nothing per call. Level
   1's input comes in position order: the stream format's products
   a_k*x[col_k] have static values and columns, which it lays out by this
-  map once, on the host, so level 1 carries no map on the card. Each
+  map once, on the host, so level 1 carries no map on the card. K3 reads
+  level 1 as those products (`Products`: each value times its gathered
+  x, the kernel's `prod` entry points), so they are never stored. Each
   deeper level's K3 reads its input through its map (``in[src[p]]``, the
   kernel's `src` entry points);
 - every level's outputs go to one buffer, back to back (level i's at
@@ -51,28 +53,33 @@ import dataclasses
 import numpy as np
 import torch
 
+from ellspmv_tpu_torch.formats.ell import LBLOCK, EllMatrix
 from ellspmv_tpu_torch.io import native
-from ellspmv_tpu_torch.ops import _build
+from ellspmv_tpu_torch.ops import _build, ell_cuda
 from ellspmv_tpu_torch.ops.ell_cuda import check_tensors
 from ellspmv_tpu_torch.ops.permute import (BLOCK, apply_permute,
                                            gather_from_targets)
 
 #: Kernel launches made by `stream_sum` in this process: of the entry points
-#: that read the stream in place (`launches`) and of those that read it
-#: through a map (`src_launches`).
+#: that read the stream in place (`launches`), of those that read it
+#: through a map (`src_launches`) and of those that read it as products
+#: (`product_launches`).
 launches = 0
 src_launches = 0
+product_launches = 0
 
 _I32_SENTINEL = np.int32(np.iinfo(np.int32).max)   # a key with no position
 G = 8                # 128-row groups per tile (R = G*128 = 1024)
 R = G * 128
 
 Q = 8                # kernel blocks per subtile, of R // Q outputs each
-#: The argument types of the K3 entry points of ``csrc/stream_sum.cu``:
-#: ``stream_sum_<type>`` and, with the map, ``stream_sum_src_<type>``.
-SUM_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int64,) + (ctypes.c_void_p,)
-SUM_SRC_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int64,)
-                    + (ctypes.c_void_p,))
+#: The argument types of the K3 entry points of ``csrc/stream_sum.cu``, by
+#: the name before the type: ``stream_sum_<type>``, with the map
+#: ``stream_sum_src_<type>``, and as products ``stream_sum_prod_<type>``.
+SUM_ARGTYPES = {
+    kind: (ctypes.c_void_p,) * pointers + (ctypes.c_int64, ctypes.c_void_p)
+    for kind, pointers in (("stream_sum", 7), ("stream_sum_src", 8),
+                           ("stream_sum_prod", 10))}
 
 _VALUE_TAGS = {torch.float64: "f64", torch.float32: "f32"}
 
@@ -83,6 +90,30 @@ def _round_up(x: int, m: int) -> int:
 
 def _pow2ceil(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
+
+
+@dataclasses.dataclass
+class Products:
+    """Level 1's input as the products it sums: position p is
+    ``ell.values[0, p] * x[col(p)]``, the product rounded once, with col(p)
+    the rowsize-1 ELL's column (``ell.columns()``: `colidx`, or
+    ``lbase[p // LBLOCK] + lcol`` in the narrow layout). The stream format's
+    products in level 1's position order (``formats/stream.py``) and its x,
+    in their type."""
+    ell: EllMatrix
+    x: torch.Tensor
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.ell.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.ell.values.device
+
+    @property
+    def positions(self) -> int:
+        return self.ell.padded_rows
 
 
 # --------------------------------------------------------------------------
@@ -713,15 +744,18 @@ def build_stream_sum(dest: np.ndarray, n_rows: int, cap: int = 128,
 # The segmented sums and the pipeline
 # --------------------------------------------------------------------------
 
-def stream_sum_torch(table: SumTable, stream: torch.Tensor,
+def stream_sum_torch(table: SumTable, stream: torch.Tensor | Products,
                      src: torch.Tensor | None = None) -> torch.Tensor:
     """The plain PyTorch version of the kernel: per subtile, its runs added
     in order into one accumulator per output, as masked gathers; each
-    position p read as ``stream[p]``, or as ``stream[src[p]]`` given `src`."""
+    position p read as ``stream[p]``, as ``stream[src[p]]`` given `src`,
+    or, given `Products`, as its value times its gathered x."""
     U = table.num_subtiles
     r = torch.arange(R, device=stream.device)
     first, last = table.slot_ptr[:-1].long(), table.slot_ptr[1:].long()
     n_runs = int(table.run_start.shape[0])
+    if isinstance(stream, Products):
+        values, cols = stream.ell.values[0], stream.ell.columns()[0].long()
     acc = torch.zeros((U, R), dtype=stream.dtype, device=stream.device)
     for s in range(table.max_slots):
         run = first + s
@@ -733,16 +767,45 @@ def stream_sum_torch(table: SumTable, stream: torch.Tensor,
         pos = torch.where(mask, pos, 0)
         if src is not None:
             pos = torch.where(mask, src[pos].long(), 0)
-        acc = acc + torch.where(mask, stream[pos], 0)
+        if isinstance(stream, Products):
+            term = values[pos] * stream.x[cols[pos]]
+        else:
+            term = stream[pos]
+        acc = acc + torch.where(mask, term, 0)
     return acc.reshape(-1)
 
 
-def _check(table: SumTable, stream: torch.Tensor, src, out):
+def _products_named(prod: Products) -> list:
+    """`check_tensors`' entries of the products: a rowsize-1 ELL's values
+    and columns (int32, or the narrow layout's int16 offsets and int32
+    bases) and x, in the values' type."""
+    ell = prod.ell
+    if ell.rowsize != 1:
+        raise ValueError(f"stream_sum: the products are a rowsize-1 ELL, "
+                         f"not of rowsize {ell.rowsize}")
+    shape = (1, ell.padded_rows)
+    named = [("values", ell.values, shape, prod.dtype),
+             ("x", prod.x, (ell.num_columns,), prod.dtype)]
+    if ell.lcol is None:
+        return named + [("colidx", ell.colidx, shape, torch.int32)]
+    return named + [("lcol", ell.lcol, shape, torch.int16),
+                    ("lbase", ell.lbase, (-(-ell.padded_rows // LBLOCK),),
+                     torch.int32)]
+
+
+def _check(table: SumTable, stream, src, out):
     if stream.dtype not in _VALUE_TAGS:
         raise TypeError(f"stream_sum: unsupported stream dtype "
                         f"{stream.dtype}")
-    if stream.dim() != 1:
+    if isinstance(stream, Products):
+        if src is not None:
+            raise ValueError("stream_sum: products are read in place, not "
+                             "through a map")
+        inputs = _products_named(stream)
+    elif stream.dim() != 1:
         raise ValueError("stream_sum: the stream must be a vector")
+    else:
+        inputs = [("stream", stream, tuple(stream.shape), stream.dtype)]
     blocks = (Q * table.num_subtiles,)
     named = [
         ("slot_ptr", table.slot_ptr, tuple(table.slot_ptr.shape),
@@ -753,8 +816,7 @@ def _check(table: SumTable, stream: torch.Tensor, src, out):
          torch.int32),
         ("order", table.order, blocks, torch.int32),
         ("block_first", table.block_first, blocks, torch.int32),
-        ("block_runs", table.block_runs, blocks, torch.int32),
-        ("stream", stream, tuple(stream.shape), stream.dtype)]
+        ("block_runs", table.block_runs, blocks, torch.int32), *inputs]
     if src is not None:
         if src.dim() != 1:
             raise ValueError("stream_sum: src must be a vector")
@@ -764,79 +826,102 @@ def _check(table: SumTable, stream: torch.Tensor, src, out):
     check_tensors("stream_sum", stream.device, named)
 
 
-def stream_sum(table: SumTable, stream: torch.Tensor,
+def stream_sum(table: SumTable, stream: torch.Tensor | Products,
                src: torch.Tensor | None = None,
                out: torch.Tensor | None = None) -> torch.Tensor:
     """One level's segmented sums, ``num_subtiles * 1024`` outputs in the
     stream's type (float64 or float32), written to `out` (a contiguous
     vector, which may be a slice of a larger buffer) or to a new vector;
-    returns them. Position p of the level is read as ``stream[p]``, or
-    through the map as ``stream[src[p]]``. The table's runs must lie inside
+    returns them. Position p of the level is read as ``stream[p]``,
+    through the map as ``stream[src[p]]``, or as the products' p-th
+    product (`Products`, read in place). The table's runs must lie inside
     the stream (or `src`), and every position they read must have a source
     in `src`; a level's plan guarantees both for ``in_rows * 128``
-    positions."""
-    global launches, src_launches
+    positions. On a card the fp64 products' first call probes it (K7), as
+    K1 does: the fp64 path's stated accuracy assumes multiply-adds that
+    round once."""
+    global launches, src_launches, product_launches
     _check(table, stream, src, out)
-    if stream.device.type == "cpu":
+    device = stream.device
+    if device.type == "cpu":
         sums = stream_sum_torch(table, stream, src)
         return sums if out is None else out.copy_(sums)
-    if stream.device.type != "cuda":
-        raise ValueError(f"stream_sum: no kernel for tensors on "
-                         f"{stream.device}")
+    if device.type != "cuda":
+        raise ValueError(f"stream_sum: no kernel for tensors on {device}")
+    products = isinstance(stream, Products)
+    if products and stream.dtype == torch.float64 \
+            and not ell_cuda.fma_contraction_available(device):
+        raise RuntimeError(
+            f"stream_sum: the fused multiply-add on {device} does not round "
+            "once (fma_probe disagrees with the exact residual)")
     if table.num_subtiles == 0:
-        return torch.empty(0, dtype=stream.dtype, device=stream.device) \
+        return torch.empty(0, dtype=stream.dtype, device=device) \
             if out is None else out
-    _build.check_constants(("stream_sum_rows", R), ("stream_sum_parts", Q))
+    _build.check_constants(("stream_sum_rows", R), ("stream_sum_parts", Q),
+                           ("stream_sum_rows_per_base", LBLOCK))
     symbol, args, out = kernel_call(table, stream, src, out)
-    fn, error_string = _build.entry(
-        symbol, SUM_ARGTYPES if src is None else SUM_SRC_ARGTYPES)
+    kind = symbol.rsplit("_", 1)[0]
+    fn, error_string = _build.entry(symbol, SUM_ARGTYPES[kind])
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"stream_sum kernel launch failed: "
                            f"{error_string(err).decode()} (error {err})")
-    if src is None:
+    if products:
+        product_launches += 1
+    elif src is None:
         launches += 1
     else:
         src_launches += 1
     return out
 
 
-def kernel_call(table: SumTable, stream: torch.Tensor,
+def kernel_call(table: SumTable, stream: torch.Tensor | Products,
                 src: torch.Tensor | None = None,
                 out: torch.Tensor | None = None):
     """K3's call for a checked table, stream, map and output on a card: the
-    name of its entry point in ``csrc/stream_sum.cu``, the arguments
-    (`SUM_ARGTYPES`, or `SUM_SRC_ARGTYPES` with `src`; one block per entry
-    of ``table.order``) and the output they fill (`out`, or a new vector),
-    on the current stream. The wrapper launches it; scripts that time
-    builds of variant sources call the same entry point of their own
+    name of its entry point in ``csrc/stream_sum.cu`` (its argument types
+    are ``SUM_ARGTYPES[name less its type]``), the arguments (one block per
+    entry of ``table.order``) and the output they fill (`out`, or a new
+    vector), on the current stream. The wrapper launches it; scripts that
+    time builds of variant sources call the same entry point of their own
     library."""
     if out is None:
         out = torch.empty(table.num_subtiles * R, dtype=stream.dtype,
                           device=stream.device)
-    maps = () if src is None else (src.data_ptr(),)
+    if isinstance(stream, Products):
+        ell, kind = stream.ell, "stream_sum_prod"
+        narrow = ell.lcol is not None
+        inputs = (ell.values.data_ptr(),
+                  (ell.lcol if narrow else ell.colidx).data_ptr(),
+                  ell.lbase.data_ptr() if narrow else None,
+                  stream.x.data_ptr())
+    else:
+        kind = "stream_sum" if src is None else "stream_sum_src"
+        inputs = (() if src is None else (src.data_ptr(),)) \
+            + (stream.data_ptr(),)
     args = (table.run_start.data_ptr(), table.run_count.data_ptr(),
             table.order.data_ptr(), table.block_first.data_ptr(),
-            table.block_runs.data_ptr(), *maps, stream.data_ptr(),
-            out.data_ptr(), table.order.numel(),
+            table.block_runs.data_ptr(), *inputs, out.data_ptr(),
+            table.order.numel(),
             torch.cuda.current_stream(stream.device).cuda_stream)
-    kind = "stream_sum" if src is None else "stream_sum_src"
     return f"{kind}_{_VALUE_TAGS[stream.dtype]}", args, out
 
 
-def apply_stream_sum(plan: StreamSumPlan, v: torch.Tensor) -> torch.Tensor:
+def apply_stream_sum(plan: StreamSumPlan,
+                     v: torch.Tensor | Products) -> torch.Tensor:
     """Run the plan on `v`, level 1's input in position order
-    (``plan.in_positions`` values; `position_map` of level 1 delivers a
-    stream of entries there): the per-row sums in natural row order, in v's
-    type.
+    (``plan.in_positions`` values, or as many `Products`; `position_map`
+    of level 1 delivers a stream of entries there): the per-row sums in
+    natural row order, in v's type.
 
     Level 1 sums `v` in place; each deeper level sums its input through its
     map from the output buffer, where every level writes its outputs; one
     final gather (`apply_permute`) takes each row's sum from the buffer."""
-    if tuple(v.shape) != (plan.in_positions,):
+    shape = ((v.positions,) if isinstance(v, Products)
+             else tuple(v.shape))
+    if shape != (plan.in_positions,):
         raise ValueError(f"apply_stream_sum: level 1's input has shape "
-                         f"{tuple(v.shape)}, expected "
-                         f"({plan.in_positions},)")
+                         f"{shape}, expected ({plan.in_positions},)")
     buffer = torch.empty(plan.buffer_len, dtype=v.dtype, device=v.device)
     for lv in plan.levels:
         out = buffer[lv.out_offset:lv.out_offset + lv.out_len]

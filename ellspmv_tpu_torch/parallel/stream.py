@@ -12,9 +12,9 @@ every device's product plan to common shapes. Each rank here launches its
 own kernels, so each shard is the port's own stream format
 (``formats/stream.stream_from_coo``) over the rank's rows: local row ids,
 columns remapped into the gathered x layout (``parallel/spmv.x_layout``),
-its own plan. A rank then runs the one-device pipeline on its rows (K1
-over the products, K3 per level, the final gather) after the allgather of
-x, in ``parallel/spmv.local_spmv``. The shards are built on the host, in
+its own plan. A rank then runs the one-device pipeline on its rows (K3
+per level, level 1 read as the products, the final gather) after the
+allgather of x, in ``parallel/spmv.local_spmv``. The shards are built on the host, in
 the calling process. The traceable form (the JAX package's
 ``sharded_stream_spmv_fn(ss).traceable``) is ``parallel/spmv.
 sharded_spmv_fn`` on a stream shard: its pipeline reads nothing back to

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time variants of the K1 and K3 kernels' design choices, and the stream
-path's designs, on one CUDA card.
+path's level 1 against the two launches it replaced, on one CUDA card.
 
-Run from the root of the repository, with no arguments:
+Run from the root of the repository:
 
-    python3 scripts/kernel_variants.py
+    python3 scripts/kernel_variants.py [--graph500-scale 21]
 
 Each kernel variant is a copy of one source of ``ellspmv_tpu_torch/csrc/``
 (with the headers beside it) in which one choice of the shipped source is
@@ -16,17 +16,18 @@ kernel is called through its C entry point with the arguments the wrapper
 passes (``ell_cuda.kernel_call``, ``stream_sum.kernel_call``), held bit for
 bit against the shipped kernel, and timed in a CUDA graph, in turns (each
 variant, then again in reverse order): K1 at fem_mesh_2d(1440) and on the
-config3 products, K3 per level of config3 (level 1 in place, the deeper
-levels through their maps, as the path runs them). A change that no longer
-applies to the source stops the run and names the variant.
+config3 products; K3 per level of each stream matrix (level 1 as
+products, the deeper levels through their maps, as the path runs them).
+A change that no longer applies to the source stops the run and names the
+variant. The stream matrices are config3 (power_law(1,000,000, 8)) and the
+Graph500 Kronecker graph of the benchmark's cell (``spmv_bench/
+generators/kronecker.py``, its configuration's parameters at
+`--graph500-scale`; 0 leaves it out).
 
-Then the stream path's three designs at config3, each held bit for bit
-against the shipped one and timed per SpMV in a CUDA graph, in turns, with
-K1's part alone beside: the products in level 1's position order (K3 in
-place on level 1, through its map on the deeper levels, one output buffer,
-one gather: shipped); the products in column order with level 1 too read
-through its map; and the products in column order with a gather per level
-into position order, the levels' row sums concatenated, and one gather.
+Then, on each stream matrix, the whole `stream_spmv` and its level 1
+against the same with level 1 as K1 over the products and K3 in place
+(the two launches the products form replaced), held bit for bit and timed
+in a CUDA graph, in turns.
 
 No path of the port runs this; PERF.md records what it measured. Prints
 one line per variant and precision, and the card's name and power limit
@@ -35,8 +36,10 @@ first.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import ctypes
+import json
 import pathlib
 import re
 import shutil
@@ -63,23 +66,42 @@ _LAST_STORE = "if (second) store(y_out + i + 1, acc1); }"
 _GRID = "const auto grid = static_cast<unsigned>(blocks);"
 _SM_GRID = ("const auto grid = static_cast<unsigned>(blocks < 132 * 8 ? "
             "blocks : 132 * 8);")
-_BATCH = "constexpr int kBatch = sizeof(V) == 8 ? 8 : 4;"
+_PROD_BATCH = "constexpr int kProdBatch = 4;"
 _MAP_BATCH = "constexpr int kMapBatch = 8;"
 _PARTS = "constexpr int kParts = 8;"
-# K3 through a map as first written: a batch's map loads, then its values
-_PIPELINED = """map_batch(0, nt, r, s_start, s_count, src, live, from);
-      for (int s0 = 0; s0 < nt; s0 += kMapBatch) {
-        V v[kMapBatch];
+_K3_BOUNDS = "__launch_bounds__(kThreads)"
+# K3 as products, the next batch's values and columns loaded only after
+# this batch's adds
+_OVERLAPPED = """product_batch(s0 + kProdBatch, nt, r, s_start, s_count, stream, cols,
+                      lbase, live, val, col);
 #pragma unroll
-        for (int k = 0; k < kMapBatch; ++k)
-          v[k] = load_nc_if(live[k], stream + from[k]);
-        map_batch(s0 + kMapBatch, nt, r, s_start, s_count, src, live, from);"""
-_TWO_TRIPS = """for (int s0 = 0; s0 < nt; s0 += kMapBatch) {
-        map_batch(s0, nt, r, s_start, s_count, src, live, from);
-        V v[kMapBatch];
-#pragma unroll
-        for (int k = 0; k < kMapBatch; ++k)
-          v[k] = load_nc_if(live[k], stream + from[k]);"""
+        for (int k = 0; k < kProdBatch; ++k) acc += mul_rn(a[k], b[k]);"""
+_AFTER_ADDS = """#pragma unroll
+        for (int k = 0; k < kProdBatch; ++k) acc += mul_rn(a[k], b[k]);
+        product_batch(s0 + kProdBatch, nt, r, s_start, s_count, stream, cols,
+                      lbase, live, val, col);"""
+# K3 as products with x gathered under another cache hint than the
+# read-only path's
+_GATHER = "b[k] = load_nc_if(live[k], x + col[k]);"
+_MUL = "// A product rounded once, never contracted into the add that takes it."
+
+
+def _gather_hint(hint: str):
+    """The edits that gather x with ``ld.global.<hint>``."""
+    loads = "".join(
+        f"""__device__ __forceinline__ {v} load_hint_if(bool p, const {v}* a) {{
+  {v} v = 0;
+  asm("{{\\n .reg .pred q;\\n setp.ne.u32 q, %2, 0;\\n"
+      " @q ld.global.{hint}.{s} %0, [%1];\\n}}"
+      : "+{c}"(v)
+      : "l"(a), "r"(static_cast<unsigned>(p)));
+  return v;
+}}
+""" for v, s, c in (("double", "f64", "d"), ("float", "f32", "f")))
+    return [(_MUL, loads + _MUL),
+            (_GATHER, "b[k] = load_hint_if(live[k], x + col[k]);")]
+
+
 #: name -> [(text, replacement)] of csrc/ell_spmv.cu; the first is the
 #: shipped source.
 K1_VARIANTS = {
@@ -94,28 +116,30 @@ K1_VARIANTS = {
 }
 
 
-def _k3(batch: int, parts: int):
-    return [(_BATCH, f"constexpr int kBatch = {batch};"),
-            (_PARTS, f"constexpr int kParts = {parts};")], parts
+def _prod_batch(batch: int):
+    return [(_PROD_BATCH, f"constexpr int kProdBatch = {batch};")]
 
 
 #: name -> ([(text, replacement)] of csrc/stream_sum.cu, blocks per
-#: subtile); the first is the shipped source. Level 1 reads the stream in
-#: place (kBatch), the deeper levels through their maps (kMapBatch).
+#: subtile); the first is the shipped source. Level 1 reads products
+#: (kProdBatch), the deeper levels their maps (kMapBatch).
 K3_VARIANTS = {
-    "batch 8 fp64 / 4 f32, map batch 8 pipelined, 8 blocks/subtile "
-    "(shipped)": ([], 8),
-    "batch 4, 8 blocks/subtile": _k3(4, 8),
-    "batch 8, 8 blocks/subtile": _k3(8, 8),
-    "batch 16, 8 blocks/subtile": _k3(16, 8),
-    "batch 8, 4 blocks/subtile": _k3(8, 4),
+    "products batch 4, next batch's loads before the adds, map batch 8 "
+    "pipelined, 8 blocks/subtile (shipped)": ([], 8),
+    "products batch 2": (_prod_batch(2), 8),
+    "products batch 8": (_prod_batch(8), 8),
+    "products batch 16": (_prod_batch(16), 8),
+    "products batch 4, next batch's loads after the adds": (
+        [(_OVERLAPPED, _AFTER_ADDS)], 8),
+    "12 blocks/SM": ([(_K3_BOUNDS, "__launch_bounds__(kThreads, 12)")], 8),
+    "16 blocks/SM": ([(_K3_BOUNDS, "__launch_bounds__(kThreads, 16)")], 8),
+    "4 blocks/subtile": ([(_PARTS, "constexpr int kParts = 4;")], 4),
+    "x gathered through L2 only (ld.global.cg)": (_gather_hint("cg"), 8),
+    "x gathered without L1 allocation": (
+        _gather_hint("nc.L1::no_allocate"), 8),
+    "x gathered, kept last in L1": (_gather_hint("nc.L1::evict_last"), 8),
     "map batch 4": ([(_MAP_BATCH, "constexpr int kMapBatch = 4;")], 8),
     "map batch 16": ([(_MAP_BATCH, "constexpr int kMapBatch = 16;")], 8),
-    "map batch 8, its map then its values (two trips a batch)": (
-        [(_PIPELINED, _TWO_TRIPS)], 8),
-    "map batch 16, two trips a batch": (
-        [(_MAP_BATCH, "constexpr int kMapBatch = 16;"),
-         (_PIPELINED, _TWO_TRIPS)], 8),
 }
 
 
@@ -163,59 +187,55 @@ def in_turns(names, measure) -> dict:
     return {n: np.mean(np.asarray(v), axis=0) for n, v in got.items()}
 
 
-def stream_designs(sm, coo, prec):
-    """name -> (the whole SpMV, K1's part alone) of each design, on `sm`'s
-    plan; the first is the shipped `stream_spmv`."""
-    import torch
-
-    from ellspmv_tpu_torch.formats.stream import (column_order_products,
-                                                  stream_spmv)
-    from ellspmv_tpu_torch.ops import ell_cuda, permute, stream_sum
-    plan = sm.ddsum
-    col = column_order_products(coo, value_dtype=prec, device="cuda")
-    maps = [torch.from_numpy(stream_sum.position_map(lv)).cuda()
-            for lv in plan.levels]
-    final = torch.from_numpy(stream_sum.final_map(plan)).cuda()
-
-    def level1_through_map(x):
-        v = ell_cuda.ell_spmv(col, x)
-        buffer = torch.empty(plan.buffer_len, dtype=v.dtype, device="cuda")
-        for lv, src in zip(plan.levels, maps):
-            out = buffer[lv.out_offset:lv.out_offset + lv.out_len]
-            if lv.src is None:
-                stream_sum.stream_sum(lv.table, v, src, out)
-            else:
-                stream_sum.stream_sum(lv.table, buffer, lv.src, out)
-        return permute.apply_permute(plan.final_src, buffer)
-
-    def gather_per_level(x):
-        v, parts = ell_cuda.ell_spmv(col, x), []
-        for lv, src in zip(plan.levels, maps):
-            out = stream_sum.stream_sum(lv.table,
-                                        permute.apply_permute(src, v))
-            parts.append(out[lv.multi_len:])
-            v = out[:lv.multi_len]
-        return permute.apply_permute(final, torch.cat(parts))
-
+def level1_designs(sm, x):
+    """name -> (the whole SpMV, level 1 alone) of level 1 as products
+    (shipped) and as K1 over the products, then K3 in place (the two
+    launches it replaced), on `sm`'s plan."""
+    from ellspmv_tpu_torch.formats.stream import stream_spmv
+    from ellspmv_tpu_torch.ops import ell_cuda, stream_sum
+    plan, table = sm.ddsum, sm.ddsum.levels[0].table
+    products = stream_sum.Products(sm.prod, x)
     return {
-        "products in position order (shipped)": (
-            lambda x: stream_spmv(sm, x),
-            lambda x: ell_cuda.ell_spmv(sm.prod, x)),
-        "products in column order, level 1 read through its map": (
-            level1_through_map, lambda x: ell_cuda.ell_spmv(col, x)),
-        "products in column order, a gather per level": (
-            gather_per_level, lambda x: ell_cuda.ell_spmv(col, x)),
+        "level 1 as products (shipped)": (
+            lambda: stream_spmv(sm, x),
+            lambda: stream_sum.stream_sum(table, products)),
+        "K1 over the products, then K3 in place": (
+            lambda: stream_sum.apply_stream_sum(
+                plan, ell_cuda.ell_spmv(sm.prod, x)),
+            lambda: stream_sum.stream_sum(table,
+                                          ell_cuda.ell_spmv(sm.prod, x))),
     }
+
+
+def stream_matrices(graph500_scale: int) -> dict:
+    """name -> host COO of each stream matrix: config3, and the Graph500
+    graph of the benchmark's configuration at `graph500_scale` (seed 1)."""
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.models.generators import power_law
+    out = {"config3": power_law(*cs.CONFIG3, seed=0)}
+    if graph500_scale:
+        from spmv_bench.generators import kronecker
+        config = json.loads((REPO / "spmv_bench" / "configs" /
+                             "graph500_s21.json").read_text())
+        m = kronecker.generate({**config["params"], "scale": graph500_scale},
+                               1, "cuda")
+        out[f"graph500 scale {graph500_scale}"] = CooMatrix(
+            m.num_rows, m.num_rows, m.rows.int().cpu().numpy(),
+            m.cols.int().cpu().numpy(), m.values.cpu().numpy())
+    return out
 
 
 def main() -> int:
     import torch
 
     from ellspmv_tpu_torch.formats.ell import ell_from_coo
-    from ellspmv_tpu_torch.formats.stream import stream_from_coo
-    from ellspmv_tpu_torch.models.generators import fem_mesh_2d, power_law
-    from ellspmv_tpu_torch.ops import ell_cuda, stream_sum
+    from ellspmv_tpu_torch.formats.stream import (stream_from_layout,
+                                                  stream_layout)
+    from ellspmv_tpu_torch.models.generators import fem_mesh_2d
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--graph500-scale", type=int, default=21)
+    args = parser.parse_args()
     card = cs.phase_device()
     cs.phase_build()
     jobs = {**{("K1", n): (K1_SOURCE, e) for n, e in K1_VARIANTS.items()},
@@ -228,86 +248,114 @@ def main() -> int:
     cs.log(f"built {len(libs)} variants")
     coo = fem_mesh_2d(1440)
     x64 = np.random.RandomState(1).rand(coo.num_rows)
-    pl = power_law(*cs.CONFIG3, seed=0)
-    px64 = np.random.RandomState(2).rand(pl.num_columns)
+    layouts = {label: stream_layout(pl)
+               for label, pl in stream_matrices(args.graph500_scale).items()}
     for prec in ("float64", "float32"):
         ell = ell_from_coo(coo, sort_rows=True, value_dtype=prec,
                            device="cuda")
         x = torch.from_numpy(x64).cuda().to(ell.values.dtype)
-        sm = stream_from_coo(pl, value_dtype=prec, device="cuda")
-        px = torch.from_numpy(px64).cuda().to(sm.values.dtype)
-        k1_cases = ((ell, x), (sm.prod, px))
-        k1_want = [ell_cuda.ell_spmv(m, v) for m, v in k1_cases]
-        # each level as the path runs it: (its tables by blocks per
-        # subtile, stream, map, the shipped sums), the outputs in one buffer
-        buffer = torch.empty(sm.ddsum.buffer_len, dtype=px.dtype,
-                             device="cuda")
-        levels = []
-        for lv in sm.ddsum.levels:
-            out = buffer[lv.out_offset:lv.out_offset + lv.out_len]
-            stream = k1_want[1] if lv.src is None else buffer
-            stream_sum.stream_sum(lv.table, stream, lv.src, out)
-            tables = {p: stream_sum._sum_table(lv.buckets, p).to("cuda")
-                      for p in {p for _, p in K3_VARIANTS.values()}}
-            levels.append((tables, stream, lv.src, out))
-
-        def k1(name, mat, xx):
-            symbol, args, out = ell_cuda.kernel_call(mat, xx, None)
-            err = entry(libs["K1", name], symbol,
-                        ell_cuda.SPMV_ARGTYPES)(*args)
-            cs.check(err == 0, f"K1 variant {name}: launch error {err}")
-            return out
-
-        def k1_ms(name):
-            for (mat, xx), want in zip(k1_cases, k1_want):
-                cs.check(torch.equal(k1(name, mat, xx), want),
-                         f"K1 variant {name} differs from the shipped K1")
-            return [cs.graph_ms(lambda: k1(name, mat, xx))
-                    for mat, xx in k1_cases]
-
-        for name, (fem, prods) in in_turns(K1_VARIANTS, k1_ms).items():
-            cs.log(f"K1 {prec} {name}: fem_mesh_2d(1440) {fem:.4f} ms, "
-                   f"config3 products {prods:.4f} ms (CUDA graph)")
-
-        def k3(name, table, stream, src):
-            symbol, args, out = stream_sum.kernel_call(table, stream, src)
-            argtypes = (stream_sum.SUM_ARGTYPES if src is None
-                        else stream_sum.SUM_SRC_ARGTYPES)
-            err = entry(libs["K3", name], symbol, argtypes)(*args)
-            cs.check(err == 0, f"K3 variant {name}: launch error {err}")
-            return out
-
-        def k3_ms(name):
-            parts = K3_VARIANTS[name][1]
-            row = []
-            for tables, stream, src, want in levels:
-                t = tables[parts]
-                cs.check(torch.equal(k3(name, t, stream, src), want),
-                         f"K3 variant {name} differs from the shipped K3")
-                row.append(cs.graph_ms(lambda: k3(name, t, stream, src)))
-            return row
-
-        for name, row in in_turns(K3_VARIANTS, k3_ms).items():
-            cs.log(f"K3 {prec} {name}: levels "
-                   f"{', '.join(f'{ms:.4f}' for ms in row)} ms, per SpMV "
-                   f"{sum(row):.4f} ms (CUDA graph)")
-
-        designs = stream_designs(sm, pl, prec)
-        want = next(iter(designs.values()))[0](px)
-
-        def design_ms(name):
-            whole, products = designs[name]
-            cs.check(torch.equal(whole(px), want),
-                     f"design {name} differs from the shipped stream_spmv")
-            return [cs.graph_ms(lambda: whole(px)),
-                    cs.graph_ms(lambda: products(px))]
-
-        for name, (whole, prods) in in_turns(designs, design_ms).items():
-            cs.log(f"stream_spmv {prec} {name}: {whole:.4f} ms per SpMV, "
-                   f"K1 over its products {prods:.4f} ms (CUDA graph)")
-        del ell, sm, levels, k1_cases, k1_want, buffer, designs
+        for label, layout in layouts.items():
+            sm = stream_from_layout(layout, prec, "cuda")
+            px = torch.from_numpy(np.random.RandomState(2).rand(
+                layout.num_columns)).cuda().to(sm.values.dtype)
+            if label == "config3":
+                time_k1(libs, prec, ((ell, x), (sm.prod, px)))
+            time_k3(libs, prec, label, sm, px)
+            time_level1(prec, label, sm, px)
+            del sm
+        del ell
     cs.log(f"variants timed on {card}")
     return 0
+
+
+def time_k1(libs, prec, cases):
+    """K1's variants on fem_mesh_2d(1440) and the config3 products."""
+    import torch
+
+    from ellspmv_tpu_torch.ops import ell_cuda
+    want = [ell_cuda.ell_spmv(m, v) for m, v in cases]
+
+    def k1(name, mat, xx):
+        symbol, args, out = ell_cuda.kernel_call(mat, xx, None)
+        err = entry(libs["K1", name], symbol, ell_cuda.SPMV_ARGTYPES)(*args)
+        cs.check(err == 0, f"K1 variant {name}: launch error {err}")
+        return out
+
+    def k1_ms(name):
+        for (mat, xx), w in zip(cases, want):
+            cs.check(torch.equal(k1(name, mat, xx), w),
+                     f"K1 variant {name} differs from the shipped K1")
+        return [cs.graph_ms(lambda: k1(name, mat, xx)) for mat, xx in cases]
+
+    for name, (fem, prods) in in_turns(K1_VARIANTS, k1_ms).items():
+        cs.log(f"K1 {prec} {name}: fem_mesh_2d(1440) {fem:.4f} ms, "
+               f"config3 products {prods:.4f} ms (CUDA graph)")
+
+
+def time_k3(libs, prec, label, sm, x):
+    """K3's variants on each level of `sm`'s plan as the path runs it:
+    level 1 as products, the deeper levels through their maps into one
+    output buffer."""
+    import torch
+
+    from ellspmv_tpu_torch.ops import stream_sum
+    buffer = torch.empty(sm.ddsum.buffer_len, dtype=x.dtype, device="cuda")
+    levels = []
+    for lv in sm.ddsum.levels:
+        out = buffer[lv.out_offset:lv.out_offset + lv.out_len]
+        stream = (stream_sum.Products(sm.prod, x) if lv.src is None
+                  else buffer)
+        stream_sum.stream_sum(lv.table, stream, lv.src, out)
+        tables = {p: stream_sum._sum_table(lv.buckets, p).to("cuda")
+                  for p in {p for _, p in K3_VARIANTS.values()}}
+        levels.append((tables, stream, lv.src, out))
+
+    def k3(name, table, stream, src):
+        symbol, args, out = stream_sum.kernel_call(table, stream, src)
+        fn = entry(libs["K3", name], symbol,
+                   stream_sum.SUM_ARGTYPES[symbol.rsplit("_", 1)[0]])
+        err = fn(*args)
+        cs.check(err == 0, f"K3 variant {name}: launch error {err}")
+        return out
+
+    def k3_ms(name):
+        parts = K3_VARIANTS[name][1]
+        row = []
+        for tables, stream, src, want in levels:
+            t = tables[parts]
+            cs.check(torch.equal(k3(name, t, stream, src), want),
+                     f"K3 variant {name} differs from the shipped K3")
+            row.append(cs.graph_ms(lambda: k3(name, t, stream, src)))
+        return row
+
+    for name, row in in_turns(K3_VARIANTS, k3_ms).items():
+        cs.log(f"K3 {label} {prec} {name}: levels "
+               f"{', '.join(f'{ms:.4f}' for ms in row)} ms, per SpMV "
+               f"{sum(row):.4f} ms (CUDA graph)")
+
+
+def time_level1(prec, label, sm, x):
+    """The whole `stream_spmv` and its level 1, as products and as the two
+    launches they replaced, in turns."""
+    import torch
+
+    designs = level1_designs(sm, x)
+    want = [f() for f in next(iter(designs.values()))]
+
+    def design_ms(name):
+        for f, w in zip(designs[name], want):
+            cs.check(torch.equal(f(), w), f"{label}: {name} differs from "
+                                          "the shipped stream_spmv")
+        return [cs.graph_ms(f) for f in designs[name]]
+
+    table = sm.ddsum.levels[0].table
+    for name, (whole, level1) in in_turns(designs, design_ms).items():
+        cs.log(f"stream_spmv {label} {prec} {name}: {whole:.4f} ms per "
+               f"SpMV, level 1 {level1:.4f} ms (CUDA graph; "
+               f"{sm.ddsum.in_positions:,} positions, "
+               f"{int(table.run_start.shape[0]):,} runs, "
+               f"{'narrow' if sm.prod.lcol is not None else 'int32'} "
+               "columns)")
 
 
 if __name__ == "__main__":

@@ -49,8 +49,8 @@ from torch_cases import (CSR_CASES, PLAN_CASES, PRODUCT_CASES,
                                SELL_CASES, SPMV_CASES, TRACEABLE_CASES,
                                assert_deep_equal, assert_rows_close,
                                dest_chunked, gather_pipeline_spmv,
-                               general_targets, random_coo, spmv_inputs,
-                               traceable_case)
+                               general_targets, random_coo, random_products,
+                               spmv_inputs, traceable_case)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -268,18 +268,31 @@ def test_sums_through_a_map_on_card(case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(SPMV_CASES))
 def test_stream_spmv_bit_equal_on_card(case):
+    """One `stream_spmv`: K3 as products on level 1, through its map on
+    each deeper level, one gather, and no K1 nor K3 in place; bit for bit
+    K1 followed by K3 in place, and the pipeline that gathered every level
+    first."""
     _needs_card()
     coo, sm, kw, precision, x, y = spmv_inputs(case, "cuda")
-    before = (stream_sum.launches, stream_sum.src_launches, permute.launches)
+    counters = ("ell_spmv", "stream_sum", "stream_sum_prod",
+                "stream_sum_src", "permute")
+    before = launch_counts()
     got = stream_spmv(sm, x, y)
     torch.cuda.synchronize()
+    after = launch_counts()
     deeper = len(sm.ddsum.levels) - 1
-    assert (stream_sum.launches - before[0], stream_sum.src_launches
-            - before[1], permute.launches - before[2]) == (1, deeper, 1)
+    assert {k: after[k] - before[k] for k in counters} == {
+        "ell_spmv": 0, "stream_sum": 0, "stream_sum_prod": 1,
+        "stream_sum_src": deeper, "permute": 1}
     want = gather_pipeline_spmv(coo, sm, kw, precision, x, y, "cuda",
                                  k1=ell_spmv, gather=permute.apply_permute,
                                  sums=stream_sum.stream_sum)
     assert torch.equal(got, want)
+    xd = x.to(sm.values.dtype)
+    two_launches = stream_sum.apply_stream_sum(sm.ddsum,
+                                               ell_spmv(sm.prod, xd))
+    assert torch.equal(stream_sum.apply_stream_sum(
+        sm.ddsum, stream_sum.Products(sm.prod, xd)), two_launches)
 
 
 @pytest.mark.cuda
@@ -297,6 +310,29 @@ def test_stream_sum_kernel_matches_plain_on_card(dtype):
     torch.cuda.synchronize()
     assert stream_sum.launches == before + 1
     assert torch.equal(got, stream_sum.stream_sum_torch(lv.table, stream))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("narrow", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stream_sum_products_kernel_matches_plain_on_card(dtype, narrow):
+    """K3 reading level 1 as products (`stream_sum_prod_*`) on a chunked
+    plan, in narrow and int32 columns: bit for bit its plain version and K1
+    followed by K3 in place, with NaNs in the gaps' values, never read."""
+    _needs_card()
+    dest, n, cap, starts = dest_chunked(3)()
+    plan = stream_sum.build_stream_sum(dest, n, chunk_starts=starts)
+    table = plan.levels[0].table.to("cuda")
+    prod = random_products(plan, dtype, narrow, gap_value=np.nan,
+                           device="cuda")
+    before = (stream_sum.product_launches, stream_sum.launches)
+    got = stream_sum.stream_sum(table, prod)
+    torch.cuda.synchronize()
+    assert (stream_sum.product_launches, stream_sum.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got, stream_sum.stream_sum_torch(table, prod))
+    assert torch.equal(got, stream_sum.stream_sum(
+        table, ell_spmv(prod.ell, prod.x)))
 
 
 @pytest.mark.cuda
@@ -428,8 +464,8 @@ SHARDED_CASES = ["ell", "ell_diag", "ell_f32", "csr", "csr_diag",
 def test_sharded_spmv_on_card(card_pool, case):
     """The sharded y against the one-device y on the card: ELL and CSR bit
     for bit, the stream format (each rank its own plan) against the oracle
-    per row; K1 (and, for the stream, K3 and the gather) launched on every
-    rank."""
+    per row; K1 (for the stream, K3 as products and the gather) launched
+    on every rank."""
     from ellspmv_tpu_torch.ops.dispatch import spmv
     from ellspmv_tpu_torch.parallel.spmv import run_spmv, shard_matrix
     from ellspmv_tpu_torch.parallel.stream import shard_stream
@@ -450,7 +486,7 @@ def test_sharded_spmv_on_card(card_pool, case):
         got = run_spmv(card_pool, sm, torch.from_numpy(x),
                        torch.from_numpy(y), launches=launches)
         assert_rows_close(got.double().numpy(), coo, x, y, precision)
-        assert all(c["stream_sum"] >= 1 and c["permute"] >= 1
+        assert all(c["stream_sum_prod"] >= 1 and c["permute"] >= 1
                    for c in launches)
     else:
         conv = ell_from_coo if fmt == "ell" else csr_from_coo
@@ -462,7 +498,7 @@ def test_sharded_spmv_on_card(card_pool, case):
         got = run_spmv(card_pool, sm, xt, yt, launches=launches)
         want = spmv(mat.to("cuda"), xt.cuda(), yt.cuda()).cpu()
         assert torch.equal(got, want)
-    assert all(c["ell_spmv"] >= 1 for c in launches)
+        assert all(c["ell_spmv"] >= 1 for c in launches)
 
 
 @pytest.mark.cuda
@@ -501,15 +537,17 @@ def test_captured_chained_over_ranks_on_card(card_pool, fmt):
     over the ranks: the loop through ``sharded_spmv_fn`` (replays of CUDA
     graphs that hold the allgather over NCCL; launched eagerly on gloo
     ranks sharing the card) against the loop launched eagerly, bit for
-    bit, and for ELL and CSR against the one-device captured loop; K1
-    counted through the replays on every rank."""
+    bit, and for ELL and CSR against the one-device captured loop; K1 (K3
+    as products for the stream) counted through the replays on every
+    rank."""
     from ellspmv_tpu_torch.bench.harness import run_chained
     sm, mat, x = _sharded_case(fmt, card_pool.world)
     iters = 2 * CHAINED_BLOCK + 5
     launches = []
     got = run_chained(card_pool, sm, x, iters, launches=launches)
     assert torch.equal(got, run_chained(card_pool, sm, x, iters, eager=True))
-    assert all(c["ell_spmv"] >= iters for c in launches)
+    kernel = "ell_spmv" if mat is not None else "stream_sum_prod"
+    assert all(c[kernel] >= iters for c in launches)
     if mat is not None:
         operand, fn = traceable_spmv(mat.to("cuda"))
         xc = x.cuda()

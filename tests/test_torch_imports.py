@@ -83,7 +83,8 @@ print(json.dumps({"modules": names, "bad": bad,
                   "streamed": streamed.tolist(),
                   "sold": sold.tolist(), "csred": csred.tolist(),
                   "hybrid": hybrid.tolist(), "hub": hub.hub is not None,
-                  "stream_launches": permute.launches + stream_sum.launches,
+                  "stream_launches": (permute.launches + stream_sum.launches
+                                      + stream_sum.product_launches),
                   "chosen": dia._auto_choice,
                   "probe_launches": ell_cuda.probe_launches,
                   "native_after_import": native_after_import,

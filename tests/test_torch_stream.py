@@ -45,7 +45,7 @@ from tests.conftest import random_coo
 from torch_cases import (PLAN_CASES, PRODUCT_CASES, SPMV_CASES,
                                dest_long_rows, dest_random,
                                gather_pipeline_spmv, general_targets,
-                               rng_coo, spmv_inputs)
+                               random_products, rng_coo, spmv_inputs)
 
 # Per-row tolerance of stream_spmv against the oracle, relative to
 # sum |a*x| + |d*x| + |y|: fp64 is native (summation order alone differs),
@@ -424,6 +424,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     src = torch.from_numpy(stream_sum.position_map(lv))
     v = torch.from_numpy(np.random.RandomState(13).randn(lv.in_len))
     before = (permute.launches, stream_sum.launches, stream_sum.src_launches)
+    before_products = stream_sum.product_launches
     s = permute.apply_permute(src, v)
     assert torch.equal(s, permute.apply_permute_torch(src, v))
     out = stream_sum.stream_sum(lv.table, s)
@@ -435,8 +436,12 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     assert got.data_ptr() == buffer[3:].data_ptr()
     assert torch.equal(buffer[3:-2], out)
     assert buffer[:3].isnan().all() and buffer[-2:].isnan().all()
+    prod = random_products(plan, torch.float64, narrow=True)
+    got = stream_sum.stream_sum(lv.table, prod)
+    assert torch.equal(got, stream_sum.stream_sum_torch(lv.table, prod))
     assert (permute.launches, stream_sum.launches,
             stream_sum.src_launches) == before
+    assert stream_sum.product_launches == before_products
 
 
 @pytest.mark.parametrize("case", ["src_dtype", "payload_dtype", "shape",
@@ -465,14 +470,24 @@ def test_permute_wrapper_refuses(case):
 
 @pytest.mark.parametrize("case", ["dtype", "table_dtype", "mixed_device",
                                   "meta_device", "src_dtype", "src_device",
-                                  "out_shape", "out_dtype"])
+                                  "out_shape", "out_dtype", "prod_dtype",
+                                  "prod_x_dtype", "prod_x_shape",
+                                  "prod_x_device", "prod_rowsize",
+                                  "prod_colidx_dtype", "prod_lbase_shape",
+                                  "prod_src", "prod_out_dtype"])
 def test_stream_sum_wrapper_refuses(case):
     dest, n, cap, starts = dest_random()
-    lv = stream_sum.build_stream_sum(dest, n).levels[0]
+    plan = stream_sum.build_stream_sum(dest, n)
+    lv = plan.levels[0]
     table = lv.table
     stream = torch.zeros(lv.in_rows * 128, dtype=torch.float64)
     src = out = None
     err = ValueError
+    if case.startswith("prod"):
+        # products of one of each column layout
+        stream = random_products(plan, torch.float64,
+                                 narrow=case != "prod_colidx_dtype")
+        ell = stream.ell
     if case == "dtype":
         stream, err = stream.to(torch.bfloat16), TypeError
     elif case == "table_dtype":
@@ -488,8 +503,25 @@ def test_stream_sum_wrapper_refuses(case):
                     else (src.to("meta"), ValueError))
     elif case == "out_shape":
         out = torch.empty(lv.out_len + 1, dtype=torch.float64)
-    else:
+    elif case in ("out_dtype", "prod_out_dtype"):
         out, err = torch.empty(lv.out_len, dtype=torch.float32), TypeError
+    elif case == "prod_dtype":
+        ell.values, err = ell.values.to(torch.bfloat16), TypeError
+    elif case == "prod_x_dtype":
+        stream.x, err = stream.x.float(), TypeError
+    elif case == "prod_x_shape":
+        stream.x = torch.cat([stream.x, stream.x[:1]])
+    elif case == "prod_x_device":
+        stream.x = stream.x.to("meta")
+    elif case == "prod_rowsize":
+        stream.ell = dataclasses.replace(
+            ell, values=ell.values.expand(2, -1).contiguous())
+    elif case == "prod_colidx_dtype":
+        ell.colidx, err = ell.colidx.long(), TypeError
+    elif case == "prod_lbase_shape":
+        ell.lbase = ell.lbase[:-1]
+    elif case == "prod_src":
+        src = torch.from_numpy(stream_sum.position_map(lv))
     with pytest.raises(err):
         stream_sum.stream_sum(table, stream, src, out)
 
@@ -731,6 +763,54 @@ def test_stream_spmv_bit_equal_to_the_gather_pipeline(case):
     got = stream_spmv(sm, x, y)
     want = gather_pipeline_spmv(coo, sm, kw, precision, x, y)
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("columns", ["narrow", "int32"])
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_products_equal_k1_then_sums_in_place(case, columns):
+    """K3's plain version reading level 1 as the stream format's products
+    (each value times its gathered x) is bit for bit K1's plain version
+    over the products, then the sums in place, on level 1 and through the
+    whole plan; in the narrow column layout and in int32 columns."""
+    coo, sm, kw, precision, x, _ = spmv_inputs(case)
+    prod = sm.prod
+    assert prod.lcol is not None
+    if columns == "int32":
+        prod = dataclasses.replace(prod, lcol=None, lbase=None)
+    x = x.to(sm.values.dtype)
+    plan = sm.ddsum
+    products = stream_sum.Products(prod, x)
+    stream = ell_spmv_torch(prod, x)
+    got = stream_sum.stream_sum_torch(plan.levels[0].table, products)
+    want = stream_sum.stream_sum_torch(plan.levels[0].table, stream)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(stream_sum.apply_stream_sum(plan, products),
+                       stream_sum.apply_stream_sum(plan, stream))
+
+
+@pytest.mark.parametrize("narrow", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("case", ["chunked3", "deep", "long_rows"])
+def test_products_on_plans_equal_k1_then_sums(case, dtype, narrow):
+    """On plans with column chunks, several levels and long rows: the
+    products form against K1's plain version then the sums in place, bit
+    for bit, in fp64, f32 and bf16 storage, narrow and int32 columns; NaNs
+    planted in the alignment gaps' values change nothing, as no run reads
+    a gap."""
+    dest, n, cap, starts = PLAN_CASES[case]()
+    plan = stream_sum.build_stream_sum(dest, n, cap=cap, chunk_starts=starts)
+    table = plan.levels[0].table
+    prod = random_products(plan, dtype, narrow)
+    stream = ell_spmv_torch(prod.ell, prod.x)
+    want = stream_sum.stream_sum_torch(table, stream)
+    assert torch.equal(stream_sum.stream_sum_torch(table, prod), want)
+    whole = stream_sum.apply_stream_sum(plan, stream)
+    assert torch.equal(stream_sum.apply_stream_sum(plan, prod), whole)
+    planted = random_products(plan, dtype, narrow, gap_value=np.nan)
+    assert planted.ell.values.isnan().any()
+    assert torch.equal(stream_sum.stream_sum_torch(table, planted), want)
+    assert torch.equal(stream_sum.apply_stream_sum(plan, planted), whole)
 
 
 @pytest.mark.parametrize("how", ["dropped", "moved to a gap"])

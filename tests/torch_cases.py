@@ -2,8 +2,9 @@
 package, shared by the tests that hold the port against the JAX package
 (``test_torch_stream.py``) and the card tests (``test_torch_card.py``),
 which run where jax is not installed: sum plans (`PLAN_CASES`), stream
-SpMV cases (`SPMV_CASES`), a gather's targets, the stream pipeline that
-gathers every level first, CSR and SELL cases, one square matrix of each
+SpMV cases (`SPMV_CASES`), a gather's targets, random products over a
+plan's level 1 (`random_products`), the stream pipeline that gathers every
+level first, CSR and SELL cases, one square matrix of each
 format for the traceable SpMV (`TRACEABLE_CASES`), `random_coo`, the
 port's copy of ``tests/conftest.random_coo`` (the same draws), and
 `assert_deep_equal` for plans built two ways."""
@@ -16,7 +17,7 @@ import torch
 from ellspmv_tpu_torch.formats.coo import CooMatrix
 from ellspmv_tpu_torch.formats.csr import csr_from_coo
 from ellspmv_tpu_torch.formats.dia import dia_from_coo
-from ellspmv_tpu_torch.formats.ell import ell_from_coo
+from ellspmv_tpu_torch.formats.ell import ell_from_coo, ell_from_row_major
 from ellspmv_tpu_torch.formats.hybrid import hybrid_from_coo
 from ellspmv_tpu_torch.formats.sell import sell_from_coo
 from ellspmv_tpu_torch.formats.stream import (column_order_products,
@@ -157,6 +158,28 @@ PLAN_CASES = {
     "chunked3": dest_chunked(3),
     "chunked4": dest_chunked(4),
 }
+
+def random_products(plan, dtype, narrow: bool, seed: int = 24,
+                    gap_value: float = 0.0, device="cpu"):
+    """Random products over level 1 of `plan`, in its position order, as
+    the stream format stores them: a rowsize-1 ELL with values stored in
+    `dtype` and held in its compute type (float32 for bfloat16), and an x
+    in that type. Columns over 40,000 columns take the narrow layout, over
+    300,000 the int32 one; the alignment gaps hold `gap_value`."""
+    rng = np.random.RandomState(seed)
+    p = plan.in_positions
+    m = 40_000 if narrow else 300_000
+    values = rng.randn(p)
+    values[stream_sum.position_map(plan.levels[0]) < 0] = gap_value
+    ell = ell_from_row_major(rng.randint(0, m, (p, 1)).astype(np.int32),
+                             values[:, None], None, p, m, p, dtype, device,
+                             "stream")
+    assert (ell.lcol is not None) == narrow
+    compute = torch.float32 if dtype == torch.bfloat16 else dtype
+    ell.values = ell.values.to(compute)
+    x = torch.from_numpy(rng.rand(m)).to(device, compute)
+    return stream_sum.Products(ell, x)
+
 
 def general_targets():
     rng = np.random.RandomState(11)
