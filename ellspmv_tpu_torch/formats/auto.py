@@ -107,7 +107,8 @@ def _choose(coo, separate_diagonal, sort_rows, value_dtype, index_dtype,
                                                  stream_seconds_estimate)
     from ellspmv_tpu_torch.formats.dia import dia_from_coo
     from ellspmv_tpu_torch.formats.ell import (ell_from_coo,
-                                               index_bytes_estimate)
+                                               index_bytes_estimate,
+                                               narrow_columns_fit)
     from ellspmv_tpu_torch.formats.sell import sell_from_coo, sell_shape
     from ellspmv_tpu_torch.formats.stream import (compute_dtype,
                                                   stream_from_layout,
@@ -172,11 +173,14 @@ def _choose(coo, separate_diagonal, sort_rows, value_dtype, index_dtype,
                                    f"split ({_ms(sell_price)})")
 
     vb = torch.empty(0, dtype=dtype).element_size()
-    with span("formats.price.ell"):
+    with span("formats.price.ell") as s:
         ib = np.dtype(config.select_index_dtype(n, m, nnz,
                                                 index_dtype)).itemsize
-        ell_bytes = (ellsize * vb + 2 * n * vb + index_bytes_estimate(
-            expanded.rowidx, expanded.colidx, n, m, rowsize, ib))
+        narrow = narrow_columns_fit(expanded.rowidx, expanded.colidx, n, m,
+                                    rowsize)
+        ell_bytes = (ellsize * vb + 2 * n * vb
+                     + index_bytes_estimate(n, rowsize, ib, narrow))
+        s.set(rowsize=rowsize, slots=ellsize, narrow=narrow)
     why_ell = None
     if allow_dia and separate_diagonal is False and nnz >= 3 * n:
         dia = dia_from_coo(coo, value_dtype=dtype)    # on the host

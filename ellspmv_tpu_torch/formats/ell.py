@@ -27,8 +27,9 @@ spans fewer than `NARROW_SPAN` columns, padding slots included, the matrix
 also carries each block's least column (`lbase`, in the index type) and
 each slot's column as a 16-bit offset from it (`lcol`, slot-major like
 `colidx`), and the kernel reads those: 2 bytes a slot instead of 4 or 8.
-Every constructor builds it through `ell_from_row_major` (`ell_from_coo`,
-`ell_from_jax_arrays` and the stream format's products). The rule is
+Every constructor builds it with `narrow_columns` (`ell_from_coo` in its
+own build span, `ell_from_row_major` for `ell_from_jax_arrays` and the
+stream format's products). The rule is
 written once, in `narrow_bases`: `narrow_columns` applies it to the built
 rows, `narrow_columns_fit` to COO triplets (for the chooser's ELL price),
 `narrow_rows_fit` to rows' counts and extremes (for the SELL price) and
@@ -206,14 +207,14 @@ def narrow_rows_fit(counts: np.ndarray, lo: np.ndarray, hi: np.ndarray,
         -(-p // LBLOCK)) is not None
 
 
-def index_bytes_estimate(rowidx: np.ndarray, colidx: np.ndarray,
-                         num_rows: int, num_columns: int, rowsize: int,
-                         index_size: int) -> int:
-    """Bytes of column indices K1 will read on the ELLPACK of these
-    triplets (rows not padded): 2 per slot and one `index_size` base per
-    block where `narrow_columns_fit`, else `index_size` per slot."""
+def index_bytes_estimate(num_rows: int, rowsize: int, index_size: int,
+                         narrow: bool) -> int:
+    """Bytes of column indices K1 will read on an ELLPACK of `num_rows`
+    rows (not padded) and `rowsize` slots: 2 per slot and one
+    `index_size` base per block where it is `narrow` (as
+    `narrow_columns_fit` answers), else `index_size` per slot."""
     slots = num_rows * rowsize
-    if narrow_columns_fit(rowidx, colidx, num_rows, num_columns, rowsize):
+    if narrow:
         return 2 * slots + -(-num_rows // LBLOCK) * index_size
     return index_size * slots
 
@@ -229,7 +230,14 @@ def ell_from_row_major(colidx: np.ndarray, values: np.ndarray,
     build of format `fmt`, which the arrays are part of."""
     with span(f"formats.build.{fmt}"):
         narrow = narrow_columns(colidx)
+    return _on_device(colidx, values, diag, num_rows, num_columns,
+                      num_nonzeros, dtype, device, fmt, narrow)
 
+
+def _on_device(colidx, values, diag, num_rows, num_columns, num_nonzeros,
+               dtype, device, fmt, narrow) -> EllMatrix:
+    """`ell_from_row_major`'s copy to `device`, with the narrow layout
+    `narrow_columns` found (or None)."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -259,7 +267,7 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
     if row_tile <= 0 or row_tile % ROW_TILE:
         raise ValueError(f"row_tile {row_tile} is not a positive multiple "
                          f"of {ROW_TILE}")
-    with span("formats.build.ell"):
+    with span("formats.build.ell") as build:
         coo = coo.expand_symmetry()
         n, m = coo.num_rows, coo.num_columns
         nnz_total = coo.num_nonzeros
@@ -321,9 +329,12 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
             d = np.zeros(n_pad, host_dt)
             d[:len(diag)] = diag.astype(host_dt)
             diag = d
+        narrow = narrow_columns(colidx)
+        build.set(rowsize=rowsize, slots=n * rowsize, nonzeros=nnz_total,
+                  narrow=narrow is not None)
 
-    return ell_from_row_major(colidx, values, diag, n, m, nnz_total, dtype,
-                              device)
+    return _on_device(colidx, values, diag, n, m, nnz_total, dtype, device,
+                      "ell", narrow)
 
 
 def ell_from_jax_arrays(colidx, values, diag, num_rows: int,

@@ -12,12 +12,13 @@ The cell runs as a traced run of the benchmark, through
 ``spmv_bench/harness.run_cell``. With ``--record 1`` the run is inside
 ``utils/timing.recording()``: no span opens in the window, the check or
 the reference, so the spans are those of the set-up. The script prints a
-line for each span name (calls, total seconds, self seconds), the split of
-the set-up (`convert_split`), and how much of the root span its children
-cover. With ``--record 0`` nothing is recorded: the runs of both kinds give
-the cost of recording. Either way it times one span in this process, with
-recording off and on (`span_ns`). The last line of standard output is one
-JSON object.
+line for each span name (calls, total seconds, self seconds, and the
+last call's attributes, among them the padding of the ELL and of the SELL
+split), the split of the set-up (`convert_split`), and how much of the
+root span its children cover. With ``--record 0`` nothing is recorded:
+the runs of both kinds give the cost of recording. Either way it times
+one span in this process, with recording off and on (`span_ns`). The
+last line of standard output is one JSON object.
 """
 
 from __future__ import annotations
@@ -143,8 +144,10 @@ def main(argv=None) -> int:
            "span_ns": span_ns()}
     if rec is not None:
         for name, calls, total, own in span_table(rec):
+            attrs = rec.find(name)[-1].attrs
             print(f"span {name}: {calls} calls, {total:.6f} s, self "
-                  f"{own:.6f} s", flush=True)
+                  f"{own:.6f} s" + (f", last {attrs}" if attrs else ""),
+                  flush=True)
         root, cover = root_cover(rec)
         out.update(convert_split(rec), root_s=root, root_cover=cover,
                    spans=len(rec.spans),

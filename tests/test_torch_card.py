@@ -49,8 +49,9 @@ from torch_cases import (CSR_CASES, PLAN_CASES, PRODUCT_CASES,
                                SELL_CASES, SPMV_CASES, TRACEABLE_CASES,
                                assert_deep_equal, assert_rows_close,
                                dest_chunked, gather_pipeline_spmv,
-                               general_targets, random_coo, random_products,
-                               spmv_inputs, traceable_case)
+                               general_targets, geometric_coo, random_coo,
+                               random_products, spmv_inputs,
+                               traceable_case)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -108,6 +109,31 @@ def test_narrow_kernel_matches_plain_on_card(layout):
     want = ell_cuda.ell_spmv_torch(ell, x)
     torch.testing.assert_close(got, want, rtol=1e-13,
                                atol=1e-13 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_k1_on_a_geometric_graph_on_card():
+    """K1 on DIMACS10's random geometric graph numbered by grid cell, as
+    the chooser sends it to ELLPACK: rows of about Poisson lengths padded
+    to the longest, narrow columns, one row emptied."""
+    _needs_card()
+    coo = geometric_coo(14, empty_row=100)
+    counts = np.bincount(coo.rowidx, minlength=coo.num_rows)
+    ell = ell_from_coo(coo, sort_rows=True, device="cuda")
+    assert ell.lcol is not None and counts[100] == 0
+    assert ell.rowsize == counts.max() > 2 * counts.mean()
+    rng = np.random.RandomState(14)
+    x, y = rng.rand(coo.num_rows), rng.randn(coo.num_rows)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    before = ell_cuda.launches
+    got = ell_spmv(ell, xd, yd)
+    torch.cuda.synchronize()
+    assert ell_cuda.launches == before + 1
+    assert float(got[100]) == y[100]
+    want = ell_cuda.ell_spmv_torch(ell, xd, yd)
+    assert_rows_close(got.cpu().numpy(), coo, x, y, "float64",
+                      want=want.cpu().numpy())
+    assert_rows_close(got.cpu().numpy(), coo, x, y, "float64")
 
 
 # -- K6: the dot kernel -----------------------------------------------------

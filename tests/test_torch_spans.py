@@ -296,6 +296,8 @@ def test_the_script_splits_a_run_of_the_harness(capsys):
                      for line in lines)
         if record:
             assert keys <= out.keys() and tabled
+            assert any(line.startswith("span formats.price.ell: 1 calls")
+                       and "'narrow': True" in line for line in lines)
             assert out["format"] == "dia" and out["spans"] >= 5
             assert 0 < out["root_s"] <= out["convert_s"]
             assert out["convert_build_s"] > 0 and out["upload_s"] == 0.0

@@ -5,7 +5,8 @@ which run where jax is not installed: sum plans (`PLAN_CASES`), stream
 SpMV cases (`SPMV_CASES`), a gather's targets, random products over a
 plan's level 1 (`random_products`), the stream pipeline that gathers every
 level first, CSR and SELL cases, one square matrix of each
-format for the traceable SpMV (`TRACEABLE_CASES`), `random_coo`, the
+format for the traceable SpMV (`TRACEABLE_CASES`), the benchmark's
+random geometric graph (`geometric_coo`), `random_coo`, the
 port's copy of ``tests/conftest.random_coo`` (the same draws), and
 `assert_deep_equal` for plans built two ways."""
 
@@ -71,6 +72,22 @@ def random_coo(rng, n, m, nnz, symmetric=False, with_dups=False,
     return CooMatrix(n, m, rows, cols, vals,
                      "symmetric" if symmetric else "general",
                      "pattern" if pattern else "real")
+
+
+def geometric_coo(scale: int, empty_row: int | None = None) -> CooMatrix:
+    """The benchmark's random geometric graph (``spmv_bench/generators/
+    rgg.py``, DIMACS10's definition) on the CPU: 2^scale vertices
+    numbered by grid cell, so rows of about Poisson lengths whose columns
+    lie near the diagonal. `empty_row`: that vertex's edges dropped, so its
+    row (and column) is empty."""
+    from spmv_bench.generators import rgg
+    g = rgg.generate({"scale": scale, "radius_factor": 0.55}, 0, "cpu")
+    rows, cols, vals = g.rows.numpy(), g.cols.numpy(), g.values.numpy()
+    if empty_row is not None:
+        keep = (rows != empty_row) & (cols != empty_row)
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    return CooMatrix(g.num_rows, g.num_rows, rows.astype(np.int32),
+                     cols.astype(np.int32), vals)
 
 
 def assert_rows_close(got, coo, x, y, precision, want=None):
