@@ -1387,6 +1387,42 @@ def k1_forms(label, ell, x):
     return mean["narrow"], mean["wide"]
 
 
+def k2_general_form(label, dia, x, want, prec, peak_bw) -> dict:
+    """K2 on a `symmetric` DIA in its general form too (the same matrix with
+    the mark cleared, every diagonal read), in turns with the symmetric form
+    (symmetric, general, general, symmetric; `time_ms`): bit for bit the
+    symmetric form's y, held against the plain version `want` on every row,
+    and beside its own bytes' bound. Its ms and bound for the `kernels`
+    line."""
+    import dataclasses
+
+    import torch
+
+    from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
+    from ellspmv_tpu_torch.ops import dia_cuda
+    general = dataclasses.replace(dia, symmetric=False)
+    fns = {"symmetric": lambda: dia_cuda.dia_spmv(dia, x),
+           "general": lambda: dia_cuda.dia_spmv(general, x)}
+    ms = {k: [] for k in fns}
+    for k in ("symmetric", "general", "general", "symmetric"):
+        ms[k].append(time_ms(fns[k]))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    got = fns["general"]()
+    check(torch.equal(got, fns["symmetric"]()),
+          f"{label}: K2's general form disagrees with its symmetric form")
+    rel = dia_row_errors(general, x, None, got, want)
+    check(rel <= TOLERANCE[prec], f"{label}: K2's general form disagrees "
+                                  f"with the plain version: {rel:.3e}")
+    nbytes = estimate_actual_bytes(general, with_y=False)
+    bound_ms, bound_by = _bound(nbytes, 2 * general.diasize, prec, peak_bw)
+    share = 100 * bound_ms / mean["general"]
+    log(f"  {label} K2 forms: symmetric {mean['symmetric']:.4f} ms, general "
+        f"{mean['general']:.4f} ms; the general form's bound {bound_ms:.4f} "
+        f"ms ({nbytes:,} bytes, {bound_by}), {share:.1f}% of it; bit-equal, "
+        f"{rel:.3e} of sum|a*x| from plain")
+    return dict(general_ms=mean["general"], general_bound_ms=bound_ms)
+
+
 def _turns(label, kernel, plain, library=None, library_name="cuSPARSE",
            timer=None):
     """Kernel and plain version in turns (plain, kernel, kernel, plain), the
@@ -1404,7 +1440,8 @@ def _turns(label, kernel, plain, library=None, library_name="cuSPARSE",
 def phase_timing(coo, ell_runs, dia_runs, peak_bw):
     """Each kernel beside its plain version and cuSPARSE at the main paths'
     shapes; the ELL and DIA kernels held against their plain versions on
-    every row at full size."""
+    every row at full size, K2 in both its forms where its DIA is
+    symmetric."""
     import torch
 
     from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
@@ -1450,6 +1487,9 @@ def phase_timing(coo, ell_runs, dia_runs, peak_bw):
             out[name, prec] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                                    max_abs_err=err, bound_ms=bound_ms,
                                    bound_by=bound_by)
+            if name == "dia_spmv" and mat.symmetric:
+                out[name, prec].update(k2_general_form(
+                    f"fem_mesh_2d {prec}", mat, x, want, prec, peak_bw))
     a, b = ell_cuda.probe_inputs("cuda")
     k_ms, p_ms, _ = _turns("fma probe", lambda: ell_cuda.fma_probe(a, b),
                            lambda: ell_cuda.fma_probe_torch(a, b))

@@ -15,7 +15,8 @@ must move, so that every report can also carry the physical share (at most
   rows in the narrow layout, else 4 or 8), x once, the split diagonal when
   there is one, y when given, and the output;
 - K2 (``csrc/dia_spmv.cu``): the diagonals' values (``num_diags *
-  num_rows``), x once, y when given, and the output;
+  num_rows``; of a `symmetric` DIA the offsets >= 0 alone, whose shifted
+  re-reads hit in L2), x once, y when given, and the output;
 - K6 (``csrc/dot.cu``): both vectors once (the 8-byte result is left out);
 - one CG iteration (``models/solvers.cg``): K1 without y, two K6 dots and
   three vector updates, each reading two vectors and writing one;
@@ -242,7 +243,9 @@ def estimate_actual_bytes(matrix, with_y: bool = True) -> int:
             total += matrix.num_rows * sv
     elif isinstance(matrix, DiaMatrix):
         sv = matrix.data.element_size()
-        total = matrix.diasize * sv
+        read = (sum(o >= 0 for o in matrix.offsets) if matrix.symmetric
+                else matrix.num_diags)
+        total = read * matrix.num_rows * sv
     else:
         raise NotImplementedError(
             f"traffic of {type(matrix).__name__} is not yet ported "

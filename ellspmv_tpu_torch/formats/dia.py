@@ -12,6 +12,11 @@ and gives None; callers then use ELL.
 ``data`` is ``(num_diags, num_rows)`` on an explicit device; positions whose
 column ``i + offsets[k]`` falls outside ``[0, num_columns)`` hold 0. The
 offsets stay on the host as a tuple: the kernel takes them by value.
+
+`dia_from_coo` and `dia_from_jax_arrays` mark a matrix `symmetric` when
+its built data shows it (`mirrored`): K2 (``ops/dia_cuda``) then reads
+only the diagonals with offset >= 0. Every diagonal stays stored: the
+plain versions and K8's colour-major copy read the lower ones.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ class DiaMatrix:
     num_rows: int
     num_columns: int
     num_nonzeros: int
+    #: every diagonal -d holds diagonal +d's values bit for bit
+    #: (`mirrored`); False unless the conversion found it so
+    symmetric: bool = False
 
     @property
     def num_diags(self) -> int:
@@ -51,9 +59,7 @@ class DiaMatrix:
 
     def to(self, device) -> "DiaMatrix":
         with upload(device, "dia", self):
-            return DiaMatrix(self.data.to(device), self.offsets,
-                             self.num_rows, self.num_columns,
-                             self.num_nonzeros)
+            return dataclasses.replace(self, data=self.data.to(device))
 
 
 def _put(data: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -64,6 +70,26 @@ def _put(data: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
         return torch.from_numpy(data).to(device).to(dtype)
 
 
+def mirrored(data: np.ndarray, offsets, num_rows: int,
+             num_columns: int) -> bool:
+    """True when the host `data` of a DIA is its own transpose bit for bit:
+    the matrix is square, each offset -d has its +d, and for every d > 0
+    ``data[k(-d), d:]`` equals ``data[k(+d), :n-d]`` as bits and as values.
+    So a NaN, or a +0.0 against a -0.0, gives False."""
+    if num_rows != num_columns or sorted(-o for o in offsets) != sorted(
+            offsets):
+        return False
+    n, at = num_rows, {o: k for k, o in enumerate(offsets)}
+    bits = np.dtype(f"u{data.dtype.itemsize}")
+    for d in offsets:
+        if d > 0:
+            lower, upper = data[at[-d], d:], data[at[d], :n - d]
+            if not (np.array_equal(lower.view(bits), upper.view(bits))
+                    and np.array_equal(lower, upper)):
+                return False
+    return True
+
+
 def dia_from_coo(coo, max_diags: int = 32, value_dtype=None,
                  device="cpu") -> DiaMatrix | None:
     """Convert a CooMatrix to DIA on `device` if it has at most `max_diags`
@@ -71,7 +97,7 @@ def dia_from_coo(coo, max_diags: int = 32, value_dtype=None,
 
     `value_dtype` is a ``--precision`` name or a torch type (default: the
     COO's values' type)."""
-    with span("formats.build.dia"):
+    with span("formats.build.dia") as build:
         coo = coo.expand_symmetry()
         n, m = coo.num_rows, coo.num_columns
         off = coo.colidx.astype(np.int64) - coo.rowidx.astype(np.int64)
@@ -86,8 +112,12 @@ def dia_from_coo(coo, max_diags: int = 32, value_dtype=None,
         data = np.zeros((len(offsets), n), host_dt)
         k = np.searchsorted(offsets, off)
         np.add.at(data, (k, coo.rowidx.astype(np.int64)), coo.values)
-    return DiaMatrix(_put(data, dtype, device),
-                     tuple(int(o) for o in offsets), n, m, coo.num_nonzeros)
+        offsets = tuple(int(o) for o in offsets)
+        # on the host values: bf16 rounds equal values to equal values
+        symmetric = mirrored(data, offsets, n, m)
+        build.set(symmetric=symmetric)
+    return DiaMatrix(_put(data, dtype, device), offsets, n, m,
+                     coo.num_nonzeros, symmetric)
 
 
 def dia_from_jax_arrays(data, offsets, num_rows: int, num_columns: int,
@@ -101,6 +131,7 @@ def dia_from_jax_arrays(data, offsets, num_rows: int, num_columns: int,
         dtype, data = torch.bfloat16, data.astype(np.float32)
     else:
         dtype = config.value_dtype(data.dtype)
-    return DiaMatrix(_put(data, dtype, device),
-                     tuple(int(o) for o in offsets), int(num_rows),
-                     int(num_columns), int(num_nonzeros))
+    offsets = tuple(int(o) for o in offsets)
+    return DiaMatrix(_put(data, dtype, device), offsets, int(num_rows),
+                     int(num_columns), int(num_nonzeros),
+                     mirrored(data, offsets, int(num_rows), int(num_columns)))

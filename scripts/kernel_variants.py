@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time variants of the K1 and K3 kernels' design choices, and the stream
-path's level 1 against the two launches it replaced, on one CUDA card.
+"""Time variants of the K1, K2 and K3 kernels' design choices, the stream
+path's level 1 against the two launches it replaced, and K2's two forms,
+on one CUDA card.
 
 Run from the root of the repository:
 
-    python3 scripts/kernel_variants.py [--graph500-scale 21]
+    python3 scripts/kernel_variants.py [--graph500-scale 21] \
+        [--kernels K1,K2,K3]
 
 Each kernel variant is a copy of one source of ``ellspmv_tpu_torch/csrc/``
 (with the headers beside it) in which one choice of the shipped source is
@@ -29,6 +31,15 @@ against the same with level 1 as K1 over the products and K3 in place
 (the two launches the products form replaced), held bit for bit and timed
 in a CUDA graph, in turns.
 
+K2's variants change the cache hints of its symmetric form. They run in
+fp64 with y, as the chained multiply calls K2, on the benchmark's lynx68
+matrix (``spmv_bench/generators/fem_mesh_2d.py`` with its configuration's
+parameters, seed 1) and on HPCG's 27-point stencil at 128 cubed (the
+cell's second level). On each, the shipped K2 in its symmetric form is then
+timed in turns against its general form (the same matrix with the mark
+cleared), each beside its own bytes' bound (``bench/traffic.py``) at the
+card's peak.
+
 No path of the port runs this; PERF.md records what it measured. Prints
 one line per variant and precision, and the card's name and power limit
 first.
@@ -39,6 +50,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import dataclasses
 import json
 import pathlib
 import re
@@ -52,7 +64,7 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402  (the repository root, put on the path)
 
-K1_SOURCE, K3_SOURCE = "ell_spmv.cu", "stream_sum.cu"
+K1_SOURCE, K2_SOURCE, K3_SOURCE = "ell_spmv.cu", "dia_spmv.cu", "stream_sum.cu"
 _SLOTS = "constexpr int kSlotBatch = 4;"
 _BOUNDS = "__launch_bounds__(kThreads) ell_spmv_kernel("
 # K1 over a grid of 132 SMs x 8 blocks, each striding over the rows
@@ -113,6 +125,33 @@ K1_VARIANTS = {
     "slots 4, grid of 132 SMs x 8 blocks": [
         (_ONE_PAIR, _STRIDING), (_LAST_STORE, _LAST_STORE + " }"),
         (_GRID, _SM_GRID)],
+}
+
+
+# K2's symmetric form: the loads of the terms with offset >= 0 (at row i)
+# and of those with offset < 0 (the shifted re-reads, a line's last use)
+_UPPER = "kSymmetric ? __ldg(p) :"
+_LOWER = "__ldg(data + static_cast<size_t>(num_diags - 1 - d) *"
+_LOWER_LOOP = "#pragma unroll 4\n    for (; d < terms.lower; ++d) {"
+_UPPER_LOOP = "#pragma unroll 4\n  for (; d < num_diags; ++d) {"
+
+
+def _k2_hints(upper: str, lower: str):
+    return [(_UPPER, _UPPER.replace("ldg", upper)),
+            (_LOWER, _LOWER.replace("ldg", lower))]
+
+
+#: name -> [(text, replacement)] of csrc/dia_spmv.cu; the first is the
+#: shipped source.
+K2_VARIANTS = {
+    "both loads through the read-only path (__ldg), unroll 4 (shipped)": [],
+    "re-reads evict-first (__ldcs)": _k2_hints("ldg", "ldcs"),
+    "offsets >= 0 in L2 only (__ldcg)": _k2_hints("ldcg", "ldg"),
+    "both in L2 only (__ldcg)": _k2_hints("ldcg", "ldcg"),
+    "unroll 8": [(_LOWER_LOOP, _LOWER_LOOP.replace("4", "8")),
+                 (_UPPER_LOOP, _UPPER_LOOP.replace("4", "8"))],
+    "unroll 2": [(_LOWER_LOOP, _LOWER_LOOP.replace("4", "2")),
+                 (_UPPER_LOOP, _UPPER_LOOP.replace("4", "2"))],
 }
 
 
@@ -225,6 +264,22 @@ def stream_matrices(graph500_scale: int) -> dict:
     return out
 
 
+def dia_matrices() -> dict:
+    """name -> host COO of each symmetric DIA matrix: the lynx68 cell's
+    (seed 1), and HPCG's stencil at 128 cubed."""
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.models.generators import hpcg_27pt
+    from spmv_bench.generators import fem_mesh_2d
+    config = json.loads((REPO / "spmv_bench" / "configs" /
+                         "lynx68.json").read_text())
+    m = fem_mesh_2d.generate(config["params"], 1, "cuda")
+    return {"lynx68": CooMatrix(m.num_rows, m.num_rows,
+                               m.rows.int().cpu().numpy(),
+                               m.cols.int().cpu().numpy(),
+                               m.values.cpu().numpy()),
+            "hpcg_27pt(128^3)": hpcg_27pt(128)}
+
+
 def main() -> int:
     import torch
 
@@ -235,17 +290,28 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--graph500-scale", type=int, default=21)
+    parser.add_argument("--kernels", default="K1,K2,K3",
+                        help="the kernels whose variants are timed")
     args = parser.parse_args()
+    kernels = set(args.kernels.split(","))
     card = cs.phase_device()
     cs.phase_build()
-    jobs = {**{("K1", n): (K1_SOURCE, e) for n, e in K1_VARIANTS.items()},
-            **{("K3", n): (K3_SOURCE, e)
-               for n, (e, _) in K3_VARIANTS.items()}}
+    variants = {("K1", n): (K1_SOURCE, e) for n, e in K1_VARIANTS.items()}
+    variants.update({("K2", n): (K2_SOURCE, e)
+                     for n, e in K2_VARIANTS.items()})
+    variants.update({("K3", n): (K3_SOURCE, e)
+                     for n, (e, _) in K3_VARIANTS.items()})
+    jobs = {key: job for key, job in variants.items() if key[0] in kernels}
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         paths = {key: pool.submit(build_variant, key[1], *job)
                  for key, job in jobs.items()}
         libs = {key: ctypes.CDLL(str(p.result())) for key, p in paths.items()}
     cs.log(f"built {len(libs)} variants")
+    if "K2" in kernels:
+        time_k2(libs, dia_matrices())
+    if not kernels & {"K1", "K3"}:
+        cs.log(f"variants timed on {card}")
+        return 0
     coo = fem_mesh_2d(1440)
     x64 = np.random.RandomState(1).rand(coo.num_rows)
     layouts = {label: stream_layout(pl)
@@ -258,14 +324,68 @@ def main() -> int:
             sm = stream_from_layout(layout, prec, "cuda")
             px = torch.from_numpy(np.random.RandomState(2).rand(
                 layout.num_columns)).cuda().to(sm.values.dtype)
-            if label == "config3":
+            if label == "config3" and "K1" in kernels:
                 time_k1(libs, prec, ((ell, x), (sm.prod, px)))
-            time_k3(libs, prec, label, sm, px)
-            time_level1(prec, label, sm, px)
+            if "K3" in kernels:
+                time_k3(libs, prec, label, sm, px)
+                time_level1(prec, label, sm, px)
             del sm
         del ell
     cs.log(f"variants timed on {card}")
     return 0
+
+
+def time_k2(libs, matrices):
+    """K2's variants on each symmetric DIA (`dia_matrices`), then the
+    shipped K2 in its symmetric and its general form, in turns, each beside
+    its own bytes' bound at the card's peak."""
+    import torch
+
+    from ellspmv_tpu_torch import config
+    from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
+    from ellspmv_tpu_torch.formats.dia import dia_from_coo
+    from ellspmv_tpu_torch.ops import dia_cuda
+    peak = config.hbm_peak_bytes_per_s("cuda")
+    for label in list(matrices):
+        sym = dia_from_coo(matrices.pop(label), device="cuda")
+        cs.check(sym.symmetric, f"K2 {label}: the DIA is not symmetric")
+        rng = np.random.RandomState(3)
+        x = torch.from_numpy(rng.rand(sym.num_rows)).cuda()
+        y = torch.from_numpy(rng.randn(sym.num_rows)).cuda()
+        want = dia_cuda.dia_spmv(sym, x, y)
+
+        def k2(name):
+            symbol, args, out = dia_cuda.kernel_call(sym, x, y)
+            fn = entry(libs["K2", name], symbol, dia_cuda.SPMV_ARGTYPES)
+            err = fn(*args)
+            cs.check(err == 0, f"K2 variant {name}: launch error {err}")
+            return out
+
+        def k2_ms(name):
+            cs.check(torch.equal(k2(name), want),
+                     f"K2 variant {name} differs from the shipped K2")
+            return cs.graph_ms(lambda: k2(name))
+
+        bound = estimate_actual_bytes(sym) / peak * 1e3
+        for name, ms in in_turns(K2_VARIANTS, k2_ms).items():
+            cs.log(f"K2 {label} float64 {name}: {ms:.4f} ms, "
+                   f"{bound / ms:.1%} of its bytes' bound (CUDA graph)")
+        forms = {"symmetric form": sym,
+                 "general form": dataclasses.replace(sym, symmetric=False)}
+
+        def form_ms(name):
+            cs.check(torch.equal(dia_cuda.dia_spmv(forms[name], x, y), want),
+                     f"K2 {label}: the {name} differs from the shipped K2")
+            return cs.graph_ms(lambda: dia_cuda.dia_spmv(forms[name], x, y))
+
+        for name, ms in in_turns(forms, form_ms).items():
+            nbytes = estimate_actual_bytes(forms[name])
+            least = nbytes / peak * 1e3
+            cs.log(f"K2 {label} float64 {name}: {ms:.4f} ms, "
+                   f"{nbytes / 1e9:.4f} GB, its bytes' bound {least:.4f} ms "
+                   f"({least / ms:.1%}; CUDA graph, {sym.num_rows:,} rows, "
+                   f"{sym.num_diags} diagonals)")
+        del sym, forms, want
 
 
 def time_k1(libs, prec, cases):

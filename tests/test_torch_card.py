@@ -37,10 +37,10 @@ from ellspmv_tpu_torch.formats.sell import kernel_launches as sell_launches
 from ellspmv_tpu_torch.formats.sell import sell_from_coo, sell_spmv
 from ellspmv_tpu_torch.formats.stream import column_order_products, stream_spmv
 from ellspmv_tpu_torch.models.generators import (banded_random, fem_mesh_2d,
-                                                 power_law)
+                                                 hpcg_27pt, power_law)
 from ellspmv_tpu_torch.models.solvers import STEPS_AHEAD, cg, cg_eager
-from ellspmv_tpu_torch.ops import (_build, dot_cuda, ell_cuda, permute,
-                                   stream_sum)
+from ellspmv_tpu_torch.ops import (_build, dia_cuda, dot_cuda, ell_cuda,
+                                   permute, stream_sum)
 from ellspmv_tpu_torch.ops.csr import csr_spmv, csr_spmv_segment, to_sell
 from ellspmv_tpu_torch.ops.dispatch import traceable_spmv
 from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv
@@ -48,7 +48,8 @@ from ellspmv_tpu_torch.parallel.launch import kernel_launches as launch_counts
 from torch_cases import (CSR_CASES, PLAN_CASES, PRODUCT_CASES,
                                SELL_CASES, SPMV_CASES, TRACEABLE_CASES,
                                assert_deep_equal, assert_rows_close,
-                               dest_chunked, gather_pipeline_spmv,
+                               dest_chunked, diagonal_coo,
+                               gather_pipeline_spmv,
                                general_targets, geometric_coo, random_coo,
                                random_products, spmv_inputs,
                                traceable_case)
@@ -134,6 +135,70 @@ def test_k1_on_a_geometric_graph_on_card():
     assert_rows_close(got.cpu().numpy(), coo, x, y, "float64",
                       want=want.cpu().numpy())
     assert_rows_close(got.cpu().numpy(), coo, x, y, "float64")
+
+
+# -- K2: the DIA kernel's symmetric form ------------------------------------
+
+DIA_SYMMETRIC_CASES = {"fem_mesh_2d(40)": lambda: fem_mesh_2d(40),
+                       "hpcg_27pt(32^3)": lambda: hpcg_27pt(32),
+                       "hpcg_27pt(13x7x9)": lambda: hpcg_27pt(13, 7, 9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(DIA_SYMMETRIC_CASES))
+def test_dia_symmetric_form_equals_general_form_on_card(name, precision):
+    """K2 on a symmetric DIA, which reads only the offsets >= 0, against K2
+    on the same matrix with the mark cleared: y bit for bit, with and
+    without y, and within the tolerance of the oracle; each launch counted
+    in its form."""
+    _needs_card()
+    from ellspmv_tpu_torch.formats.dia import dia_from_coo
+    coo = DIA_SYMMETRIC_CASES[name]()
+    sym = dia_from_coo(coo, value_dtype=precision, device="cuda")
+    assert sym.symmetric
+    general = dataclasses.replace(sym, symmetric=False)
+    rng = np.random.RandomState(5)
+    x64, y64 = rng.rand(coo.num_columns), rng.randn(coo.num_rows)
+    x = torch.from_numpy(x64).cuda().to(sym.data.dtype)
+    for y in (None, torch.from_numpy(y64).cuda().to(sym.data.dtype)):
+        before = dia_cuda.launches, dia_cuda.symmetric_launches
+        got = dia_cuda.dia_spmv(sym, x, y)
+        want = dia_cuda.dia_spmv(general, x, y)
+        torch.cuda.synchronize()
+        assert (dia_cuda.launches, dia_cuda.symmetric_launches) == (
+            before[0] + 2, before[1] + 1)
+        assert torch.equal(got, want)
+        assert_rows_close(got.double().cpu().numpy(), coo,
+                          x.double().cpu().numpy(),
+                          None if y is None else y.double().cpu().numpy(),
+                          precision)
+
+
+@pytest.mark.cuda
+def test_dia_symmetric_launches_only_on_symmetric_data_on_card():
+    """No symmetric launch on a DIA of random diagonals, its offsets a ±d
+    set or not; on a symmetric one, a CUDA graph's replays count theirs."""
+    _needs_card()
+    from ellspmv_tpu_torch.formats.dia import dia_from_coo
+    from ellspmv_tpu_torch.utils.graphs import Graph
+    for offsets in ([-300, -129, -7, 0, 5, 127, 128, 301], [-7, 0, 7]):
+        dia = dia_from_coo(diagonal_coo(700, 700, offsets, 4), device="cuda")
+        assert not dia.symmetric
+        x = torch.ones(700, dtype=torch.float64, device="cuda")
+        before = dia_cuda.launches, dia_cuda.symmetric_launches
+        dia_cuda.dia_spmv(dia, x)
+        assert (dia_cuda.launches, dia_cuda.symmetric_launches) == (
+            before[0] + 1, before[1])
+    sym = dia_from_coo(fem_mesh_2d(40), device="cuda")
+    x = torch.ones(sym.num_rows, dtype=torch.float64, device="cuda")
+    with Graph(lambda: dia_cuda.dia_spmv(sym, x), "cuda") as graph:
+        before = dia_cuda.launches, dia_cuda.symmetric_launches
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert (dia_cuda.launches, dia_cuda.symmetric_launches) == (
+            before[0] + 3, before[1] + 3)
 
 
 # -- K6: the dot kernel -----------------------------------------------------

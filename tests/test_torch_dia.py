@@ -7,11 +7,13 @@ NumPy oracle, against the JAX package's Pallas kernel K2
 across with `dia_from_jax_arrays`, and in bf16 against the JAX package's XLA
 DIA product (its Pallas kernel takes no bf16). The CUDA kernel is held
 against the same plain version on the card (the ``cuda`` tests of
-``tests/test_torch_imports.py``, and ``chip_smoke.py``). Also: the
-wrapper's refusals, the DIA metrics, the byte counts of
-``bench/traffic.py``, and the cards' memory peaks.
+``tests/test_torch_imports.py``, and ``chip_smoke.py``), and its symmetric
+form against its general form (``tests/test_torch_card.py``). Also: the
+`symmetric` mark of a built DIA, the wrapper's refusals, the DIA metrics,
+the byte counts of ``bench/traffic.py``, and the cards' memory peaks.
 """
 
+import dataclasses
 import functools
 
 import ml_dtypes
@@ -32,8 +34,10 @@ from ellspmv_tpu_torch.formats.coo import CooMatrix
 from ellspmv_tpu_torch.formats.dia import (DiaMatrix, dia_from_coo,
                                            dia_from_jax_arrays)
 from ellspmv_tpu_torch.formats.ell import ell_from_coo
+from ellspmv_tpu_torch.models.generators import fem_mesh_2d, hpcg_27pt
 from ellspmv_tpu_torch.ops import dia_cuda
 from ellspmv_tpu_torch.ops.dispatch import spmv
+from ellspmv_tpu_torch.utils import timing
 from tests.conftest import assert_fp64_close, random_coo
 
 TORCH_DTYPE = {"float64": torch.float64, "float32": torch.float32,
@@ -78,6 +82,22 @@ def port_coo(coo) -> CooMatrix:
                      coo.values, coo.symmetry, coo.field)
 
 
+def is_own_transpose(jdia) -> bool:
+    """The oracle of the `symmetric` mark, from the JAX package's DIA: a
+    square matrix whose offsets come in ±d pairs, equal to its transpose
+    as a dense array, bit for bit, with no NaN."""
+    n, m, offsets = jdia.num_rows, jdia.num_columns, list(jdia.offsets)
+    if n != m or sorted(-o for o in offsets) != sorted(offsets):
+        return False
+    data = np.asarray(jdia.data).astype(np.float64)
+    dense = np.zeros((n, n))
+    for k, off in enumerate(offsets):
+        r = np.arange(max(0, -off), min(n, n - off))
+        dense[r, r + off] = data[k, r]
+    return (not np.isnan(dense).any()
+            and np.array_equal(dense.view(np.uint64), dense.T.view(np.uint64)))
+
+
 @functools.cache
 def _case(name: str, precision: str):
     """The COO, the JAX DiaMatrix, the port's copy of it, x and y."""
@@ -116,6 +136,7 @@ def test_dia_from_coo_matches_jax(name, precision):
     assert got.num_diags == want.num_diags and got.diasize == want.diasize
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
     assert got.data.dtype == TORCH_DTYPE[precision]
+    assert got.symmetric == is_own_transpose(want)
 
 
 def test_dia_from_coo_refuses_wide_and_rounds_bf16():
@@ -138,8 +159,93 @@ def test_dia_from_jax_arrays_equals_port_conversion(value_dtype):
     own = dia_from_coo(port_coo(coo), value_dtype=value_dtype)
     assert carried.offsets == own.offsets
     assert torch.equal(carried.data, own.data)
+    assert carried.symmetric == own.symmetric
     moved = own.to("meta")
     assert isinstance(moved, DiaMatrix) and moved.device.type == "meta"
+
+
+# -- the `symmetric` mark: K2 reads only the offsets >= 0 ---------------------
+
+SYMMETRIC_BUILDS = {"fem_mesh_2d": lambda: fem_mesh_2d(12),
+                    "hpcg_27pt": lambda: hpcg_27pt(6),
+                    "hpcg_27pt_odd": lambda: hpcg_27pt(3, 5, 4)}
+
+
+def jax_coo(coo) -> JaxCooMatrix:
+    return JaxCooMatrix(coo.num_rows, coo.num_columns, coo.rowidx,
+                        coo.colidx, coo.values)
+
+
+@pytest.mark.parametrize("name", sorted(SYMMETRIC_BUILDS))
+def test_symmetric_builds_are_marked(name):
+    coo = SYMMETRIC_BUILDS[name]()
+    dia = dia_from_coo(coo)
+    assert dia.symmetric and dia.to("meta").symmetric
+    # the offsets ascend in +-d pairs, so term k's mirror is diagonal
+    # num_diags - 1 - k, where K2's symmetric form reads it
+    assert list(dia.offsets) == sorted(dia.offsets)
+    assert dia.offsets == tuple(-o for o in reversed(dia.offsets))
+    # the JAX package's DIA of the same matrix: equal, and marked when
+    # carried across
+    jdia = jax_dia_from_coo(jax_coo(coo))
+    assert is_own_transpose(jdia) and jdia.offsets == dia.offsets
+    np.testing.assert_array_equal(dia.data.numpy(), np.asarray(jdia.data))
+    assert dia_from_jax_arrays(np.asarray(jdia.data), jdia.offsets,
+                               jdia.num_rows, jdia.num_columns,
+                               jdia.num_nonzeros).symmetric
+    # in every value type the port stores
+    for precision in ("float32", "bfloat16"):
+        assert dia_from_coo(coo, value_dtype=precision).symmetric
+
+
+@pytest.mark.parametrize("case", ["one_ulp", "missing_mirror", "non_square",
+                                  "signed_zero", "nan_pair"])
+def test_asymmetric_builds_are_not_marked(case):
+    coo = fem_mesh_2d(12)
+    base = dia_from_coo(coo)
+    n, offsets = base.num_rows, base.offsets
+    rows, cols, vals = coo.rowidx, coo.colidx, coo.values
+    if case == "one_ulp":
+        vals = vals.copy()
+        k = int(np.flatnonzero(rows < cols)[3])
+        vals[k] = np.nextafter(vals[k], np.inf)
+        dia = dia_from_coo(CooMatrix(n, n, rows, cols, vals))
+    elif case == "missing_mirror":
+        # one entry on the offset n - 1, whose -(n - 1) holds nothing
+        dia = dia_from_coo(CooMatrix(
+            n, n, np.append(rows, 0).astype(rows.dtype),
+            np.append(cols, n - 1).astype(cols.dtype), np.append(vals, 1.0)))
+        assert n - 1 in dia.offsets and 1 - n not in dia.offsets
+    elif case == "non_square":
+        dia = dia_from_coo(CooMatrix(n, n + 1, rows, cols, vals))
+        assert dia.offsets == offsets
+    else:
+        # the data as built, one pair changed: (3, 4) and (4, 3)
+        data = base.data.numpy().copy()
+        up, lo = offsets.index(1), offsets.index(-1)
+        if case == "signed_zero":
+            data[up, 3], data[lo, 4] = 0.0, -0.0
+        else:
+            data[up, 3] = data[lo, 4] = np.nan
+        assert dia_from_jax_arrays(base.data.numpy(), offsets, n, n,
+                                   base.num_nonzeros).symmetric
+        dia = dia_from_jax_arrays(data, offsets, n, n, base.num_nonzeros)
+    assert not dia.symmetric
+
+
+def test_a_dia_built_directly_is_not_marked():
+    dia = DiaMatrix(torch.ones(3, 4, dtype=torch.float64), (-1, 0, 1), 4, 4,
+                    10)
+    assert not dia.symmetric and not dia.to("meta").symmetric
+
+
+def test_the_build_span_records_the_mark():
+    with timing.recording() as rec:
+        dia_from_coo(port_coo(poisson2d(10)))
+        dia_from_coo(port_coo(MATRICES["rectangular"][0]()))
+        dia_from_coo(port_coo(MATRICES["offsets_beyond_128"][0]()))
+    assert [s.attrs["symmetric"] for s in rec.find("formats.build.dia")] \
+        == [True, False, False]
 
 
 @pytest.mark.parametrize("with_y", [False, True])
@@ -259,6 +365,14 @@ def test_actual_bytes_count_what_the_kernels_move():
     dia = dia_from_coo(coo)
     assert estimate_actual_bytes(dia, with_y=False) == (6 * n + m + n) * 8
     assert estimate_actual_bytes(dia) == (6 * n + m + 2 * n) * 8
+    # K2's symmetric form reads the offsets 0, 1 and 20 of poisson2d(20)'s
+    # five; the same matrix unmarked reads all five
+    sym = dia_from_coo(port_coo(poisson2d(20)))
+    ns = sym.num_rows
+    assert sym.symmetric and sym.offsets == (-20, -1, 0, 1, 20)
+    assert estimate_actual_bytes(sym) == (3 * ns + ns + 2 * ns) * 8
+    assert estimate_actual_bytes(dataclasses.replace(
+        sym, symmetric=False)) == (5 * ns + ns + 2 * ns) * 8
     # K1 in the narrow layout: 4-byte values, 2-byte columns and a 4-byte
     # base per 256 rows
     ell = ell_from_coo(coo, separate_diagonal=True, value_dtype="float32")

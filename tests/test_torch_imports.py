@@ -17,11 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from ellspmv_tpu_torch.formats.coo import CooMatrix
 from ellspmv_tpu_torch.formats.dia import dia_from_coo
 from ellspmv_tpu_torch.formats.ell import ell_from_coo
 from ellspmv_tpu_torch.models.generators import banded_random, poisson2d
 from ellspmv_tpu_torch.ops import _build, dia_cuda, ell_cuda
+from torch_cases import diagonal_coo
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -405,23 +405,13 @@ def test_kernel_matches_plain_on_card(dtype):
                                atol=tol[dtype] * scale)
 
 
-def banded_dia(n: int, offsets: list[int]) -> CooMatrix:
-    """An n x n matrix with the given diagonals and random values."""
-    rows = np.concatenate([np.arange(max(0, -o), min(n, n - o))
-                           for o in offsets])
-    cols = np.concatenate([np.arange(max(0, -o), min(n, n - o)) + o
-                           for o in offsets])
-    return CooMatrix(n, n, rows.astype(np.int32), cols.astype(np.int32),
-                     np.random.RandomState(4).randn(len(rows)))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
                                    torch.bfloat16])
 def test_dia_kernel_matches_plain_on_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    coo = banded_dia(700, [-300, -129, -7, 0, 5, 127, 128, 301])
+    coo = diagonal_coo(700, 700, [-300, -129, -7, 0, 5, 127, 128, 301], 4)
     dia = dia_from_coo(coo, value_dtype=dtype, device="cuda")
     x = torch.from_numpy(np.random.RandomState(0).rand(700)).cuda().to(dtype)
     y = torch.from_numpy(np.random.RandomState(1).randn(700)).cuda().to(dtype)

@@ -6,7 +6,8 @@ SpMV cases (`SPMV_CASES`), a gather's targets, random products over a
 plan's level 1 (`random_products`), the stream pipeline that gathers every
 level first, CSR and SELL cases, one square matrix of each
 format for the traceable SpMV (`TRACEABLE_CASES`), the benchmark's
-random geometric graph (`geometric_coo`), `random_coo`, the
+random geometric graph (`geometric_coo`), a matrix of given diagonals
+(`diagonal_coo`), `random_coo`, the
 port's copy of ``tests/conftest.random_coo`` (the same draws), and
 `assert_deep_equal` for plans built two ways."""
 
@@ -72,6 +73,16 @@ def random_coo(rng, n, m, nnz, symmetric=False, with_dups=False,
     return CooMatrix(n, m, rows, cols, vals,
                      "symmetric" if symmetric else "general",
                      "pattern" if pattern else "real")
+
+
+def diagonal_coo(n, m, offsets, seed) -> CooMatrix:
+    """An n x m matrix with the given diagonals and random values."""
+    rows = np.concatenate([np.arange(max(0, -o), min(n, m - o))
+                           for o in offsets])
+    cols = np.concatenate([np.arange(max(0, -o), min(n, m - o)) + o
+                           for o in offsets])
+    return CooMatrix(n, m, rows.astype(np.int32), cols.astype(np.int32),
+                     np.random.RandomState(seed).randn(len(rows)))
 
 
 def geometric_coo(scale: int, empty_row: int | None = None) -> CooMatrix:
