@@ -688,8 +688,8 @@ def phase_hpcg_path(device="cuda"):
     sets = 2
     want = {"dia_symgs": HPCG_ITERATIONS * 8 * sum(
                 hierarchy.sweeps_per_cycle()),
-            # A·p and each coarse level's residual, and r = b - A·x once
-            "dia_spmv": 1 + HPCG_ITERATIONS * len(levels),
+            # A·p and each coarse level's residual (x = 0 leaves r = b)
+            "dia_spmv": HPCG_ITERATIONS * len(levels),
             # r·z, p·Ap and r·r, and r·r once
             "dot": 1 + 3 * HPCG_ITERATIONS}
     log(f"  HPCG set: captured and replayed in {seconds:.2f} s; launches "

@@ -32,6 +32,11 @@ every tensor restarted on the device, nothing read by the host. Its
 tensors (`PcgSet`) live across sets, so a driver captures one set in a
 CUDA graph once and replays it for every later set.
 
+`power_step` is NPB CG's outer step (the NAS Parallel Benchmarks' inverse
+power iteration): `pcg_set` without a preconditioner on b = x, then ζ and
+the next x, all on the device, with a step counter there; `power_stepper`
+captures one step once and replays it.
+
 The JAX package's ``cg_dd`` (and ``ops/dd_vec.py``) carry fp64 vectors as
 f32 hi/lo pairs because the TPU has no fp64; native fp64 CG computes the
 same thing, so they have no counterpart here.
@@ -45,6 +50,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ellspmv_tpu_torch.ops import dot_cuda
+from ellspmv_tpu_torch.utils.timing import span
 
 #: Masked steps a converged `cg` runs on a card: the host's convergence
 #: test lags the newest step it queued by STEPS_AHEAD - 1.
@@ -219,14 +225,23 @@ def pcg_set(s: PcgSet, matvec: Callable, b: torch.Tensor,
     `s.norms`. Nothing reads the host and no shape depends on the values,
     so a set can be captured once (``utils/graphs.Graph``) and replayed:
     every set starts from the same x = 0. `matvec`, `operand` and `vdot`
-    are `cg`'s."""
+    are `cg`'s.
+
+    From x = 0 the residual is b itself, bit for bit what b - A·0 gives,
+    so no multiply is spent on it. Without `precond`, z = r, and r·z is
+    the r·r that the last iteration took for its norm, in the same bits:
+    it is not taken twice."""
     mv, vdot = _operators(matvec, b, operand, vdot)
     s.x.zero_()
-    torch.sub(b, mv(s.x), out=s.r)
-    torch.sqrt(vdot(s.r, s.r), out=s.norms[0])
+    s.r.copy_(b)                                        # r = b - A·0
+    rr = vdot(s.r, s.r)
+    torch.sqrt(rr, out=s.norms[0])
     for k in range(1, s.norms.numel()):
-        z = s.r if precond is None else precond(s.r)
-        rz = vdot(s.r, z)
+        if precond is None:
+            z, rz = s.r, rr
+        else:
+            z = precond(s.r)
+            rz = vdot(s.r, z)
         if k == 1:
             s.p.copy_(z)
         else:
@@ -236,4 +251,68 @@ def pcg_set(s: PcgSet, matvec: Callable, b: torch.Tensor,
         alpha = rz / vdot(s.p, ap)
         s.x.addcmul_(alpha, s.p)                        # x += α·p
         s.r.addcmul_(alpha, ap, value=-1)               # r -= α·A·p
-        torch.sqrt(vdot(s.r, s.r), out=s.norms[k])
+        rr = vdot(s.r, s.r)
+        torch.sqrt(rr, out=s.norms[k])
+
+
+class PowerState(NamedTuple):
+    """The tensors of `power_step`, which every step reuses: NPB's x, the
+    inner solve's tensors (`cg`, whose x is NPB's z), ζ, ‖x - A·z‖ and the
+    steps completed (int64), all on one device."""
+    x: torch.Tensor
+    cg: PcgSet
+    zeta: torch.Tensor
+    rnorm: torch.Tensor
+    steps: torch.Tensor
+
+
+def power_state(n: int, iterations: int, dtype=torch.float64,
+                device="cpu") -> PowerState:
+    """`power_step`'s tensors for `iterations` CG iterations a step, x = 1
+    and no step counted."""
+    x = torch.ones(n, dtype=dtype, device=device)
+    scalar = dict(dtype=dtype, device=device)
+    return PowerState(x, pcg_set_state(x, iterations),
+                      torch.zeros((), **scalar), torch.zeros((), **scalar),
+                      torch.zeros((), dtype=torch.int64, device=device))
+
+
+def power_step(s: PowerState, matvec: Callable, shift: float, operand=None,
+               vdot: Callable | None = None) -> None:
+    """One outer step of NPB CG's inverse power iteration (cg.f's
+    ``conj_grad`` and ``main``), in place in `s`: z from `pcg_set` without
+    a preconditioner on b = x (NPB's fixed count of CG iterations from z =
+    0), then ‖x - A·z‖, ζ = shift + 1/(x·z) and x = z·(1/‖z‖), and the step
+    counted. That is one multiply an iteration and one more. Nothing reads
+    the host and no shape depends on the values, so a step can be captured
+    once (`power_stepper`) and replayed. `matvec`, `operand` and `vdot` are
+    `cg`'s."""
+    mv, vdot = _operators(matvec, s.x, operand, vdot)
+    pcg_set(s.cg, mv, s.x, vdot=vdot)
+    z = s.cg.x
+    d = s.x - mv(z)
+    torch.sqrt(vdot(d, d), out=s.rnorm)
+    torch.add(1 / vdot(s.x, z), shift, out=s.zeta)
+    torch.mul(z, 1 / torch.sqrt(vdot(z, z)), out=s.x)
+    s.steps.add_(1)
+
+
+def power_stepper(s: PowerState, matvec: Callable, shift: float,
+                  operand=None, vdot: Callable | None = None):
+    """``(run, graph)``: `run()` makes one `power_step` on `s`. On a card
+    the step is captured once in a CUDA graph (``utils/graphs.Graph``,
+    whose warm-up makes one step), in the span
+    ``solvers.power_step.capture`` (attributes `cg_iterations` and
+    `multiplies`), and `run` replays it; the caller closes `graph`. On the
+    CPU `run` is the step itself and `graph` None."""
+
+    def step():
+        power_step(s, matvec, shift, operand, vdot)
+    if s.x.device.type != "cuda":
+        return step, None
+    from ellspmv_tpu_torch.utils.graphs import Graph
+    iterations = s.cg.norms.numel() - 1
+    with span("solvers.power_step.capture", cg_iterations=iterations,
+              multiplies=iterations + 1):
+        graph = Graph(step, s.x.device)
+    return graph.replay, graph

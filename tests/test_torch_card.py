@@ -910,13 +910,66 @@ def test_captured_pcg_set_equals_eager_on_card():
             for a, c in zip(s, want):
                 assert torch.equal(a, c)
             # per iteration: 8 colours x (4 sweeps at 3 levels + 2 at the
-            # coarsest); K2 for A·p and 3 residuals, plus r = b - A·x once;
-            # K6 for r·z, p·Ap and r·r, plus r·r once
+            # coarsest); K2 for A·p and 3 residuals (x = 0 leaves r = b
+            # with no multiply); K6 for r·z, p·Ap and r·r, plus r·r once
             assert grew["dia_symgs"] == 50 * 8 * (3 * 4 + 2)
-            assert grew["dia_spmv"] == 1 + 50 * 4
+            assert grew["dia_spmv"] == 50 * 4
             assert grew["dot"] == 1 + 50 * 3
     reference = ref.hierarchy(32, 32, 32, device="cuda")
     x, norms = ref.pcg_set(reference, b, 50)
     torch.testing.assert_close(want[0], x, rtol=1e-12, atol=0)
     torch.testing.assert_close(want[4] / norms[0], norms / norms[0], rtol=0,
                                atol=1e-12)
+
+
+#: NPB CG's class A (npbparams.h) and its published ζ.
+NPB_CLASS_A = dict(na=14000, nonzer=11, rcond=0.1, shift=20.0, niter=15,
+                   zeta_verify=17.130235054029)
+
+
+@pytest.mark.cuda
+def test_npb_class_a_through_the_captured_step_on_card():
+    """NPB CG's class A (14,000 rows, 1.85M nonzeros) as the benchmark
+    runs class C: the matrix made on the card, the chooser, and one outer
+    step (25 CG iterations and A·z) captured once and replayed NITER
+    times from x = 1: ζ within NPB's 1e-10 of its published value; x, ζ
+    and the step counter bit for bit the same steps launched eagerly;
+    each replay 26 multiplies and 54 dots (r·r once, p·q and r·r an
+    iteration, then ‖x - A·z‖, x·z and z·z)."""
+    _needs_card()
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from spmv_bench.generators import npb_cg
+
+    from ellspmv_tpu_torch.formats.auto import auto_from_coo
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.models import solvers
+    p = NPB_CLASS_A
+    m = npb_cg.generate(p, 1, "cuda")
+    n = m.num_rows
+    coo = CooMatrix(n, n, m.rows.int().cpu().numpy(),
+                    m.cols.int().cpu().numpy(), m.values.cpu().numpy())
+    operand, fn = traceable_spmv(auto_from_coo(coo, device="cuda"))
+    eager = solvers.power_state(n, 25, device="cuda")
+    for _ in range(p["niter"]):
+        solvers.power_step(eager, fn, p["shift"], operand=operand)
+    s = solvers.power_state(n, 25, device="cuda")
+    step, graph = solvers.power_stepper(s, fn, p["shift"], operand=operand)
+    try:
+        s.x.fill_(1)
+        s.steps.zero_()
+        for k in range(p["niter"]):
+            before = launch_counts()
+            step()
+            torch.cuda.synchronize()
+            grew = _grew(before, launch_counts())
+            assert grew.pop("dot") == 54, k
+            assert sum(grew.values()) % 26 == 0 and grew, (k, grew)
+    finally:
+        graph.close()
+    for a, b in zip([s.x, s.zeta, s.rnorm, s.steps],
+                    [eager.x, eager.zeta, eager.rnorm, eager.steps]):
+        assert torch.equal(a, b)
+    assert int(s.steps) == p["niter"]
+    gap = abs(float(s.zeta) - p["zeta_verify"]) / p["zeta_verify"]
+    assert gap <= 1e-10, gap
