@@ -151,7 +151,13 @@ Phases, each of which exits non-zero on failure:
    eagerly beside cuSPARSE, split by the profiler into K1, the gather and
    the reassembly, against its bound; and the FMA probe against an empty
    kernel launched the same way, in turns, in a CUDA graph: the floor of
-   one launch;
+   one launch; and K1 at the full shapes of the benchmark's cells it
+   carries, rgg_n_2_24 and npb_cg_c, their matrices made on the card by
+   their generators and laid out by ``ell_from_coo`` in slices: one call
+   counted as one launch and one sliced launch, its y held against the
+   plain version on every row and bit for bit against K1 on the padded
+   layout, K1 and the plain version in turns, and K1 beside its bytes'
+   bound;
 7. multi-device (``ellspmv_tpu_torch/parallel/``): fem_mesh_2d(1440) fp64
    ELL over NCCL at world size 1, its y bit-equal to the one-device
    ``ell_spmv`` and both timed per_iter; then the loops through
@@ -191,7 +197,8 @@ Each phase's seconds are printed after it, and all of them before the
 summary.
 
 The line before the last is a JSON summary of the kernels (time, plain
-time, bound, library time, launches on the main paths); the last line is
+time, bound, library time, launches on the main paths; K1's at the cells'
+shapes under ``cells``); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside the
 repository, the script exits non-zero and prints no result.
 """
@@ -373,6 +380,7 @@ def ell_row_errors(ell, x, y, got, want):
     (in fp64)."""
     from ellspmv_tpu_torch.formats.ell import EllMatrix
     from ellspmv_tpu_torch.ops.ell_cuda import ell_spmv_torch
+    ell = ell.padded()
     absm = EllMatrix(ell.colidx, ell.values.double().abs(),
                      None if ell.diag is None else ell.diag.double().abs(),
                      ell.num_rows, ell.num_columns, ell.num_nonzeros)
@@ -422,7 +430,9 @@ def phase_kernel_vs_plain(device="cuda"):
     """K1 against its plain version on matrices in the narrow layout
     (poisson2d, banded_random with bands of 64 and of 10,000) and on one
     whose blocks span more than 65,536 columns (wide columns); each narrow
-    matrix also forced to its wide columns."""
+    matrix also forced to its wide columns. On a card the first three are
+    sliced (their rows differ in length) and the last, whose rows are
+    equal, keeps the padded layout."""
     import dataclasses
 
     import torch
@@ -439,7 +449,7 @@ def phase_kernel_vs_plain(device="cuda"):
                 ("spread(3000x200000,8)", spread_coo(3000, 200_000, 8, 6))]
     before = ell_cuda.launches
     cases = 0
-    layouts = set()
+    layouts, sliced = set(), set()
     for mname, coo in matrices:
         rng = np.random.RandomState(3)
         x64 = rng.rand(coo.num_columns)
@@ -453,13 +463,13 @@ def phase_kernel_vs_plain(device="cuda"):
                                        device=device)
                     runs = [("wide", ell_cuda.ell_spmv, ell)]
                     if ell.lcol is not None:
-                        check(torch.equal(ell.columns(), ell.colidx),
+                        wide = dataclasses.replace(ell, lbase=None,
+                                                   lcol=None)
+                        check(torch.equal(ell.columns(), wide.columns()),
                               f"{mname}: the narrow columns do not decode "
                               "to colidx")
                         runs = [("narrow", ell_cuda.ell_spmv, ell),
-                                ("wide", ell_cuda.ell_spmv,
-                                 dataclasses.replace(ell, lbase=None,
-                                                     lcol=None))]
+                                ("wide", ell_cuda.ell_spmv, wide)]
                     x = torch.from_numpy(x64).to(device).to(dt)
                     for with_y in (False, True):
                         y = (torch.from_numpy(y64).to(device).to(dt)
@@ -476,12 +486,16 @@ def phase_kernel_vs_plain(device="cuda"):
                                    f"y={int(with_y)}", prec,
                                    ell_row_errors(mat, x, y, got, want))
                             layouts.add(layout)
+                            sliced.add(mat.slices is not None)
                             cases += 1
     launched = ell_cuda.launches - before
     log(f"ELL kernel vs plain: {cases} cases agree (layouts "
-        f"{sorted(layouts)}); {launched} kernel launches")
+        f"{sorted(layouts)}, sliced {sorted(sliced)}); {launched} kernel "
+        "launches")
     check(layouts == {"narrow", "wide"},
           f"the ELL cases missed a layout: {sorted(layouts)}")
+    check(sliced == ({False, True} if device == "cuda" else {False}),
+          "the ELL cases missed the padded or the sliced layout")
     if device == "cuda":
         check(launched >= cases, "the ELL kernel's launch count did not move")
 
@@ -1441,7 +1455,8 @@ def phase_timing(coo, ell_runs, dia_runs, peak_bw):
     """Each kernel beside its plain version and cuSPARSE at the main paths'
     shapes; the ELL and DIA kernels held against their plain versions on
     every row at full size, K2 in both its forms where its DIA is
-    symmetric."""
+    symmetric; K1's plain version on the matrix in the padded layout, laid
+    back once where it is sliced."""
     import torch
 
     from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
@@ -1455,11 +1470,15 @@ def phase_timing(coo, ell_runs, dia_runs, peak_bw):
             if name == "ell_spmv" else
             (dia_cuda.dia_spmv, dia_cuda.dia_spmv_torch, dia_row_errors))
         for prec, (mat, x) in runs.items():
+            # a sliced ELL laid back into the padded layout once, not in
+            # every plain call
+            flat = mat.padded() if name == "ell_spmv" else mat
+
             def kernel():
                 return wrapper(mat, x)
 
             def plain():
-                return plain_fn(mat, x)
+                return plain_fn(flat, x)
 
             def library():
                 return csr[prec] @ x
@@ -1470,7 +1489,7 @@ def phase_timing(coo, ell_runs, dia_runs, peak_bw):
                 k1_forms(f"fem_mesh_2d {prec}", mat, x)
             got, want = kernel(), plain()
             err = float((got.double() - want.double()).abs().max())
-            rel = errors(mat, x, None, got, want)
+            rel = errors(flat, x, None, got, want)
             lib_err = float((library() - want).double().abs().max())
             nbytes = estimate_actual_bytes(mat, with_y=False)
             bound_ms, bound_by = _bound(nbytes, flops, prec, peak_bw)
@@ -1505,6 +1524,102 @@ def phase_timing(coo, ell_runs, dia_runs, peak_bw):
                                        bound_ms=bound_ms, bound_by=bound_by)
     out["dot", "float64"] = time_dot(coo.num_rows, peak_bw)
     torch.cuda.synchronize()
+    return out
+
+
+#: The benchmark's configurations whose matrices K1 reads in the sliced
+#: layout, each with whether its cell's multiply adds y.
+K1_CELLS = (("rgg_n_2_24", True), ("npb_cg_c", False))
+
+
+def cell_coo(config: str):
+    """The host COO of a benchmark configuration's matrix, made on the card
+    by its generator (``spmv_bench/generators``) with the configuration's
+    parameters, seed 1."""
+    import importlib
+
+    import torch
+
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    with open(os.path.join(REPO, "spmv_bench", "configs",
+                           f"{config}.json")) as f:
+        cfg = json.load(f)
+    gen = importlib.import_module(f"spmv_bench.generators.{cfg['generator']}")
+    m = gen.generate(cfg["params"], 1, "cuda")
+    coo = CooMatrix(m.num_rows, m.num_rows, m.rows.int().cpu().numpy(),
+                    m.cols.int().cpu().numpy(), m.values.cpu().numpy())
+    del m
+    torch.cuda.empty_cache()
+    return coo
+
+
+def phase_cell_k1(peak_bw):
+    """K1 at the shapes of the cells it carries (`K1_CELLS`, full size): the
+    matrix as ``ell_from_coo`` lays it out on the card, which must be
+    sliced (rgg_n_2_24 with 2-byte columns, npb_cg_c with 4-byte ones); its
+    y held against the plain version on every row at `TOLERANCE` and bit
+    for bit against K1 on the same matrix laid back into the padded layout
+    (laid back once, outside the timed calls); the launch counters set to
+    0 before and read after; K1 and the plain version in turns, and K1
+    beside its own bytes' bound. {config: the `kernels` line's entries}."""
+    import torch
+
+    from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.ops import ell_cuda
+    out = {}
+    for config, with_y in K1_CELLS:
+        t0 = time.perf_counter()
+        coo = cell_coo(config)
+        ell = ell_from_coo(coo, value_dtype="float64", device="cuda")
+        del coo
+        check(ell.slices is not None, f"{config}: K1's matrix is not sliced")
+        check((ell.lcol is not None) == (config == "rgg_n_2_24"),
+              f"{config}: the sliced layout lost or gained the narrow "
+              "columns")
+        log(f"{config}: {ell.num_rows:,} rows, {ell.num_nonzeros:,} "
+            f"nonzeros, {ell.slices.stored:,} slots sliced of "
+            f"{ell.rowsize * ell.padded_rows:,} padded, "
+            f"{'2' if ell.lcol is not None else ell.colidx.element_size()}"
+            f"-byte columns; made and laid out in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.RandomState(5)
+        x = torch.from_numpy(rng.rand(ell.num_columns)).cuda()
+        y = torch.from_numpy(rng.randn(ell.num_rows)).cuda() \
+            if with_y else None
+        flat = ell.padded()
+        ell_cuda.launches = ell_cuda.sliced_launches = 0
+        got = ell_cuda.ell_spmv(ell, x, y)
+        torch.cuda.synchronize()
+        counts = (ell_cuda.launches, ell_cuda.sliced_launches)
+        check(counts == (1, 1), f"{config}: one K1 call counted {counts} "
+                                "(launches, sliced_launches), not (1, 1)")
+        check(torch.equal(got, ell_cuda.ell_spmv(flat, x, y)),
+              f"{config}: K1 on the slices differs from K1 on the padded "
+              "layout")
+        want = ell_cuda.ell_spmv_torch(flat, x, y)
+        rel = ell_row_errors(flat, x, y, got, want)
+        check(rel <= TOLERANCE["float64"],
+              f"{config}: K1 disagrees with its plain version: {rel:.3e}")
+        k_ms, p_ms, _ = _turns(
+            f"{config} ell_spmv float64",
+            lambda: ell_cuda.ell_spmv(ell, x, y),
+            lambda: ell_cuda.ell_spmv_torch(flat, x, y))
+        nbytes = estimate_actual_bytes(ell, with_y)
+        bound_ms, bound_by = _bound(nbytes, 2 * ell.slices.stored, "float64",
+                                    peak_bw)
+        log(f"  {config} ell_spmv float64 (sliced, "
+            f"{'with' if with_y else 'without'} y): kernel {k_ms:.4f} ms vs "
+            f"plain {p_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes:,} bytes, "
+            f"{bound_by}), {100 * bound_ms / k_ms:.1f}% of it; bit-equal to "
+            f"the padded layout, {rel:.3e} of sum|a*x| from plain over all "
+            f"{ell.num_rows:,} rows (tol {TOLERANCE['float64']:g}); "
+            f"launches {counts[0]}, sliced {counts[1]}; {CARD[0]}")
+        out[config] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, max_rel_err=rel,
+                           launches=counts[0], sliced_launches=counts[1])
+        del ell, flat, x, y, got, want
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2986,7 +3101,7 @@ def phase_native(device="cuda", nx=NATIVE_NX, small_nx=NATIVE_SMALL_NX):
         log(f"  {line}; {CARD[0]}")
     span = re.search(r"over a (\d+)-iteration chained span", proc.stderr)
     y = mtx.read_vector(io.BytesIO(proc.stdout.encode()))
-    ell = ell_from_coo(coo, device=device)
+    ell = ell_from_coo(coo, device=device).padded()   # once, not per call
     del coo
     xk = torch.ones(ell.num_columns, dtype=torch.float64, device=device)
     yk = torch.zeros(ell.num_rows, dtype=torch.float64, device=device)
@@ -3897,6 +4012,8 @@ def main() -> int:
           stream_runs, peak_bw)
     timing.update(timed("K8 timing", phase_symgs_timing, hpcg, peak_bw))
     del hpcg
+    timing["ell_spmv", "float64"]["cells"] = timed(
+        "K1 at the cells' shapes", phase_cell_k1, peak_bw)
     timed("K7 floor", probe_floor)
     window_verdict()
     del ell_runs, dia_runs, csr_runs, stream_runs, hybrid_runs, sell_runs

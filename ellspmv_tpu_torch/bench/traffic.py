@@ -10,10 +10,12 @@ must move, so that every report can also carry the physical share (at most
 100% of the card's peak when the count is right):
 
 - K1 (``csrc/ell_spmv.cu``): the slot-major values (``rowsize *
-  padded_rows``) and the column indices at the width the kernel reads them
+  padded_rows``, or the slices' stored slots in the sliced layout) and the
+  column indices at the width the kernel reads them
   (``EllMatrix.index_bytes``: 2 bytes a slot and one base per block of 256
-  rows in the narrow layout, else 4 or 8), x once, the split diagonal when
-  there is one, y when given, and the output;
+  rows in the narrow layout, else 4 or 8), in the sliced layout each
+  slice's width and offset and each position's 2-byte row id, x once, the
+  split diagonal when there is one, y when given, and the output;
 - K2 (``csrc/dia_spmv.cu``): the diagonals' values (``num_diags *
   num_rows``; of a `symmetric` DIA the offsets >= 0 alone, whose shifted
   re-reads hit in L2), x once, y when given, and the output;
@@ -54,6 +56,7 @@ x is counted once: the kernels rely on L1/L2 for its re-reads.
 
 from __future__ import annotations
 
+from ellspmv_tpu_torch.formats import tensor_bytes
 from ellspmv_tpu_torch.formats.csr import CsrMatrix
 from ellspmv_tpu_torch.formats.dia import DiaMatrix
 from ellspmv_tpu_torch.formats.ell import LBLOCK, EllMatrix
@@ -237,8 +240,11 @@ def estimate_actual_bytes(matrix, with_y: bool = True) -> int:
             total += matrix.num_rows * sv
         return total + (matrix.num_rows * sv if with_y else 0)
     if isinstance(matrix, EllMatrix):
+        # every stored slot (padded or sliced); in the sliced layout each
+        # slice's width and offset and each position's row id too
         sv = matrix.values.element_size()
-        total = matrix.rowsize * matrix.padded_rows * sv + matrix.index_bytes
+        total = (matrix.values.numel() * sv + matrix.index_bytes
+                 + tensor_bytes(matrix.slices))
         if matrix.diag is not None:
             total += matrix.num_rows * sv
     elif isinstance(matrix, DiaMatrix):

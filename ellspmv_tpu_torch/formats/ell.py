@@ -37,6 +37,22 @@ rows, `narrow_columns_fit` to COO triplets (for the chooser's ELL price),
 products laid out on the host (for its price). The kernel's library
 reports its own `LBLOCK` and `NARROW_SPAN`, and the wrapper checks them
 against these.
+
+The sliced layout (`EllSlices`), which K1 reads on a card: padding every
+row to the longest row of the whole matrix stores 2-3x the nonzeros where
+rows differ in length. `ell_from_coo` keeps packing on the host as above;
+where the whole matrix (rows padded to `ROW_TILE`, as wide as its longest
+row) goes to a card and `slice_plan` stores fewer slots, the padded arrays
+are laid out again there: within each window of `SLICE_WINDOW` rows the
+rows are put in a stable order by entry count, longest first, and each
+slice of `SLICE_ROWS` consecutive rows in that order stores only as many
+slots as its own longest row, slot-major, at its own offset in one flat
+array of values and one of columns. A row keeps its entries at the same
+slot numbers in the same order; only trailing padding slots go. The narrow
+layout is found again on the slices as they lie (`lbase` per `LBLOCK`
+positions), and the padded arrays are not kept on the card. A SELL bucket, which forces
+its rows' tile and width, the stream format's products and the shards
+(`ell_from_row_major`) keep the padded layout.
 """
 
 from __future__ import annotations
@@ -58,10 +74,62 @@ ROW_TILE = 8
 LBLOCK = 256
 #: The narrow layout holds where every block's column span is below this.
 NARROW_SPAN = 1 << 16
+#: Rows per slice of the sliced layout.
+SLICE_ROWS = 32
+#: Rows per window of the sliced layout, within which rows are reordered.
+SLICE_WINDOW = 512
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+@dataclasses.dataclass
+class EllSlices:
+    """The slice table of an ELLPACK in the sliced layout. Position ``i``
+    (``i < padded_rows``) lies in slice ``i // SLICE_ROWS`` and holds row
+    ``i // SLICE_WINDOW * SLICE_WINDOW + rows[i]``; slot ``s`` of it lies
+    at ``start[slice] + s * SLICE_ROWS + i % SLICE_ROWS`` of the matrix's
+    flat arrays, for ``s < width[slice]``. `width` is int32 and `start`
+    int64, one each a slice; `rows` int16, one a position. `stored` is the
+    flat arrays' length, and `rowsize` the padded layout's width."""
+
+    width: torch.Tensor
+    start: torch.Tensor
+    rows: torch.Tensor
+    rowsize: int
+    padded_rows: int
+    stored: int
+
+    def to(self, device) -> "EllSlices":
+        return dataclasses.replace(self, width=self.width.to(device),
+                                   start=self.start.to(device),
+                                   rows=self.rows.to(device))
+
+    def row_of_position(self) -> torch.Tensor:
+        """Each position's row (int64)."""
+        i = torch.arange(self.padded_rows, device=self.rows.device)
+        return i // SLICE_WINDOW * SLICE_WINDOW + self.rows.long()
+
+    def at_slot(self, s: int):
+        """``(dest, live)`` for slot `s` of every position: the element of
+        the flat arrays that holds it (clamped into them) and whether the
+        position's slice is at least ``s + 1`` wide. It reads nothing back
+        to the host, so a CUDA graph can capture it."""
+        pos = torch.arange(self.padded_rows, device=self.width.device)
+        j = pos // SLICE_ROWS
+        dest = self.start[j] + s * SLICE_ROWS + pos % SLICE_ROWS
+        return dest.clamp_(max=max(self.stored - 1, 0)), self.width[j] > s
+
+    def slots(self):
+        """For each slot number ``s``: ``(s, dest, pos)``, the elements of
+        the flat arrays that hold slot ``s`` of every slice at least
+        ``s + 1`` wide, and their positions (int64, on the table's
+        device)."""
+        for s in range(int(self.width.max()) if len(self.width) else 0):
+            dest, live = self.at_slot(s)
+            pos = torch.nonzero(live).squeeze(1)
+            yield s, dest[pos], pos
 
 
 @dataclasses.dataclass
@@ -70,7 +138,11 @@ class EllMatrix:
     is (padded_rows,) when the diagonal is split, else None. In the narrow
     layout `lbase` is (ceil(padded_rows / LBLOCK),) in colidx's type and
     `lcol` (rowsize, padded_rows) int16 holding the uint16 offsets
-    ``colidx - lbase[row // LBLOCK]``; both None otherwise."""
+    ``colidx - lbase[row // LBLOCK]``; both None otherwise.
+
+    In the sliced layout (`slices` not None) `colidx`, `values` and `lcol`
+    are flat, ``(slices.stored,)``, each slot where `slices` puts it, and
+    `lbase` is per `LBLOCK` positions; `diag` stays by row."""
 
     colidx: torch.Tensor
     values: torch.Tensor
@@ -80,13 +152,18 @@ class EllMatrix:
     num_nonzeros: int
     lbase: torch.Tensor | None = None
     lcol: torch.Tensor | None = None
+    slices: EllSlices | None = None
 
     @property
     def rowsize(self) -> int:
+        if self.slices is not None:
+            return self.slices.rowsize
         return int(self.values.shape[0])
 
     @property
     def padded_rows(self) -> int:
+        if self.slices is not None:
+            return self.slices.padded_rows
         return int(self.values.shape[1])
 
     @property
@@ -117,11 +194,43 @@ class EllMatrix:
     def columns(self) -> torch.Tensor:
         """The (rowsize, padded_rows) columns the kernel reads: decoded from
         the narrow layout (``lbase[row // LBLOCK] + lcol``) where the matrix
-        has it, else `colidx`."""
+        has it, else `colidx`; the padded layout's where the matrix is
+        sliced."""
+        if self.slices is not None:
+            return self.padded().colidx
         if self.lcol is None:
             return self.colidx
         base = self.lbase.repeat_interleave(LBLOCK)[:self.padded_rows]
         return base[None, :] + (self.lcol.to(base.dtype) & 0xFFFF)
+
+    def padded(self) -> "EllMatrix":
+        """The matrix in the padded layout: itself, or its slices laid back
+        into (rowsize, padded_rows) arrays of the columns the kernel reads,
+        each slot past its slice's width the padding (column ``min(i,
+        num_columns - 1)``, value 0). No narrow layout. It reads nothing
+        back to the host, so a CUDA graph can capture it (the plain
+        version's CG)."""
+        sl = self.slices
+        if sl is None:
+            return self
+        shape, device = (sl.rowsize, sl.padded_rows), self.device
+        pos = torch.arange(sl.padded_rows, device=device)
+        row = sl.row_of_position()
+        pad = row.clamp(max=max(self.num_columns - 1, 0))
+        colidx = torch.empty(shape, dtype=self.colidx.dtype, device=device)
+        values = torch.empty(shape, dtype=self.values.dtype, device=device)
+        for s in range(sl.rowsize):
+            dest, live = sl.at_slot(s)
+            if self.lcol is None:
+                cols = self.colidx[dest]
+            else:
+                cols = self.lbase[pos // LBLOCK] \
+                    + (self.lcol[dest].to(self.lbase.dtype) & 0xFFFF)
+            colidx[s, row] = torch.where(live, cols, pad).to(colidx.dtype)
+            values[s, row] = torch.where(live, self.values[dest],
+                                         self.values.new_zeros(()))
+        return EllMatrix(colidx, values, self.diag, self.num_rows,
+                         self.num_columns, self.num_nonzeros)
 
     def to(self, device) -> "EllMatrix":
         def move(t):
@@ -130,7 +239,8 @@ class EllMatrix:
             return EllMatrix(move(self.colidx), move(self.values),
                              move(self.diag), self.num_rows,
                              self.num_columns, self.num_nonzeros,
-                             move(self.lbase), move(self.lcol))
+                             move(self.lbase), move(self.lcol),
+                             move(self.slices))
 
 
 def narrow_bases(block: np.ndarray, cols: np.ndarray,
@@ -219,6 +329,49 @@ def index_bytes_estimate(num_rows: int, rowsize: int, index_size: int,
     return index_size * slots
 
 
+def slice_plan(counts: np.ndarray, padded_rows: int):
+    """The sliced layout of `padded_rows` rows whose first ``len(counts)``
+    hold these entry counts and the rest none: within each window of
+    `SLICE_WINDOW` rows, the rows in a stable order by count, longest first;
+    each slice of `SLICE_ROWS` consecutive positions of that order as wide
+    as its first row. ``(rows, width, start)``: each position's row within
+    its window (int16), each slice's width (int32) and its first element in
+    the flat arrays (int64), where a slice stores width × `SLICE_ROWS`
+    slots."""
+    w = SLICE_WINDOW
+    windows = -(-padded_rows // w)
+    c = np.zeros(windows * w, np.int64)
+    c[:len(counts)] = counts
+    longest = int(c.max()) if len(c) else 0
+    # a stable sort of the count's complement; its narrowest type sorts
+    # by radix
+    key = (longest - c).astype(np.min_scalar_type(longest))
+    order = np.argsort(key.reshape(windows, w), axis=1, kind="stable")
+    first = (np.arange(windows)[:, None] * w + order).ravel()
+    width = c[first[:padded_rows:SLICE_ROWS]].astype(np.int32)
+    size = width.astype(np.int64) * SLICE_ROWS
+    return (order.ravel()[:padded_rows].astype(np.int16), width,
+            np.cumsum(size) - size)
+
+
+def sliced_slots(plan) -> int:
+    """The slots a `slice_plan` stores."""
+    return int(plan[1].astype(np.int64).sum()) * SLICE_ROWS
+
+
+def whole_matrix_plan(counts: np.ndarray, padded_rows: int, rowsize: int):
+    """The whole matrix's `slice_plan` where it stores fewer slots than the
+    padded layout's ``padded_rows * rowsize``, else None."""
+    plan = slice_plan(counts, padded_rows)
+    return plan if sliced_slots(plan) < padded_rows * rowsize else None
+
+
+def _slices_on(device) -> bool:
+    """Whether a whole-matrix ELLPACK on `device` takes the sliced layout:
+    on a card, where K1 reads it."""
+    return torch.device(device).type == "cuda"
+
+
 def ell_from_row_major(colidx: np.ndarray, values: np.ndarray,
                        diag: np.ndarray | None, num_rows: int,
                        num_columns: int, num_nonzeros: int,
@@ -235,20 +388,69 @@ def ell_from_row_major(colidx: np.ndarray, values: np.ndarray,
 
 
 def _on_device(colidx, values, diag, num_rows, num_columns, num_nonzeros,
-               dtype, device, fmt, narrow) -> EllMatrix:
+               dtype, device, fmt, narrow, plan=None) -> EllMatrix:
     """`ell_from_row_major`'s copy to `device`, with the narrow layout
-    `narrow_columns` found (or None)."""
+    `narrow_columns` found (or None); laid out in slices where a
+    `slice_plan` is given."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     with upload(device, fmt, colidx, values, diag, narrow):
+        d = None if diag is None else put(diag).to(dtype)
+        if plan is not None:
+            return _sliced(put(colidx), put(values), d, num_rows,
+                           num_columns, num_nonzeros, dtype,
+                           tuple(map(put, plan)))
         lbase = lcol = None
         if narrow is not None:
             lbase, lcol = put(narrow[0]), put(narrow[1]).t().contiguous()
         return EllMatrix(put(colidx).t().contiguous(),
-                         put(values).t().contiguous().to(dtype),
-                         None if diag is None else put(diag).to(dtype),
+                         put(values).t().contiguous().to(dtype), d,
                          num_rows, num_columns, num_nonzeros, lbase, lcol)
+
+
+def _sliced(colidx, values, diag, num_rows, num_columns, num_nonzeros,
+            dtype, plan) -> EllMatrix:
+    """The sliced layout of the row-major padded arrays `colidx` and
+    `values`, on their device, by `plan` (`slice_plan`'s arrays there),
+    and its narrow layout where `narrow_bases` finds one on the slices'
+    columns: each position's least and greatest column among its stored
+    slots stand for them."""
+    rows, width, start = plan
+    padded_rows, rowsize = colidx.shape
+    stored = int(width.sum(dtype=torch.int64)) * SLICE_ROWS
+    sl = EllSlices(width, start, rows, rowsize, padded_rows, stored)
+    cols = colidx.new_zeros(stored)
+    vals = values.new_zeros(stored)
+    blocks = -(-padded_rows // LBLOCK)
+    lo = torch.full((blocks * LBLOCK,), np.iinfo(np.int64).max,
+                    dtype=torch.int64, device=colidx.device)
+    hi = torch.full_like(lo, -1)
+    row = sl.row_of_position()
+    for s, dest, pos in sl.slots():
+        c = colidx[row[pos], s]
+        cols[dest] = c
+        vals[dest] = values[row[pos], s]
+        lo[pos] = torch.minimum(lo[pos], c)
+        hi[pos] = torch.maximum(hi[pos], c)
+    del colidx, values
+    lo = lo.view(blocks, LBLOCK).amin(1).cpu().numpy()
+    hi = hi.view(blocks, LBLOCK).amax(1).cpu().numpy()
+    empty = hi < 0          # a block with no slots takes any base
+    lo[empty] = hi[empty] = 0
+    b = np.arange(blocks)
+    base = narrow_bases(np.concatenate([b, b]), np.concatenate([lo, hi]),
+                        blocks)
+    lbase = lcol = None
+    if base is not None:
+        lbase = torch.from_numpy(base).to(cols.device, cols.dtype)
+        lcol = torch.zeros(stored, dtype=torch.int16, device=cols.device)
+        for _, dest, pos in sl.slots():
+            off = cols[dest] - lbase[pos // LBLOCK]     # below NARROW_SPAN
+            lcol[dest] = torch.where(off >= NARROW_SPAN // 2,
+                                     off - NARROW_SPAN, off).to(torch.int16)
+    return EllMatrix(cols, vals.to(dtype), diag, num_rows, num_columns,
+                     num_nonzeros, lbase, lcol, sl)
 
 
 def ell_from_coo(coo, separate_diagonal: bool = False,
@@ -263,10 +465,17 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
     of `ROW_TILE` (K1 reads rows in pairs, with 16-byte loads). `rowsize`
     may be forced larger than the longest row (the SELL buckets' widths);
     a smaller one raises ValueError.
+
+    The whole matrix (`row_tile` and `rowsize` left as they are) takes the
+    sliced layout on a card where `whole_matrix_plan` stores fewer slots.
+    The span ``formats.build.ell`` records `sliced`, the `slots` K1 reads
+    (rows × rowsize padded, the slices' slots sliced), the padded layout's
+    `padded_slots` and whether the columns built are `narrow`.
     """
     if row_tile <= 0 or row_tile % ROW_TILE:
         raise ValueError(f"row_tile {row_tile} is not a positive multiple "
                          f"of {ROW_TILE}")
+    whole = row_tile == ROW_TILE and rowsize is None
     with span("formats.build.ell") as build:
         coo = coo.expand_symmetry()
         n, m = coo.num_rows, coo.num_columns
@@ -329,12 +538,19 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
             d = np.zeros(n_pad, host_dt)
             d[:len(diag)] = diag.astype(host_dt)
             diag = d
-        narrow = narrow_columns(colidx)
-        build.set(rowsize=rowsize, slots=n * rowsize, nonzeros=nnz_total,
-                  narrow=narrow is not None)
+        plan = None
+        if whole and _slices_on(device):
+            plan = whole_matrix_plan(counts, n_pad, rowsize)
+        narrow = narrow_columns(colidx) if plan is None else None
+        build.set(rowsize=rowsize, nonzeros=nnz_total, sliced=plan is not None,
+                  slots=n * rowsize if plan is None else sliced_slots(plan),
+                  padded_slots=n * rowsize, narrow=narrow is not None)
 
-    return _on_device(colidx, values, diag, n, m, nnz_total, dtype, device,
-                      "ell", narrow)
+    ell = _on_device(colidx, values, diag, n, m, nnz_total, dtype, device,
+                     "ell", narrow, plan)
+    if plan is not None:
+        build.set(narrow=ell.lcol is not None)
+    return ell
 
 
 def ell_from_jax_arrays(colidx, values, diag, num_rows: int,

@@ -15,12 +15,15 @@ import ctypes
 import numpy as np
 import torch
 
-from ellspmv_tpu_torch.formats.ell import LBLOCK, NARROW_SPAN, EllMatrix
+from ellspmv_tpu_torch.formats.ell import (LBLOCK, NARROW_SPAN, SLICE_ROWS,
+                                          SLICE_WINDOW, EllMatrix)
 from ellspmv_tpu_torch.ops import _build
 from ellspmv_tpu_torch.utils.timing import span
 
 #: Kernel launches made by `ell_spmv` in this process.
 launches = 0
+#: The part of `launches` on matrices in the sliced layout.
+sliced_launches = 0
 #: Kernel launches made by `fma_probe` in this process.
 probe_launches = 0
 #: `fma_contraction_available` per device, probed once; clearing it makes
@@ -39,7 +42,10 @@ def ell_spmv_torch(ell: EllMatrix, x: torch.Tensor,
     slot in ascending order as the kernel sums them, plus y, accumulated in
     the values' type (float32 for bf16) and returned in the values' type.
     The columns are the ones the kernel reads: decoded from the narrow
-    layout where the matrix has it.
+    layout where the matrix has it. A sliced matrix is laid back into the
+    padded layout first (`EllMatrix.padded`): its rows' sums are the
+    kernel's, which stops at each slice's width, up to the sign of a
+    zero.
 
     The order is fixed, so that a row's sum depends on its own slots alone:
     a device's shard, which holds the diagonal as its last slot
@@ -49,6 +55,7 @@ def ell_spmv_torch(ell: EllMatrix, x: torch.Tensor,
     over the slots (a scan in the values' type, row by row in slot order);
     on the CPU, where ``cumsum`` carries float32 in float64, the slots are
     added in turn."""
+    ell = ell.padded()
     n = ell.num_rows
     dtype = ell.values.dtype
     acc_dt = torch.float32 if dtype == torch.bfloat16 else dtype
@@ -96,7 +103,8 @@ def _check(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
     if ell.colidx.dtype not in _INDEX_TAGS:
         raise TypeError(f"ell_spmv: unsupported index dtype "
                         f"{ell.colidx.dtype}")
-    shape = (ell.rowsize, ell.padded_rows)
+    sl = ell.slices
+    shape = (ell.rowsize, ell.padded_rows) if sl is None else (sl.stored,)
     named = [("colidx", ell.colidx, shape, ell.colidx.dtype),
              ("values", ell.values, shape, dtype),
              ("x", x, (ell.num_columns,), dtype)]
@@ -104,6 +112,11 @@ def _check(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
         named += [("lbase", ell.lbase, (-(-ell.padded_rows // LBLOCK),),
                    ell.colidx.dtype),
                   ("lcol", ell.lcol, shape, torch.int16)]
+    if sl is not None:
+        slices = -(-ell.padded_rows // SLICE_ROWS)
+        named += [("slice width", sl.width, (slices,), torch.int32),
+                  ("slice start", sl.start, (slices,), torch.int64),
+                  ("row ids", sl.rows, (ell.padded_rows,), torch.int16)]
     if ell.diag is not None:
         named.append(("diag", ell.diag, (ell.padded_rows,), dtype))
     if y is not None:
@@ -119,7 +132,7 @@ def _check(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
 
 
 #: The argument types of every ELL entry point of ``csrc/ell_spmv.cu``.
-SPMV_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int64,) * 4 \
+SPMV_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int64,) * 4 \
     + (ctypes.c_void_p,)
 _PROBE_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_void_p)
 
@@ -130,11 +143,12 @@ def ell_spmv(ell: EllMatrix, x: torch.Tensor,
     type. x, y and the matrix share one device and one value type. On a
     card the kernel reads the narrow columns where the matrix has them,
     else `colidx`."""
-    global launches
+    global launches, sliced_launches
     out = _launch(ell, x, y)
     if out is None:
         return ell_spmv_torch(ell, x, y)
     launches += 1
+    sliced_launches += ell.slices is not None
     return out
 
 
@@ -156,7 +170,9 @@ def _launch(ell: EllMatrix, x: torch.Tensor,
             f"ell_spmv: the fused multiply-add on {x.device} does not round "
             "once (fma_probe disagrees with the exact residual)")
     _build.check_constants(("ell_spmv_rows_per_base", LBLOCK),
-                           ("ell_spmv_narrow_span", NARROW_SPAN))
+                           ("ell_spmv_narrow_span", NARROW_SPAN),
+                           ("ell_spmv_slice_rows", SLICE_ROWS),
+                           ("ell_spmv_slice_window", SLICE_WINDOW))
     symbol, args, out = kernel_call(ell, x, y)
     fn, error_string = _build.entry(symbol, SPMV_ARGTYPES)
     err = fn(*args)
@@ -177,9 +193,12 @@ def kernel_call(ell: EllMatrix, x: torch.Tensor, y: torch.Tensor | None):
               f"{_VALUE_TAGS[ell.values.dtype]}_"
               f"{_INDEX_TAGS[ell.colidx.dtype]}")
     out = torch.empty(ell.num_rows, dtype=ell.values.dtype, device=x.device)
+    sl = ell.slices
     args = ((ell.lcol if narrow else ell.colidx).data_ptr(),
             ell.lbase.data_ptr() if narrow else None,
             ell.values.data_ptr(),
+            *((None,) * 3 if sl is None else
+              (sl.width.data_ptr(), sl.start.data_ptr(), sl.rows.data_ptr())),
             None if ell.diag is None else ell.diag.data_ptr(),
             x.data_ptr(), None if y is None else y.data_ptr(),
             out.data_ptr(), ell.num_rows, ell.padded_rows, ell.rowsize,

@@ -21,7 +21,9 @@ def coo_spmv_numpy(coo, x: np.ndarray, y: np.ndarray | None = None
 def ell_spmv_numpy(ell, x: np.ndarray, y: np.ndarray | None = None
                    ) -> np.ndarray:
     """ellgemv/ellgemvsd semantics (ellspmv.c:1129-1180) on the port's
-    slot-major EllMatrix, whatever device its tensors lie on."""
+    slot-major EllMatrix, whatever device its tensors lie on (a sliced one
+    laid back into the padded layout)."""
+    ell = ell.padded()
     n = ell.num_rows
     colidx = ell.colidx[:, :n].cpu().numpy()
     vals = ell.values[:, :n].cpu().double().numpy()

@@ -100,6 +100,7 @@ def row_nonzeros(mat) -> np.ndarray:
     if isinstance(mat, CsrMatrix):
         return np.diff(mat.rowptr.cpu().numpy().astype(np.int64))
     if isinstance(mat, EllMatrix):
+        mat = mat.padded()
         return (mat.values[:, :mat.num_rows] != 0).sum(0).cpu().numpy()
     raise TypeError(f"unsupported matrix type {type(mat)}")
 
@@ -243,6 +244,7 @@ def _host_values(t: torch.Tensor) -> np.ndarray:
 
 
 def _ell_shards(mat: EllMatrix, bounds, block, x_block, position):
+    mat = mat.padded()
     n_dev = len(bounds) - 1
     m, s = mat.num_columns, mat.rowsize
     cols = mat.colidx.cpu().numpy()

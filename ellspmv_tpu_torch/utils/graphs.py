@@ -15,8 +15,9 @@ The kernel wrappers count their launches where they are called (``ops/``).
 During a capture nothing runs: the wrappers' calls only record kernels into
 the graph. `Graph` takes those counts back after the capture and adds them
 again at every replay, so that the counts stay the kernels that ran on the
-card (and so does ``dia_cuda.symmetric_launches``, the part of K2's that
-took its symmetric form).
+card (and so do ``dia_cuda.symmetric_launches``, the part of K2's that
+took its symmetric form, and ``ell_cuda.sliced_launches``, the part of
+K1's on the sliced layout).
 
 A body may hold NCCL collectives (over ranks, ``parallel/``: the allgather
 of x, CG's all_reduces), the counterpart of the collectives inside one jit
@@ -41,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from ellspmv_tpu_torch.ops import dia_cuda, launch_counters
+from ellspmv_tpu_torch.ops import dia_cuda, ell_cuda, launch_counters
 
 
 class Graph:
@@ -59,7 +60,8 @@ class Graph:
             body()
         current.wait_stream(side)
         counters = [*launch_counters().values(),
-                    (dia_cuda, "symmetric_launches")]
+                    (dia_cuda, "symmetric_launches"),
+                    (ell_cuda, "sliced_launches")]
         before = [getattr(m, a) for m, a in counters]
         self.graph = torch.cuda.CUDAGraph()
         try:

@@ -6,7 +6,7 @@ on one CUDA card.
 Run from the root of the repository:
 
     python3 scripts/kernel_variants.py [--graph500-scale 21] \
-        [--kernels K1,K2,K3]
+        [--rgg-scale 24] [--kernels K1,K2,K3]
 
 Each kernel variant is a copy of one source of ``ellspmv_tpu_torch/csrc/``
 (with the headers beside it) in which one choice of the shipped source is
@@ -25,6 +25,15 @@ variant. The stream matrices are config3 (power_law(1,000,000, 8)) and the
 Graph500 Kronecker graph of the benchmark's cell (``spmv_bench/
 generators/kronecker.py``, its configuration's parameters at
 `--graph500-scale`; 0 leaves it out).
+
+K1's layouts are timed in turns on the matrices of the benchmark's
+ELLPACK cells, made by their generators with their configurations'
+parameters (seed 1): NPB CG's class C matrix, and the random geometric
+graph at `--rgg-scale` (0 leaves it out). Each is timed in the padded
+layout (every row as wide as the longest) and in the sliced layout (the
+shipped kernel and each K1 variant), held bit for bit against the padded
+layout's y and each beside its own bytes' bound (``bench/traffic.py``) at
+the card's peak.
 
 Then, on each stream matrix, the whole `stream_spmv` and its level 1
 against the same with level 1 as K1 over the products and K3 in place
@@ -67,17 +76,8 @@ import chip_smoke as cs  # noqa: E402  (the repository root, put on the path)
 K1_SOURCE, K2_SOURCE, K3_SOURCE = "ell_spmv.cu", "dia_spmv.cu", "stream_sum.cu"
 _SLOTS = "constexpr int kSlotBatch = 4;"
 _BOUNDS = "__launch_bounds__(kThreads) ell_spmv_kernel("
-# K1 over a grid of 132 SMs x 8 blocks, each striding over the rows
-_ONE_PAIR = """const int64_t i =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * 2;
-  if (i >= num_rows) return;"""
-_STRIDING = """for (int64_t i =
-           (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * 2;
-       i < num_rows; i += static_cast<int64_t>(gridDim.x) * kBlockRows) {"""
-_LAST_STORE = "if (second) store(y_out + i + 1, acc1); }"
-_GRID = "const auto grid = static_cast<unsigned>(blocks);"
-_SM_GRID = ("const auto grid = static_cast<unsigned>(blocks < 132 * 8 ? "
-            "blocks : 132 * 8);")
+_SLICED_THREADS = "constexpr int kSlicedThreads = 64;"
+_SLICED_BOUNDS = "__launch_bounds__(kSlicedThreads, 16)"
 _PROD_BATCH = "constexpr int kProdBatch = 4;"
 _MAP_BATCH = "constexpr int kMapBatch = 8;"
 _PARTS = "constexpr int kParts = 8;"
@@ -120,11 +120,20 @@ K1_VARIANTS = {
     "slots 4 (shipped)": [],
     "slots 8": [(_SLOTS, _SLOTS.replace("4", "8"))],
     "slots 16": [(_SLOTS, _SLOTS.replace("4", "16"))],
-    "slots 4, 4 blocks/SM": [(_BOUNDS, _BOUNDS.replace(
+    "padded: 4 blocks/SM": [(_BOUNDS, _BOUNDS.replace(
         "(kThreads)", "(kThreads, 4)"))],
-    "slots 4, grid of 132 SMs x 8 blocks": [
-        (_ONE_PAIR, _STRIDING), (_LAST_STORE, _LAST_STORE + " }"),
-        (_GRID, _SM_GRID)],
+    "sliced: 12 blocks/SM": [(_SLICED_BOUNDS, _SLICED_BOUNDS.replace(
+        "16", "12"))],
+    "sliced: 24 blocks/SM": [(_SLICED_BOUNDS, _SLICED_BOUNDS.replace(
+        "16", "24"))],
+    "sliced: no bound on blocks/SM": [(_SLICED_BOUNDS, _SLICED_BOUNDS.replace(
+        ", 16", ""))],
+    "sliced: 128 threads": [
+        (_SLICED_THREADS, _SLICED_THREADS.replace("64", "128")),
+        (_SLICED_BOUNDS, _SLICED_BOUNDS.replace("16", "8"))],
+    "sliced: 256 threads": [
+        (_SLICED_THREADS, _SLICED_THREADS.replace("64", "256")),
+        (_SLICED_BOUNDS, _SLICED_BOUNDS.replace("16", "4"))],
 }
 
 
@@ -290,6 +299,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--graph500-scale", type=int, default=21)
+    parser.add_argument("--rgg-scale", type=int, default=24)
     parser.add_argument("--kernels", default="K1,K2,K3",
                         help="the kernels whose variants are timed")
     args = parser.parse_args()
@@ -309,6 +319,8 @@ def main() -> int:
     cs.log(f"built {len(libs)} variants")
     if "K2" in kernels:
         time_k2(libs, dia_matrices())
+    if "K1" in kernels:
+        time_k1_layouts(libs, layout_matrices(args.rgg_scale))
     if not kernels & {"K1", "K3"}:
         cs.log(f"variants timed on {card}")
         return 0
@@ -333,6 +345,86 @@ def main() -> int:
         del ell
     cs.log(f"variants timed on {card}")
     return 0
+
+
+def layout_matrices(rgg_scale: int) -> dict:
+    """label -> (host COO, whether the cell's multiply adds y) of the
+    ELLPACK cells' matrices: NPB CG's class C matrix (no y: ``q = A·p``)
+    and the random geometric graph at `rgg_scale` (the chained multiply,
+    with y), from their configurations' parameters, seed 1."""
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from spmv_bench.generators import npb_cg, rgg
+
+    def params(name):
+        return json.loads((REPO / "spmv_bench" / "configs" /
+                           f"{name}.json").read_text())["params"]
+
+    def host(m):
+        return CooMatrix(m.num_rows, m.num_rows, m.rows.int().cpu().numpy(),
+                         m.cols.int().cpu().numpy(), m.values.cpu().numpy())
+    out = {"npb_cg_c": (host(npb_cg.generate(params("npb_cg_c"), 1,
+                                             "cuda")), False)}
+    if rgg_scale:
+        out[f"rgg scale {rgg_scale}"] = (host(rgg.generate(
+            {**params("rgg_n_2_24"), "scale": rgg_scale}, 1, "cuda")), True)
+    return out
+
+
+def time_k1_layouts(libs, matrices):
+    """K1 on each matrix of `layout_matrices` in the padded layout and in
+    the sliced layout (the layout `ell_from_coo` builds on the card; each
+    of `K1_VARIANTS`), in turns, beside each layout's bytes' bound."""
+    import torch
+
+    from ellspmv_tpu_torch import config
+    from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.ops import _build, ell_cuda
+    peak = config.hbm_peak_bytes_per_s("cuda")
+    for label in list(matrices):
+        coo, with_y = matrices.pop(label)
+        shipped = ell_from_coo(coo, value_dtype="float64", device="cuda")
+        padded = ell_from_coo(coo, value_dtype="float64").to("cuda")
+        cs.check(shipped.slices is not None and padded.slices is None,
+                 f"K1 {label}: the card's ELL is not sliced")
+        del coo
+        rng = np.random.RandomState(4)
+        x = torch.from_numpy(rng.rand(padded.num_columns)).cuda()
+        y = torch.from_numpy(rng.randn(padded.num_rows)).cuda() \
+            if with_y else None
+        want = ell_cuda.ell_spmv(padded, x, y)
+        cases = {"padded": (padded, None)}
+        for name in K1_VARIANTS:
+            cases[f"sliced, {name}"] = (shipped, libs["K1", name])
+
+        def k1(name):
+            mat, lib = cases[name]
+            symbol, args, out = ell_cuda.kernel_call(mat, x, y)
+            fn = (_build.entry(symbol, ell_cuda.SPMV_ARGTYPES)[0]
+                  if lib is None else
+                  entry(lib, symbol, ell_cuda.SPMV_ARGTYPES))
+            err = fn(*args)
+            cs.check(err == 0, f"K1 {label} {name}: launch error {err}")
+            return out
+
+        def k1_ms(name):
+            cs.check(torch.equal(k1(name), want),
+                     f"K1 {label}: {name} differs from the padded layout")
+            return cs.graph_ms(lambda: k1(name))
+
+        for name, ms in in_turns(cases, k1_ms).items():
+            mat = cases[name][0]
+            nbytes = estimate_actual_bytes(mat, with_y)
+            bound = nbytes / peak * 1e3
+            slots = (mat.rowsize * mat.padded_rows if mat.slices is None
+                     else mat.slices.stored)
+            cs.log(f"K1 {label} float64 {name}: {ms:.4f} ms, "
+                   f"{nbytes / 1e9:.4f} GB, its bytes' bound {bound:.4f} ms "
+                   f"({bound / ms:.1%}; CUDA graph, {mat.num_rows:,} rows, "
+                   f"{slots:,} slots, {mat.num_nonzeros:,} nonzeros, "
+                   f"{'narrow' if mat.lcol is not None else 'wide'} "
+                   f"columns, {'with' if with_y else 'without'} y)")
+        del shipped, padded, cases, want
 
 
 def time_k2(libs, matrices):

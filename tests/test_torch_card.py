@@ -51,7 +51,7 @@ from torch_cases import (CSR_CASES, PLAN_CASES, PRODUCT_CASES,
                                dest_chunked, diagonal_coo,
                                gather_pipeline_spmv,
                                general_targets, geometric_coo, random_coo,
-                               random_products, spmv_inputs,
+                               random_products, rng_coo, spmv_inputs,
                                traceable_case)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -135,6 +135,144 @@ def test_k1_on_a_geometric_graph_on_card():
     assert_rows_close(got.cpu().numpy(), coo, x, y, "float64",
                       want=want.cpu().numpy())
     assert_rows_close(got.cpu().numpy(), coo, x, y, "float64")
+
+
+# -- K1 on the sliced layout ------------------------------------------------
+
+def _npb_coo(params):
+    """NPB CG's matrix of the class `params` names, made on the card by the
+    benchmark's generator, as a host COO."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from spmv_bench.generators import npb_cg
+
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    m = npb_cg.generate(params, 1, "cuda")
+    return CooMatrix(m.num_rows, m.num_rows, m.rows.int().cpu().numpy(),
+                     m.cols.int().cpu().numpy(), m.values.cpu().numpy())
+
+
+def _every_third_row_empty(coo):
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    keep = coo.rowidx % 3 != 0
+    return CooMatrix(coo.num_rows, coo.num_columns, coo.rowidx[keep],
+                     coo.colidx[keep], coo.values[keep])
+
+
+#: NPB CG's class W (npbparams.h).
+NPB_CLASS_W = dict(na=7000, nonzer=8, rcond=0.1, shift=12.0, niter=15)
+
+#: name -> (COO factory, ell_from_coo keywords, narrow columns): matrices
+#: whose rows differ in length, so that the card's whole-matrix ELL is
+#: sliced
+SLICED_CASES = {
+    "rgg_2^16": (lambda: geometric_coo(16, empty_row=100),
+                 {"sort_rows": True}, True),
+    "npb_class_w": (lambda: _npb_coo(NPB_CLASS_W), {}, True),
+    "power_law": (SPMV_CASES["power_law"][0], {}, True),
+    "empty_rows": (lambda: _every_third_row_empty(rng_coo(2000, 1800,
+                                                          15_000)()),
+                   {}, True),
+    "odd_rows_diagonal": (rng_coo(1533, 1533, 9000),
+                          {"separate_diagonal": True}, True),
+    "wide_4_byte": (rng_coo(2100, 300_000, 20_000), {}, False),
+    "int64": (rng_coo(777, 700, 5000), {"index_dtype": "int64"}, True),
+    "f32": (rng_coo(1100, 1000, 7000), {"value_dtype": "float32"}, True),
+    "bf16": (rng_coo(900, 900, 6000), {"value_dtype": "bfloat16"}, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SLICED_CASES))
+def test_sliced_k1_equals_padded_k1_on_card(name):
+    """K1 on the sliced layout `ell_from_coo` builds on the card against
+    K1 on the same rows in the padded layout (built on the host, moved to
+    the card): y bit for bit, with and without y, in place, and within the
+    tolerance of the oracle; each sliced launch counted."""
+    _needs_card()
+    make, kw, narrow = SLICED_CASES[name]
+    coo = make()
+    sliced = ell_from_coo(coo, device="cuda", **kw)
+    padded = ell_from_coo(coo, **kw).to("cuda")
+    assert sliced.slices is not None and padded.slices is None
+    assert (sliced.lcol is not None) is narrow
+    assert sliced.slices.stored < padded.values.numel()
+    precision = kw.get("value_dtype", "float64")
+    dt = sliced.values.dtype
+    rng = np.random.RandomState(21)
+    x64, y64 = rng.rand(coo.num_columns), rng.randn(coo.num_rows)
+    x = torch.from_numpy(x64).cuda().to(dt)
+    for y in (None, torch.from_numpy(y64).cuda().to(dt)):
+        before = ell_cuda.launches, ell_cuda.sliced_launches
+        got = ell_spmv(sliced, x, y)
+        want = ell_spmv(padded, x, y)
+        torch.cuda.synchronize()
+        assert (ell_cuda.launches, ell_cuda.sliced_launches) == (
+            before[0] + 2, before[1] + 1)
+        assert torch.equal(got, want)
+        assert_rows_close(got.double().cpu().numpy(), coo,
+                          x.double().cpu().numpy(),
+                          None if y is None else y.double().cpu().numpy(),
+                          precision)
+    # in place: y_out is y_in
+    y = torch.from_numpy(y64).cuda().to(dt)
+    want = ell_spmv(padded, x, y)
+    symbol, args, _ = ell_cuda.kernel_call(sliced, x, y)
+    args = (*args[:9], y.data_ptr(), *args[10:])
+    fn, _ = _build.entry(symbol, ell_cuda.SPMV_ARGTYPES)
+    assert fn(*args) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+@pytest.mark.cuda
+def test_sliced_launches_through_graph_replays_on_card():
+    """A CUDA graph of K1 on a sliced matrix counts its replays in
+    `sliced_launches`; on a padded one (equal rows) it does not."""
+    _needs_card()
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.utils.graphs import Graph
+    sliced = ell_from_coo(geometric_coo(12), device="cuda")
+    n, k = 4096, 7       # a circulant: every row holds k entries
+    rows = np.repeat(np.arange(n), k)
+    cols = (rows + np.tile(np.arange(k) * 97, n)) % n
+    equal = ell_from_coo(CooMatrix(n, n, rows.astype(np.int32),
+                                   cols.astype(np.int32), np.ones(n * k)),
+                         device="cuda")
+    assert sliced.slices is not None and equal.slices is None
+    for mat, counted in ((sliced, 1), (equal, 0)):
+        x = torch.ones(mat.num_columns, dtype=torch.float64, device="cuda")
+        with Graph(lambda: ell_spmv(mat, x), "cuda") as graph:
+            before = ell_cuda.launches, ell_cuda.sliced_launches
+            for _ in range(3):
+                graph.replay()
+            torch.cuda.synchronize()
+            assert (ell_cuda.launches, ell_cuda.sliced_launches) == (
+                before[0] + 3, before[1] + 3 * counted)
+
+
+@pytest.mark.cuda
+def test_plain_version_on_the_sliced_layout_in_a_graph_on_card():
+    """The plain version lays a sliced matrix back into the padded layout
+    on the card without a host read, so a CUDA graph captures it (as the
+    plain version's CG does); its replay equals the eager call bit for
+    bit, and K1 within the tolerance."""
+    _needs_card()
+    from ellspmv_tpu_torch.utils.graphs import Graph
+    sliced = ell_from_coo(geometric_coo(12, empty_row=7), device="cuda")
+    assert sliced.slices is not None
+    x = torch.from_numpy(np.random.RandomState(9).rand(
+        sliced.num_columns)).cuda()
+    want = ell_cuda.ell_spmv_torch(sliced, x)
+    out = torch.empty_like(want)
+    with Graph(lambda: out.copy_(ell_cuda.ell_spmv_torch(sliced, x)),
+               "cuda") as graph:
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    torch.testing.assert_close(ell_spmv(sliced, x), want, rtol=1e-13,
+                               atol=1e-13 * float(want.abs().max()))
 
 
 # -- K2: the DIA kernel's symmetric form ------------------------------------

@@ -242,3 +242,262 @@ def test_plain_on_narrow_layout_against_jax_kernel(precision, index_dtype):
     scale = max(float(np.max(np.abs(want))), 1.0)
     np.testing.assert_allclose(got, want.astype(got.dtype), rtol=tol,
                                atol=tol * scale)
+
+
+# -- the sliced layout --------------------------------------------------------
+
+def _sliced_everywhere(monkeypatch):
+    """Make the whole-matrix ELLPACK take the sliced layout on the CPU too,
+    as it does on a card, so that its build runs here."""
+    from ellspmv_tpu_torch.formats import ell as ell_mod
+    monkeypatch.setattr(ell_mod, "_slices_on", lambda device: True)
+
+
+# name -> (rows' entry counts from a RandomState, padded_rows)
+PLAN_CASES = {
+    "poisson": (lambda rng: rng.poisson(15.8, 3000), 3000),
+    "power_law": (lambda rng: np.minimum(
+        (rng.pareto(1.5, 2048) * 4).astype(np.int64), 900), 2048),
+    "empty_rows": (lambda rng: rng.poisson(3, 1000) * (rng.rand(1000) < .6),
+                   1000),
+    "odd_rows": (lambda rng: rng.randint(0, 40, 1533), 1536),
+    "one_window": (lambda rng: rng.randint(1, 9, 72), 72),
+    "equal": (lambda rng: np.full(640, 7), 640),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_slice_plan_orders_rows_within_windows(name):
+    """`slice_plan`: each window's rows in a stable order by count, longest
+    first, every row of the window once; each slice as wide as its longest
+    row and placed after the one before; the slots stored the widths times
+    the slice's rows, as counted from the rows' counts alone."""
+    from ellspmv_tpu_torch.formats.ell import (SLICE_ROWS, SLICE_WINDOW,
+                                               slice_plan, sliced_slots)
+    make, p = PLAN_CASES[name]
+    counts = make(np.random.RandomState(1)).astype(np.int64)
+    padded = np.zeros(p, np.int64)
+    padded[:len(counts)] = counts
+    c = SLICE_ROWS
+    rows, width, start = slice_plan(counts, p)
+    assert rows.dtype == np.int16 and width.dtype == np.int32
+    assert start.dtype == np.int64 and len(rows) == p
+    assert len(width) == len(start) == -(-p // c)
+    row = np.arange(p) // SLICE_WINDOW * SLICE_WINDOW + rows
+    assert np.array_equal(np.sort(row), np.arange(p))
+    for w0 in range(0, p, SLICE_WINDOW):
+        w = slice(w0, min(w0 + SLICE_WINDOW, p))
+        want = w0 + np.argsort(-padded[w], kind="stable")
+        assert np.array_equal(row[w], want)
+    held = np.zeros(len(width) * c, np.int64)
+    held[:p] = padded[row]
+    assert np.array_equal(width, held.reshape(-1, c).max(axis=1))
+    assert np.array_equal(start, np.r_[0, np.cumsum(width * c)[:-1]])
+    # the slots, from the counts sorted in each window
+    by_window = np.zeros(-(-p // SLICE_WINDOW) * SLICE_WINDOW, np.int64)
+    by_window[:p] = padded
+    ranked = -np.sort(-by_window.reshape(-1, SLICE_WINDOW), axis=1)
+    assert sliced_slots((rows, width, start)) == c * int(
+        ranked.ravel()[:p:c].sum())
+
+
+def _sliced_cases():
+    from ellspmv_tpu_torch.models.generators import power_law
+    from torch_cases import geometric_coo, random_coo
+    rng = np.random.RandomState(4)
+    return {
+        "power_law": (lambda: power_law(3000, 8, seed=2), {}),
+        "geometric": (lambda: geometric_coo(12, empty_row=100),
+                      {"sort_rows": True}),
+        "banded_diag": (lambda: port_coo_of_jax(
+            banded_random(1533, 7, 40, seed=5)),
+            {"separate_diagonal": True, "sort_rows": True}),
+        "wide": (lambda: random_coo(rng, 2100, 300_000, 20_000), {}),
+        "empty_rows": (lambda: port_coo_of(
+            1000, 900, np.repeat(np.arange(0, 1000, 3), 5)[:1500],
+            np.random.RandomState(3).randint(0, 900, 1500)), {}),
+        "int64_f32": (lambda: power_law(1100, 6, seed=7),
+                      {"index_dtype": "int64", "value_dtype": "float32"}),
+        "bf16": (lambda: power_law(700, 6, seed=8),
+                 {"value_dtype": "bfloat16"}),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_sliced_cases()))
+def test_sliced_layout_keeps_every_rows_slots(name, monkeypatch):
+    """The sliced layout against the padded one built from the same COO:
+    slot s of each position's row at ``start + s * rows + i % rows`` for s
+    below its slice's width, the same column (decoded from the narrow
+    layout where it has one) and value; its narrow layout's bases each
+    their block of positions' least column; fewer slots stored; laid back
+    into the padded layout, the padded arrays bit for bit; and the same
+    y, bit for bit."""
+    from ellspmv_tpu_torch.formats.ell import (LBLOCK, SLICE_ROWS,
+                                               SLICE_WINDOW, ell_from_coo)
+    make, kw = _sliced_cases()[name]
+    coo = make()
+    padded = ell_from_coo(coo, **kw)
+    _sliced_everywhere(monkeypatch)
+    ell = ell_from_coo(coo, **kw)
+    sl = ell.slices
+    assert padded.slices is None and sl is not None
+    assert (ell.rowsize, ell.padded_rows, ell.num_rows) == (
+        padded.rowsize, padded.padded_rows, padded.num_rows)
+    assert sl.stored < padded.values.numel()
+    assert ell.values.shape == ell.colidx.shape == (sl.stored,)
+    assert (ell.lcol is None) == (name == "wide")
+    rows, width, start = (t.numpy() for t in (sl.rows, sl.width, sl.start))
+    pos = np.arange(ell.padded_rows)
+    row = pos // SLICE_WINDOW * SLICE_WINDOW + rows
+    cols = ell.colidx.numpy().astype(np.int64)
+    if ell.lcol is not None:
+        block = np.empty(sl.stored, np.int64)
+        for j in range(len(width)):
+            block[start[j]:start[j] + width[j] * SLICE_ROWS] = \
+                j * SLICE_ROWS // LBLOCK
+        decoded = ell.lbase.numpy().astype(np.int64)[block] \
+            + ell.lcol.numpy().view(np.uint16)
+    want_c, want_v = padded.colidx.numpy(), padded.values
+    got_v = ell.values
+    for s in range(ell.rowsize):
+        live = pos[width[pos // SLICE_ROWS] > s]
+        dest = start[live // SLICE_ROWS] + s * SLICE_ROWS \
+            + live % SLICE_ROWS
+        assert np.array_equal(cols[dest], want_c[s, row[live]])
+        assert torch.equal(got_v[dest], want_v[s, row[live]])
+        if ell.lcol is not None:
+            assert np.array_equal(decoded[dest], want_c[s, row[live]])
+        # the slots dropped are padding: value 0, past the row's entries
+        gone = pos[width[pos // SLICE_ROWS] <= s]
+        assert not want_v[s, row[gone]].any()
+    if ell.lcol is not None:
+        lo = np.full(len(ell.lbase), np.iinfo(np.int64).max)
+        np.minimum.at(lo, block, decoded)
+        assert np.array_equal(ell.lbase.numpy()[lo < 2**62],
+                              lo[lo < 2**62])
+    back = ell.padded()
+    assert torch.equal(back.colidx, padded.colidx)
+    assert torch.equal(back.values, padded.values)
+    assert torch.equal(ell.columns(), padded.colidx)
+    if padded.diag is not None:
+        assert torch.equal(ell.diag, padded.diag)
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.rand(coo.num_columns)).to(ell.values.dtype)
+    y = torch.from_numpy(rng.randn(coo.num_rows)).to(ell.values.dtype)
+    assert torch.equal(ell_spmv(ell, x, y), ell_spmv(padded, x, y))
+    assert torch.equal(ell_spmv(ell, x), ell_spmv(padded, x))
+    np.testing.assert_array_equal(
+        ell_spmv_numpy(ell, x.double().numpy(), y.double().numpy()),
+        ell_spmv_numpy(padded, x.double().numpy(), y.double().numpy()))
+    moved = ell.to("cpu")
+    assert moved.slices is not None and torch.equal(moved.values, ell.values)
+
+
+def test_sliced_layout_holds_the_jax_packages_arrays(monkeypatch):
+    """The host packing is the JAX package's whether or not the matrix is
+    then sliced: the sliced matrix laid back into the padded layout holds
+    the JAX package's colidx, values and diagonal, bit for bit, and the
+    plain version gives the JAX kernel's y."""
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    coo = banded_random(1000, 9, 60, seed=2)
+    jell = jax_ell_from_coo(coo, sort_rows=True, separate_diagonal=True,
+                            value_dtype=np.float64)
+    _sliced_everywhere(monkeypatch)
+    ell = ell_from_coo(port_coo_of_jax(coo), sort_rows=True,
+                       separate_diagonal=True, value_dtype="float64")
+    assert ell.slices is not None
+    back = ell.padded()
+    np.testing.assert_array_equal(back.colidx.numpy(),
+                                  np.asarray(jell.colidx).T)
+    np.testing.assert_array_equal(back.values.numpy(),
+                                  np.asarray(jell.values).T)
+    np.testing.assert_array_equal(ell.diag.numpy(), np.asarray(jell.diag))
+    x = np.random.RandomState(7).rand(jell.num_columns)
+    assert_fp64_close(_port(ell, x, None, "float64"),
+                      _jax(jell, x, None, "float64"))
+
+
+def test_equal_rows_are_not_sliced(monkeypatch):
+    """A matrix whose rows all hold the same count stores no fewer slots in
+    slices: it keeps the padded layout, and so does a SELL bucket."""
+    from ellspmv_tpu_torch.formats.coo import CooMatrix
+    from ellspmv_tpu_torch.formats.ell import (ell_from_coo, slice_plan,
+                                               sliced_slots,
+                                               whole_matrix_plan)
+    from ellspmv_tpu_torch.utils import timing
+    n, k = 1000, 7
+    rows = np.repeat(np.arange(n), k).astype(np.int32)
+    cols = ((rows.astype(np.int64) * 13 + np.tile(np.arange(k), n) * 101)
+            % n).astype(np.int32)
+    coo = CooMatrix(n, n, rows, cols, np.random.RandomState(0).rand(n * k))
+    counts = np.full(n, k)
+    assert sliced_slots(slice_plan(counts, n)) >= n * k
+    assert whole_matrix_plan(counts, n, k) is None
+    _sliced_everywhere(monkeypatch)
+    with timing.recording() as rec:
+        ell = ell_from_coo(coo)
+    assert ell.slices is None and ell.values.shape == (k, n)
+    (build,) = rec.find("formats.build.ell")
+    assert build.attrs["sliced"] is False
+    assert build.attrs["slots"] == build.attrs["padded_slots"] == n * k
+
+
+def test_other_paths_keep_the_padded_layout(monkeypatch):
+    """Where the whole matrix is sliced, the SELL buckets, the hybrid's
+    parts, the stream format's products, the CSR's sliced-ELL repack and
+    the shards over ranks (built from the sliced matrix) keep the padded
+    layout, each through its own constructor."""
+    from ellspmv_tpu_torch.formats.csr import csr_from_coo
+    from ellspmv_tpu_torch.formats.ell import ell_from_coo
+    from ellspmv_tpu_torch.formats.hybrid import hybrid_from_coo
+    from ellspmv_tpu_torch.formats.sell import sell_from_coo
+    from ellspmv_tpu_torch.formats.stream import stream_from_coo
+    from ellspmv_tpu_torch.models.generators import power_law
+    from ellspmv_tpu_torch.ops.csr import to_sell
+    from ellspmv_tpu_torch.parallel.spmv import shard_matrix
+    _sliced_everywhere(monkeypatch)
+    coo = power_law(3000, 8, seed=2)
+    whole = ell_from_coo(coo, sort_rows=True)
+    assert whole.slices is not None
+    sell = sell_from_coo(coo, sort_rows=True, length_sort=True)
+    hybrid = hybrid_from_coo(coo)
+    stream = stream_from_coo(coo)
+    sharded = shard_matrix(whole, 3)
+    padded = [*sell.buckets, *hybrid.rest.buckets,
+              *([] if hybrid.hub is None else hybrid.hub.buckets),
+              stream.prod, *to_sell(csr_from_coo(coo)).buckets,
+              *(s.matrix for s in sharded.shards)]
+    assert len(padded) > 6
+    assert all(e.slices is None and e.values.dim() == 2 for e in padded)
+    monkeypatch.undo()
+    want = shard_matrix(ell_from_coo(coo, sort_rows=True), 3)
+    for a, b in zip(sharded.shards, want.shards):
+        assert torch.equal(a.matrix.colidx, b.matrix.colidx)
+        assert torch.equal(a.matrix.values, b.matrix.values)
+
+
+def test_sliced_bytes_count_the_slices():
+    """`estimate_actual_bytes` of a sliced ELL: the slots stored, their
+    columns at the width K1 reads them, each slice's width and offset and
+    each position's row id, x, y and the output; below the padded
+    layout's."""
+    from ellspmv_tpu_torch.bench.traffic import estimate_actual_bytes
+    from ellspmv_tpu_torch.formats import ell as ell_mod
+    from ellspmv_tpu_torch.models.generators import power_law
+    coo = power_law(3000, 8, seed=2)
+    padded = ell_mod.ell_from_coo(coo)
+    counts = np.bincount(coo.rowidx, minlength=coo.num_rows)
+    plan = ell_mod.whole_matrix_plan(counts, padded.padded_rows,
+                                     padded.rowsize)
+    rows_major = (padded.colidx.t(), padded.values.t())
+    ell = ell_mod._sliced(*rows_major, None, padded.num_rows,
+                          padded.num_columns, padded.num_nonzeros,
+                          torch.float64, tuple(map(torch.from_numpy, plan)))
+    sl, n, p = ell.slices, ell.num_rows, ell.padded_rows
+    assert ell.lcol is not None
+    table = 4 * len(sl.width) + 8 * len(sl.start) + 2 * p
+    want = (8 * sl.stored + 2 * sl.stored + 4 * len(ell.lbase) + table
+            + 8 * coo.num_columns + 2 * 8 * n)
+    assert estimate_actual_bytes(ell) == want
+    assert estimate_actual_bytes(ell, with_y=False) == want - 8 * n
+    assert want < estimate_actual_bytes(padded)

@@ -2,7 +2,8 @@
 DIMACS10's random geometric graph numbered by grid cell (the class the
 benchmark's ``rgg_n_2_24`` cell runs at 2^24) the chooser keeps ELL, and
 the attributes of ``formats.price.ell`` (`rowsize`, `slots`, `narrow`)
-and ``formats.build.ell`` (those and `nonzeros`) are the built ELL's."""
+and ``formats.build.ell`` (those, `nonzeros`, `sliced` and
+`padded_slots`) are the built ELL's."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,17 @@ from torch_cases import geometric_coo, random_coo
 def _attrs(ell):
     return {"rowsize": ell.rowsize, "slots": ell.ellsize,
             "narrow": ell.lcol is not None}
+
+
+def _build_attrs(ell):
+    """The build span's attributes of `ell`: the price's, `nonzeros`,
+    whether it is `sliced` and the padded layout's slots; `slots` the
+    slices' where it is sliced."""
+    attrs = {**_attrs(ell), "nonzeros": ell.num_nonzeros,
+             "sliced": ell.slices is not None, "padded_slots": ell.ellsize}
+    if ell.slices is not None:
+        attrs["slots"] = ell.slices.stored
+    return attrs
 
 
 @pytest.fixture(scope="module")
@@ -36,7 +48,7 @@ def test_the_chooser_keeps_ell_on_a_geometric_graph(geometric):
     (price,) = rec.find("formats.price.ell")
     (build,) = rec.find("formats.build.ell")
     assert price.attrs == _attrs(ell)
-    assert build.attrs == {**_attrs(ell), "nonzeros": ell.num_nonzeros}
+    assert build.attrs == _build_attrs(ell)
     assert build.attrs["nonzeros"] == geometric.num_nonzeros
     assert build.attrs["slots"] == geometric.num_rows * counts.max()
     # the stream format is priced by its least bytes alone, not laid out
@@ -58,7 +70,7 @@ def test_the_build_span_is_the_built_ells(case, geometric):
     with timing.recording() as rec:
         ell = ell_from_coo(coo, **kw)
     (build,) = rec.find("formats.build.ell")
-    assert build.attrs == {**_attrs(ell), "nonzeros": ell.num_nonzeros}
+    assert build.attrs == _build_attrs(ell)
     assert build.attrs["narrow"] is (case != "wide")
 
 
@@ -74,3 +86,24 @@ def test_the_price_span_says_wide_where_blocks_reach_far():
     (build,) = rec.find("formats.build.ell")
     assert price.attrs == _attrs(ell) == {
         k: build.attrs[k] for k in ("rowsize", "slots", "narrow")}
+
+
+@pytest.mark.parametrize("case", ["geometric", "banded", "wide"])
+def test_the_build_span_of_a_sliced_ell(case, geometric, monkeypatch):
+    """The whole matrix sliced (as on a card; here by making the CPU take
+    the layout): the span says `sliced`, its `slots` are the slices' and
+    fewer than the padded layout's `padded_slots`, and `narrow` is the
+    sliced layout's own."""
+    from ellspmv_tpu_torch.formats import ell as ell_mod
+    monkeypatch.setattr(ell_mod, "_slices_on", lambda device: True)
+    coo = {"geometric": geometric,
+           "banded": banded_random(3000, 8, 500, seed=2),
+           "wide": random_coo(np.random.RandomState(3), 3000, 200_000,
+                              20_000)}[case]
+    with timing.recording() as rec:
+        ell = ell_from_coo(coo)
+    (build,) = rec.find("formats.build.ell")
+    assert build.attrs == _build_attrs(ell)
+    assert build.attrs["sliced"] is True
+    assert build.attrs["slots"] < build.attrs["padded_slots"]
+    assert build.attrs["narrow"] is (case != "wide")
