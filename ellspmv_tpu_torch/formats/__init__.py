@@ -3,6 +3,7 @@ copy to the card shares."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -30,10 +31,20 @@ def tensor_bytes(obj) -> int:
 def upload(device, fmt: str, *held):
     """The span of a copy of format `fmt`'s arrays, those `held` holds, to
     `device`: ``formats.upload`` with their bytes on a card, counted only
-    while a recording is open. Nothing on the host, where the copy is part
-    of the build, nor inside another upload, which the copy is part of."""
+    where the span is kept (``utils/timing.py``: inside a set-up entry or a
+    recording), and the card waited for before it closes. Nothing on the
+    host, where the copy is part of the build, nor inside another upload,
+    which the copy is part of."""
     names = timing.open_spans()
     if (names is None or "formats.upload" in names
             or torch.device(device).type == "cpu"):
         return timing.NOTHING
-    return timing.span("formats.upload", fmt=fmt, bytes=tensor_bytes(held))
+    return _kept_upload(torch.device(device), fmt, tensor_bytes(held))
+
+
+@contextlib.contextmanager
+def _kept_upload(device: torch.device, fmt: str, nbytes: int):
+    with timing.span("formats.upload", fmt=fmt, bytes=nbytes):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)

@@ -85,7 +85,8 @@ def auto_from_coo(coo: CooMatrix, separate_diagonal: bool = False,
     reporting. Only the chosen matrix is built on `device`.
 
     The work is recorded in spans (``utils/timing.py``): the root
-    ``formats.auto_from_coo`` (attributes `rows`, `nonzeros`, `choice`),
+    ``formats.auto_from_coo`` (attributes `rows`, `nonzeros`, `choice`; a
+    set-up entry, whose tree the set-up log keeps),
     ``formats.counts`` (what every candidate shares),
     ``formats.price.<fmt>`` and ``formats.build.<fmt>`` for each candidate
     priced or built on the host (``formats.price.sell`` with the SELL

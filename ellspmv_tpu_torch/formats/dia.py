@@ -96,12 +96,16 @@ def dia_from_coo(coo, max_diags: int = 32, value_dtype=None,
     distinct diagonals; duplicates accumulate. Returns None otherwise.
 
     `value_dtype` is a ``--precision`` name or a torch type (default: the
-    COO's values' type)."""
+    COO's values' type). The span ``formats.build.dia`` (`symmetric`)
+    holds ``dia.offsets`` (the distinct offsets), ``dia.scatter`` (the
+    entries added into their diagonals) and ``dia.mirrored``; the copy to
+    `device` follows it."""
     with span("formats.build.dia") as build:
-        coo = coo.expand_symmetry()
-        n, m = coo.num_rows, coo.num_columns
-        off = coo.colidx.astype(np.int64) - coo.rowidx.astype(np.int64)
-        offsets = np.unique(off)
+        with span("dia.offsets"):
+            coo = coo.expand_symmetry()
+            n, m = coo.num_rows, coo.num_columns
+            off = coo.colidx.astype(np.int64) - coo.rowidx.astype(np.int64)
+            offsets = np.unique(off)
         if len(offsets) > max_diags:
             return None
         dtype = config.value_dtype(coo.values.dtype if value_dtype is None
@@ -109,12 +113,14 @@ def dia_from_coo(coo, max_diags: int = 32, value_dtype=None,
         # bf16 has no numpy type: accumulate in float64, round on the device
         host_dt = (np.dtype(np.float64) if dtype == torch.bfloat16
                    else torch.empty(0, dtype=dtype).numpy().dtype)
-        data = np.zeros((len(offsets), n), host_dt)
-        k = np.searchsorted(offsets, off)
-        np.add.at(data, (k, coo.rowidx.astype(np.int64)), coo.values)
+        with span("dia.scatter"):
+            data = np.zeros((len(offsets), n), host_dt)
+            k = np.searchsorted(offsets, off)
+            np.add.at(data, (k, coo.rowidx.astype(np.int64)), coo.values)
         offsets = tuple(int(o) for o in offsets)
         # on the host values: bf16 rounds equal values to equal values
-        symmetric = mirrored(data, offsets, n, m)
+        with span("dia.mirrored"):
+            symmetric = mirrored(data, offsets, n, m)
         build.set(symmetric=symmetric)
     return DiaMatrix(_put(data, dtype, device), offsets, n, m,
                      coo.num_nonzeros, symmetric)

@@ -391,22 +391,30 @@ def _on_device(colidx, values, diag, num_rows, num_columns, num_nonzeros,
                dtype, device, fmt, narrow, plan=None) -> EllMatrix:
     """`ell_from_row_major`'s copy to `device`, with the narrow layout
     `narrow_columns` found (or None); laid out in slices where a
-    `slice_plan` is given."""
+    `slice_plan` is given. Spans ``ell.copy`` (the copies, and the padded
+    layout's transposes) and ``ell.slices`` (`_sliced`)."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     with upload(device, fmt, colidx, values, diag, narrow):
-        d = None if diag is None else put(diag).to(dtype)
-        if plan is not None:
-            return _sliced(put(colidx), put(values), d, num_rows,
-                           num_columns, num_nonzeros, dtype,
-                           tuple(map(put, plan)))
-        lbase = lcol = None
-        if narrow is not None:
-            lbase, lcol = put(narrow[0]), put(narrow[1]).t().contiguous()
-        return EllMatrix(put(colidx).t().contiguous(),
-                         put(values).t().contiguous().to(dtype), d,
-                         num_rows, num_columns, num_nonzeros, lbase, lcol)
+        with span("ell.copy"):
+            d = None if diag is None else put(diag).to(dtype)
+            if plan is None:
+                lbase = lcol = None
+                if narrow is not None:
+                    lbase = put(narrow[0])
+                    lcol = put(narrow[1]).t().contiguous()
+                return EllMatrix(put(colidx).t().contiguous(),
+                                 put(values).t().contiguous().to(dtype), d,
+                                 num_rows, num_columns, num_nonzeros, lbase,
+                                 lcol)
+            padded = [put(colidx), put(values)]
+            plan = tuple(map(put, plan))
+        with span("ell.slices"):
+            # taken out of `padded`, so that `_sliced` holds the only
+            # references and frees the padded arrays once it has read them
+            return _sliced(padded.pop(0), padded.pop(0), d, num_rows,
+                           num_columns, num_nonzeros, dtype, plan)
 
 
 def _sliced(colidx, values, diag, num_rows, num_columns, num_nonzeros,
@@ -470,23 +478,29 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
     sliced layout on a card where `whole_matrix_plan` stores fewer slots.
     The span ``formats.build.ell`` records `sliced`, the `slots` K1 reads
     (rows × rowsize padded, the slices' slots sliced), the padded layout's
-    `padded_slots` and whether the columns built are `narrow`.
+    `padded_slots` and whether the columns built are `narrow`. Its
+    children: ``ell.expand_symmetry``, ``ell.counts`` (the diagonal split
+    and the rows' counts), ``ell.fill`` (the sort and the padded arrays),
+    ``ell.slice_plan`` (`whole_matrix_plan`, on a card) and
+    ``ell.narrow_columns`` (where the matrix is not sliced). The copy to
+    `device` follows the build (`_on_device`).
     """
     if row_tile <= 0 or row_tile % ROW_TILE:
         raise ValueError(f"row_tile {row_tile} is not a positive multiple "
                          f"of {ROW_TILE}")
     whole = row_tile == ROW_TILE and rowsize is None
     with span("formats.build.ell") as build:
-        coo = coo.expand_symmetry()
+        with span("ell.expand_symmetry"):
+            coo = coo.expand_symmetry()
         n, m = coo.num_rows, coo.num_columns
         nnz_total = coo.num_nonzeros
 
-        diag = None
-        if separate_diagonal:
-            coo, diag = coo.split_diagonal()
-
-        counts = (np.bincount(coo.rowidx, minlength=n) if n
-                  else np.zeros(0, int))
+        with span("ell.counts"):
+            diag = None
+            if separate_diagonal:
+                coo, diag = coo.split_diagonal()
+            counts = (np.bincount(coo.rowidx, minlength=n) if n
+                      else np.zeros(0, int))
         natural_rowsize = int(counts.max()) if n and counts.size else 0
         if rowsize is None:
             rowsize = natural_rowsize
@@ -503,45 +517,51 @@ def ell_from_coo(coo, separate_diagonal: bool = False,
                    else torch.empty(0, dtype=dtype).numpy().dtype)
 
         n_pad = max(_round_up(n, row_tile), row_tile)
-        colidx = values = None
-        if coo.num_nonzeros and rowsize and idx_dt == np.dtype(np.int32):
-            # the native counting-sort packer, where the host library is
-            # available (the reference packs in parallel C,
-            # ellspmv.c:1081-1127)
-            if native.available():
-                colidx, values = native.ell_pack(n, m, n_pad, rowsize,
-                                                 coo.rowidx, coo.colidx,
-                                                 coo.values, sort_rows)
-                values = values.astype(host_dt, copy=False)
-        if colidx is None:
-            # allocated only here: the native packer returns its own arrays
-            pad_col = np.minimum(np.arange(n_pad, dtype=idx_dt),
-                                 max(m - 1, 0)).astype(idx_dt)
-            colidx = np.broadcast_to(pad_col[:, None], (n_pad, rowsize)).copy()
-            values = np.zeros((n_pad, rowsize), host_dt)
-            if coo.num_nonzeros and rowsize:
-                # One sort by (row [, col]) gives each entry its slot: the
-                # reference's per-row fill cursor (ellspmv.c:1097-1107) and
-                # rowsort.
-                if sort_rows:
-                    order = np.lexsort((coo.colidx, coo.rowidx))
-                else:
-                    order = np.argsort(coo.rowidx, kind="stable")
-                r = coo.rowidx[order]
-                rowptr = np.zeros(n + 1, dtype=np.int64)
-                rowptr[1:] = np.cumsum(counts)
-                slot = np.arange(len(r), dtype=np.int64) - rowptr[r]
-                colidx[r, slot] = coo.colidx[order].astype(idx_dt)
-                values[r, slot] = coo.values[order].astype(host_dt)
+        with span("ell.fill"):
+            colidx = values = None
+            if coo.num_nonzeros and rowsize and idx_dt == np.dtype(np.int32):
+                # the native counting-sort packer, where the host library
+                # is available (the reference packs in parallel C,
+                # ellspmv.c:1081-1127)
+                if native.available():
+                    colidx, values = native.ell_pack(n, m, n_pad, rowsize,
+                                                     coo.rowidx, coo.colidx,
+                                                     coo.values, sort_rows)
+                    values = values.astype(host_dt, copy=False)
+            if colidx is None:
+                # allocated only here: the native packer returns its own
+                # arrays
+                pad_col = np.minimum(np.arange(n_pad, dtype=idx_dt),
+                                     max(m - 1, 0)).astype(idx_dt)
+                colidx = np.broadcast_to(pad_col[:, None],
+                                         (n_pad, rowsize)).copy()
+                values = np.zeros((n_pad, rowsize), host_dt)
+                if coo.num_nonzeros and rowsize:
+                    # One sort by (row [, col]) gives each entry its slot:
+                    # the reference's per-row fill cursor
+                    # (ellspmv.c:1097-1107) and rowsort.
+                    if sort_rows:
+                        order = np.lexsort((coo.colidx, coo.rowidx))
+                    else:
+                        order = np.argsort(coo.rowidx, kind="stable")
+                    r = coo.rowidx[order]
+                    rowptr = np.zeros(n + 1, dtype=np.int64)
+                    rowptr[1:] = np.cumsum(counts)
+                    slot = np.arange(len(r), dtype=np.int64) - rowptr[r]
+                    colidx[r, slot] = coo.colidx[order].astype(idx_dt)
+                    values[r, slot] = coo.values[order].astype(host_dt)
 
         if diag is not None:
             d = np.zeros(n_pad, host_dt)
             d[:len(diag)] = diag.astype(host_dt)
             diag = d
-        plan = None
+        plan = narrow = None
         if whole and _slices_on(device):
-            plan = whole_matrix_plan(counts, n_pad, rowsize)
-        narrow = narrow_columns(colidx) if plan is None else None
+            with span("ell.slice_plan"):
+                plan = whole_matrix_plan(counts, n_pad, rowsize)
+        if plan is None:
+            with span("ell.narrow_columns"):
+                narrow = narrow_columns(colidx)
         build.set(rowsize=rowsize, nonzeros=nnz_total, sliced=plan is not None,
                   slots=n * rowsize if plan is None else sliced_slots(plan),
                   padded_slots=n * rowsize, narrow=narrow is not None)

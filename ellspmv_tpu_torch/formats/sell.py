@@ -388,28 +388,38 @@ def sell_shape(coo: CooMatrix, slice_rows: int = 1024, tail_cap: int = 64,
     layout needs only each row's extremes (``formats/ell.narrow_rows_fit``).
     The split (`_split`) takes the long rows' entries alone in (row,
     column) order (`_row_order`). The length sort sorts the rows, not the
-    entries."""
-    coo = coo.expand_symmetry()
-    n, m = coo.num_rows, coo.num_columns
+    entries.
+
+    Its steps are spans (inside the chooser's ``formats.price.sell``):
+    ``sell_shape.extremes`` (the rows' counts and extremes), then
+    ``sell_shape.split`` (the long rows' entries sorted and split) or
+    ``sell_shape.tail`` (the columns kept out of the tail), and
+    ``sell_shape.rows`` (`_shape_of_rows`)."""
+    with span("sell_shape.extremes"):
+        coo = coo.expand_symmetry()
+        n, m = coo.num_rows, coo.num_columns
+        rows, cols = coo.rowidx, coo.colidx
+        counts = (np.bincount(rows, minlength=n) if n
+                  else np.zeros(0, np.int64))
+        lo, hi = _row_extremes(rows, cols, counts, m,
+                               _in_row_order(rows, cols))
     dtype = config.value_dtype(coo.values.dtype if value_dtype is None
                                else value_dtype)
     value_bytes = torch.empty(0, dtype=dtype).element_size()
-    rows, cols = coo.rowidx, coo.colidx
-    counts = (np.bincount(rows, minlength=n) if n
-              else np.zeros(0, np.int64))
-    lo, hi = _row_extremes(rows, cols, counts, m, _in_row_order(rows, cols))
     common = dict(m=m, R=slice_rows, value_bytes=value_bytes,
                   index_dtype=index_dtype)
     if split_rows and n and (counts > split_len).any():
-        sub, lo, hi, _ = _split(
-            _columns_of(rows, cols, counts > split_len, True, m), counts, lo,
-            hi, split_len, split_cols, m)
+        with span("sell_shape.split"):
+            sub, lo, hi, _ = _split(
+                _columns_of(rows, cols, counts > split_len, True, m), counts,
+                lo, hi, split_len, split_cols, m)
         # the split's recursion: no tail, and the length sort's band at
         # its default
-        built = _shape_of_rows(sub, lo, lo, hi, tail_cap=max(tail_cap,
-                                                             split_len),
-                               length_sort=length_sort,
-                               split_cols=SPLIT_COLS, **common)
+        with span("sell_shape.rows"):
+            built = _shape_of_rows(sub, lo, lo, hi,
+                                   tail_cap=max(tail_cap, split_len),
+                                   length_sort=length_sort,
+                                   split_cols=SPLIT_COLS, **common)
         return dataclasses.replace(built, num_rows=n, extra_rows=len(sub) - n,
                                    trivial_reassembly=False)
     if split_rows:
@@ -419,15 +429,17 @@ def sell_shape(coo: CooMatrix, slice_rows: int = 1024, tail_cap: int = 64,
     if tail_cap and over.any():
         # such a row keeps its first `tail_cap` entries, by column when
         # sorting, else in file order; the rest go to the tail
-        c = _columns_of(rows, cols, over, sort_rows, m)
-        lens = counts[over]
-        kept = c[((np.cumsum(lens) - lens)[:, None]
-                  + np.arange(tail_cap)).ravel()].reshape(-1, tail_cap)
-        kept_lo, kept_hi = lo.copy(), hi.copy()
-        kept_lo[over], kept_hi[over] = kept.min(axis=1), kept.max(axis=1)
-    return _shape_of_rows(counts, lo, kept_lo, kept_hi, tail_cap=tail_cap,
-                          length_sort=length_sort, split_cols=split_cols,
-                          **common)
+        with span("sell_shape.tail"):
+            c = _columns_of(rows, cols, over, sort_rows, m)
+            lens = counts[over]
+            kept = c[((np.cumsum(lens) - lens)[:, None]
+                      + np.arange(tail_cap)).ravel()].reshape(-1, tail_cap)
+            kept_lo, kept_hi = lo.copy(), hi.copy()
+            kept_lo[over], kept_hi[over] = kept.min(axis=1), kept.max(axis=1)
+    with span("sell_shape.rows"):
+        return _shape_of_rows(counts, lo, kept_lo, kept_hi,
+                              tail_cap=tail_cap, length_sort=length_sort,
+                              split_cols=split_cols, **common)
 
 
 def _in_row_order(rows, cols) -> bool:

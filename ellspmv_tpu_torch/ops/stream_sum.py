@@ -59,6 +59,7 @@ from ellspmv_tpu_torch.ops import _build, ell_cuda
 from ellspmv_tpu_torch.ops.ell_cuda import check_tensors
 from ellspmv_tpu_torch.ops.permute import (BLOCK, apply_permute,
                                            gather_from_targets)
+from ellspmv_tpu_torch.utils.timing import span
 
 #: Kernel launches made by `stream_sum` in this process: of the entry points
 #: that read the stream in place (`launches`), of those that read it
@@ -560,19 +561,20 @@ def _build_chunked_level1(dest: np.ndarray, n_rows: int, cap: int,
     merge level."""
     chunk_starts = [int(s) for s in chunk_starts]
     C = len(chunk_starts) - 1
-    valid = dest >= 0
-    counts_global = np.bincount(dest[valid], minlength=n_rows)
-    empty_mask = counts_global == 0
-    if not empty_mask.any():
-        empty_mask = None
+    with span("stream.chunk_counts", chunks=C):
+        valid = dest >= 0
+        counts_global = np.bincount(dest[valid], minlength=n_rows)
+        empty_mask = counts_global == 0
+        if not empty_mask.any():
+            empty_mask = None
 
-    touch = np.zeros(n_rows, np.int16)
-    for c in range(C):
-        seg = dest[chunk_starts[c]:chunk_starts[c + 1]]
-        segv = seg[seg >= 0]
-        if len(segv):
-            touch += (np.bincount(segv, minlength=n_rows) > 0)
-    force_multi = touch >= 2
+        touch = np.zeros(n_rows, np.int16)
+        for c in range(C):
+            seg = dest[chunk_starts[c]:chunk_starts[c + 1]]
+            segv = seg[seg >= 0]
+            if len(segv):
+                touch += (np.bincount(segv, minlength=n_rows) > 0)
+        force_multi = touch >= 2
 
     parts = []
     for c in range(C):
@@ -581,11 +583,13 @@ def _build_chunked_level1(dest: np.ndarray, n_rows: int, cap: int,
         if not (seg >= 0).any() and emp is None:
             parts.append((None, None, 0, len(seg)))
             continue
-        level, od, top = _build_level(
-            seg, n_rows, cap, include_empty_rows=False,
-            force_multi=force_multi, empty_terminal=emp)
+        with span("stream.level", level=1, chunk=c):
+            level, od, top = _build_level(
+                seg, n_rows, cap, include_empty_rows=False,
+                force_multi=force_multi, empty_terminal=emp)
         parts.append((level, od, top, len(seg)))
-    return _splice_chunk_levels(parts)
+    with span("stream.chunk_splice"):
+        return _splice_chunk_levels(parts)
 
 
 def _sum_table(buckets: list, parts: int = Q) -> SumTable:
@@ -607,7 +611,9 @@ def _sum_table(buckets: list, parts: int = Q) -> SumTable:
     per_subtile = np.concatenate(per_subtile)
     slot_ptr = np.concatenate([[0], np.cumsum(per_subtile)])
     count = np.concatenate([np.zeros(0, np.int64)] + counts)
-    order, block_first, block_runs = _block_schedule(slot_ptr, count, parts)
+    with span("stream.block_schedule"):
+        order, block_first, block_runs = _block_schedule(slot_ptr, count,
+                                                         parts)
     return SumTable(
         slot_ptr=torch.from_numpy(slot_ptr.astype(np.int32)),
         run_start=torch.from_numpy(
@@ -683,13 +689,17 @@ def _check_sources(table: SumTable, src: np.ndarray) -> None:
 def _attach_maps(plan: StreamSumPlan) -> None:
     """Build each level's kernel table, check each level's map against it,
     place the levels' outputs in one buffer, and compose each deeper
-    level's map and the final one into that buffer; all on the CPU."""
+    level's map and the final one into that buffer; all on the CPU. Spans
+    ``stream.tables`` (`_sum_table`, holding ``stream.block_schedule``) and
+    ``stream.check_sources``, one of each a level (`level`)."""
     offset = 0
     terminal = []       # buffer index of each terminal output, level order
     for i, lv in enumerate(plan.levels):
-        lv.table = _sum_table(lv.buckets)
+        with span("stream.tables", level=i + 1):
+            lv.table = _sum_table(lv.buckets)
         src = position_map(lv)
-        _check_sources(lv.table, src)
+        with span("stream.check_sources", level=i + 1):
+            _check_sources(lv.table, src)
         if i > 0:    # input k is output k of the level before
             lv.src = torch.from_numpy(np.where(
                 src >= 0, src + plan.levels[i - 1].out_offset,
@@ -715,7 +725,13 @@ def build_stream_sum(dest: np.ndarray, n_rows: int, cap: int = 128,
 
     `chunk_starts` (C+1 cumulative entry boundaries; entries must be
     chunk-contiguous) builds a column-chunked level 1: per-chunk partial
-    sums in per-chunk stream regions, merged by the deeper levels."""
+    sums in per-chunk stream regions, merged by the deeper levels.
+
+    Its steps are spans (inside the stream layout's ``stream.sum_plan``):
+    a chunked level 1's ``stream.chunk_counts``, a ``stream.level`` a
+    chunk (`level` 1, `chunk`) and ``stream.chunk_splice``; a
+    ``stream.level`` for each further level (`level`); ``stream.fold``
+    after each level (`level`); and ``stream.attach_maps``."""
     levels = []
     cur = np.asarray(dest, np.int64)
     first = True
@@ -723,20 +739,24 @@ def build_stream_sum(dest: np.ndarray, n_rows: int, cap: int = 128,
     if chunk_starts is not None and len(chunk_starts) > 2:
         level, cur, chunk_bases = _build_chunked_level1(cur, n_rows, cap,
                                                         chunk_starts)
-        _fold_buckets(level)
+        with span("stream.fold", level=1):
+            _fold_buckets(level)
         levels.append(level)
         first = False
     while cur is not None:
-        level, cur, _ = _build_level(cur, n_rows, cap,
-                                     include_empty_rows=first)
-        _fold_buckets(level)
+        with span("stream.level", level=len(levels) + 1):
+            level, cur, _ = _build_level(cur, n_rows, cap,
+                                         include_empty_rows=first)
+        with span("stream.fold", level=len(levels) + 1):
+            _fold_buckets(level)
         levels.append(level)
         first = False
     plan = StreamSumPlan(levels=levels,
                          final_keys=np.concatenate([lv.tkeys
                                                     for lv in levels]),
                          num_rows=n_rows, chunk_bases=chunk_bases)
-    _attach_maps(plan)
+    with span("stream.attach_maps"):
+        _attach_maps(plan)
     return plan
 
 

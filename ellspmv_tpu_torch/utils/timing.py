@@ -7,27 +7,51 @@ manager. Host clock: work on a card must be synchronised inside the phase
 for its time to count.
 
 `span(name, **attrs)` marks one step of the program's set-up, named
-``<layer>.<step>``. Spans are kept only inside `recording()`; elsewhere
-`span` returns one shared object that does nothing, after a single read of
-a module global. A recorded span keeps its parent (the span open around
-it), its attributes, and the name of the exception that closed it, if
-any. Its times are ``time.perf_counter_ns()`` shifted by an anchor read
-when the recording opens, which puts them on the Unix-epoch clock of
-``torch.profiler``'s events. While a profiler is active, each recorded span
-also enters ``torch.profiler.record_function`` under its own name, so that
-it shows in the device trace. Spans are for set-up: none is opened per
-multiply. One thread records; a recording is not shared between threads.
+``<layer>.<step>``. A span is kept in two places:
+
+- the set-up log. The spans named in `ENTRIES` (the chooser, the first
+  call, HPCG's hierarchy, NPB's capture) always keep the tree of spans
+  they hold, whether or not a recording is open; only the outermost entry
+  open does, and an entry opened inside another is a span of its tree.
+  When it closes, its tree (a `Recording` whose first span is the entry's)
+  joins the process's log: `setup_log()` gives the last `LOG_TREES`,
+  oldest first;
+- the open `recording()`, which keeps every span opened while it is open.
+
+Outside both an entry and a recording, `span` returns one shared object
+that does nothing. A kept span keeps its parent (the span open around it),
+its attributes, and the name of the exception that closed it, if any. No
+attribute holds a tensor or an array: the log keeps its trees for the life
+of the process. Its times are ``time.perf_counter_ns()`` shifted by an
+anchor read when its recording opens, which puts them on the Unix-epoch
+clock of ``torch.profiler``'s events. While a profiler is active, each
+kept span also enters ``torch.profiler.record_function`` under its own
+name, so that it shows in the device trace. Spans are for set-up: none is
+opened per multiply or per graph replay. One thread records; a recording
+is not shared between threads.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import sys
 import time
 
-#: The open `Recording`, or None: the one global `span` reads.
+#: The set-up entries: each keeps its tree in the log where no other entry
+#: is open around it.
+ENTRIES = frozenset({"formats.auto_from_coo", "dispatch.first_call",
+                     "multigrid.build", "solvers.power_step.capture"})
+#: How many trees the log keeps.
+LOG_TREES = 16
+
+#: The open `Recording`, or None.
 _active = None
+#: The tree of the outermost entry open, or None.
+_tree = None
+#: The set-up log, oldest first.
+_log = collections.deque(maxlen=LOG_TREES)
 
 
 @dataclasses.dataclass(slots=True)
@@ -50,8 +74,9 @@ class Span:
 
 
 class Recording:
-    """The spans recorded between the opening and the closing of
-    `recording()`, in the order they opened."""
+    """The spans kept between the opening and the closing of
+    `recording()`, or of a set-up entry (its tree, the entry's span
+    first), in the order they opened."""
 
     def __init__(self):
         self.anchor_ns = time.time_ns() - time.perf_counter_ns()
@@ -88,7 +113,7 @@ class Recording:
 
 
 class _Nothing:
-    """What `span` returns outside a recording."""
+    """What `span` returns where no span is kept."""
     __slots__ = ()
 
     def __enter__(self):
@@ -105,64 +130,89 @@ NOTHING = _Nothing()
 
 
 class _Open:
-    """A span being recorded."""
-    __slots__ = ("recording", "span", "profiled")
+    """A span being kept: in the tree of the entry open, in the open
+    recording, or in both, as a `Span` in each that shares `attrs`. An
+    `entry` opens the tree."""
+    __slots__ = ("name", "attrs", "entry", "kept", "profiled")
 
-    def __init__(self, recording: Recording, name: str, attrs: dict):
-        self.recording = recording
-        self.span = Span(name, 0, None, -1, attrs)
+    def __init__(self, name: str, attrs: dict, entry: bool):
+        self.name, self.attrs, self.entry = name, attrs, entry
+        self.kept = []
         self.profiled = None
 
     def __enter__(self):
+        global _tree
         import torch
-        rec, s = self.recording, self.span
         if torch._C._autograd._profiler_enabled():
-            self.profiled = torch.profiler.record_function(s.name)
+            self.profiled = torch.profiler.record_function(self.name)
             self.profiled.__enter__()
-        s.parent = rec._open[-1] if rec._open else -1
-        rec._open.append(len(rec.spans))
-        rec.spans.append(s)
-        s.start_ns = time.perf_counter_ns() + rec.anchor_ns
+        if self.entry:
+            _tree = Recording()
+        for rec in (_tree, _active):
+            if rec is not None:
+                s = Span(self.name, 0, None,
+                         rec._open[-1] if rec._open else -1, self.attrs)
+                rec._open.append(len(rec.spans))
+                rec.spans.append(s)
+                self.kept.append((rec, s))
+        now = time.perf_counter_ns()
+        for rec, s in self.kept:
+            s.start_ns = now + rec.anchor_ns
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        rec, s = self.recording, self.span
-        s.end_ns = time.perf_counter_ns() + rec.anchor_ns
-        if exc_type is not None:
-            s.error = exc_type.__name__
-        rec._open.pop()
+        global _tree
+        now = time.perf_counter_ns()
+        for rec, s in self.kept:
+            s.end_ns = now + rec.anchor_ns
+            if exc_type is not None:
+                s.error = exc_type.__name__
+            rec._open.pop()
+        if self.entry:
+            _log.append(self.kept[0][0])
+            _tree = None
         if self.profiled is not None:
             self.profiled.__exit__(exc_type, exc, tb)
         return False
 
     def set(self, **attrs):
         """Add attributes known only once the step has run."""
-        self.span.attrs.update(attrs)
+        self.attrs.update(attrs)
 
 
 def span(name: str, **attrs):
-    """A context manager around one step named `name`, kept with `attrs` in
-    the open recording; `NOTHING` where none is open. Either has
-    ``set(**attrs)``."""
-    rec = _active
-    if rec is None:
-        return NOTHING
-    return _Open(rec, name, attrs)
+    """A context manager around one step named `name`, kept with `attrs`
+    where spans are kept (the module's docstring), else `NOTHING`. Either
+    has ``set(**attrs)``."""
+    if _tree is None:
+        if name in ENTRIES:
+            return _Open(name, attrs, True)
+        if _active is None:
+            return NOTHING
+    return _Open(name, attrs, False)
 
 
 def open_spans() -> list[str] | None:
-    """The names of the spans open in the open recording, outermost first;
-    None where no recording is open."""
-    rec = _active
+    """The names of the kept spans open, outermost first: the entry's
+    tree's where one is open, else the open recording's; None where no span
+    is kept."""
+    rec = _active if _tree is None else _tree
     if rec is None:
         return None
     return [rec.spans[i].name for i in rec._open]
 
 
+def setup_log() -> list[Recording]:
+    """The trees of the last `LOG_TREES` set-up entries closed in this
+    process, oldest first."""
+    return list(_log)
+
+
 @contextlib.contextmanager
 def recording():
     """Record the spans of the block; yields the `Recording`. An inner
-    recording takes the spans until it closes."""
+    recording takes the spans until it closes; an entry's tree keeps its
+    own as well."""
     global _active
     outer, rec = _active, Recording()
     _active = rec

@@ -5,83 +5,75 @@ Run from the root of the repository, one process a run (so that each
 first call loads the kernels' library, as a run of the benchmark does):
 
     python3 scripts/setup_spans.py --workload lynx68.spmv --seed 7 \\
-        --record 1 [--seconds 2] [--params '{"nx": 64, ...}'] \\
-        [--device cuda]
+        [--seconds 2] [--params '{"nx": 64, ...}'] [--device cuda]
 
 The cell runs as a traced run of the benchmark, through
-``spmv_bench/harness.run_cell``. With ``--record 1`` the run is inside
-``utils/timing.recording()``: no span opens in the window, the check or
-the reference, so the spans are those of the set-up. The script prints a
-line for each span name (calls, total seconds, self seconds, and the
-last call's attributes, among them the padding of the ELL and of the SELL
-split), the split of the set-up (`convert_split`), and how much of the
-root span its children cover. With ``--record 0`` nothing is recorded:
-the runs of both kinds give the cost of recording. Either way it times
-one span in this process, with recording off and on (`span_ns`). The
-last line of standard output is one JSON object.
+``spmv_bench/harness.run_cell``, its `setup_s` from the process's start
+as ``spmv_bench/run.py`` takes it. The port keeps the span tree of each of
+its set-up entries (``utils/timing.setup_log``); no span opens in the
+window, the check or the reference. The script reads the trees the run
+logged and prints a line for each span name (calls, total seconds, self
+seconds, and the last call's attributes, among them the padding of the
+ELL and of the SELL split), then the run's set-up split as the
+benchmark's readers give it (``spmv_bench/setup_split.py``), the share of
+each parent span its children cover (`covers`), and the cost of one span
+in this process, kept nowhere, in an entry's tree, in a recording, and in
+both (`span_ns`). The last line of standard output is one JSON object.
 """
 
 from __future__ import annotations
 
-import argparse
-import contextlib
-import json
-import pathlib
-import sys
 import time
+
+#: The process's start, as ``spmv_bench/run.py`` takes it for `setup_s`.
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import json  # noqa: E402
+import pathlib  # noqa: E402
+import sys  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-#: The chooser's work on one candidate: pricing it, building it on the
-#: host.
-CANDIDATE = ("formats.price.", "formats.build.")
+#: The benchmark's readings of the set-up split.
+READINGS = ("convert_discarded_s", "convert_build_s", "upload_s",
+            "first_call_s", "setup_unspanned_s")
+#: The spans whose children's cover the script reports.
+PARENTS = ("formats.auto_from_coo", "formats.build.ell", "formats.build.dia",
+           "formats.price.sell", "stream.sum_plan", "formats.upload")
 
 
-def convert_split(rec) -> dict | None:
-    """The set-up's parts in a recording of `auto_from_coo` and
-    `traceable_spmv`: the candidates' work on the formats the chooser did
-    not keep (`convert_discarded_s`) and on the one it kept
-    (`convert_build_s`), each candidate span counted once with what it
-    holds; the copies to the card (`upload_s`); the first call
-    (`first_call_s`). None without the root span."""
-    roots = rec.find("formats.auto_from_coo")
-    if not roots:
-        return None
-    choice = roots[-1].attrs.get("choice")
-    kept = discarded = 0.0
-    for i, s in enumerate(rec.spans):
-        if s.name.startswith(CANDIDATE) and not any(
-                rec.within(i, p) for p in CANDIDATE):
-            if s.name.rsplit(".", 1)[1] == choice:
-                kept += s.seconds
-            else:
-                discarded += s.seconds
-    return {"convert_discarded_s": discarded, "convert_build_s": kept,
-            "upload_s": rec.total_s("formats.upload"),
-            "first_call_s": rec.total_s("dispatch.first_call")}
+def span_table(trees) -> list[tuple[str, int, float, float]]:
+    """(name, calls, total seconds, self seconds) for each span name in
+    `trees`, in the order the names first opened."""
+    names = list(dict.fromkeys(s.name for t in trees for s in t.spans))
+    return [(n, sum(len(t.find(n)) for t in trees),
+             sum(t.total_s(n) for t in trees),
+             sum(t.self_s(n) for t in trees)) for n in names]
 
 
-def root_cover(rec) -> tuple[float, float]:
-    """The root span's seconds and the share of them its children cover."""
-    i = next(i for i, s in enumerate(rec.spans)
-             if s.name == "formats.auto_from_coo")
-    root = rec.spans[i].seconds
-    return root, sum(c.seconds for c in rec.children(i)) / root
-
-
-def span_table(rec) -> list[tuple[str, int, float, float]]:
-    """(name, calls, total seconds, self seconds) for each span name, in
-    the order the names first opened."""
-    names = list(dict.fromkeys(s.name for s in rec.spans))
-    return [(n, len(rec.find(n)), rec.total_s(n), rec.self_s(n))
-            for n in names]
+def covers(trees) -> dict:
+    """For each name of `PARENTS` in `trees`: its spans' seconds and the
+    share of them their children cover."""
+    out = {}
+    for name in PARENTS:
+        own = kids = 0.0
+        for t in trees:
+            for i, s in enumerate(t.spans):
+                if s.name == name:
+                    own += s.seconds
+                    kids += sum(c.seconds for c in t.children(i))
+        if own > 0:
+            out[name] = {"s": own, "cover": kids / own}
+    return out
 
 
 def span_ns(calls: int = 20000, repeats: int = 5) -> dict:
-    """Nanoseconds one set-up span costs in this process, with recording off
-    and on: the least over `repeats` loops of `calls` spans around nothing,
-    less the loop's own time."""
+    """Nanoseconds one set-up span costs in this process: kept nowhere
+    (`off`), in an entry's tree (`log`), in a recording (`on`) and in both
+    (`both`); the least over `repeats` loops of `calls` spans around
+    nothing, less the loop's own time. The entry's trees join the log."""
     from ellspmv_tpu_torch.utils import timing
 
     def each(body):
@@ -101,18 +93,22 @@ def span_ns(calls: int = 20000, repeats: int = 5) -> dict:
             with timing.span("formats.counts"):
                 pass
 
+    def in_entry():
+        with timing.span("dispatch.first_call"):
+            spans()
+
     loop = each(bare)
-    off = each(spans) - loop
+    out = {"off": each(spans) - loop, "log": each(in_entry) - loop}
     with timing.recording():
-        on = each(spans) - loop
-    return {"off": off, "on": on}
+        out["on"] = each(spans) - loop
+        out["both"] = each(in_entry) - loop
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
-    ap.add_argument("--record", type=int, choices=(0, 1), required=True)
     ap.add_argument("--seconds", type=float, default=2.0,
                     help="the window after the set-up")
     ap.add_argument("--params", help="JSON: the configuration's sizes "
@@ -123,7 +119,7 @@ def main(argv=None) -> int:
     import torch
 
     from ellspmv_tpu_torch.utils import timing
-    from spmv_bench import harness
+    from spmv_bench import harness, setup_split
 
     bench = harness.load_json(ROOT / "BENCHMARK.json")
     params = json.loads(args.params) if args.params else None
@@ -132,29 +128,37 @@ def main(argv=None) -> int:
         print("setup_spans: no CUDA card", file=sys.stderr)
         return 1
 
-    with (timing.recording() if args.record
-          else contextlib.nullcontext()) as rec:
-        line = harness.run_cell(bench, args.workload, args.seed,
-                                args.seconds, True, device=args.device,
-                                params=params)
+    before = timing.setup_log()
+    line = harness.run_cell(bench, args.workload, args.seed, args.seconds,
+                            True, device=args.device, t_start=T_START,
+                            params=params)
+    trees = [t for t in timing.setup_log()
+             if not any(t is b for b in before)]
+    metrics = line["metrics"]
     out = {"workload": args.workload, "seed": args.seed,
-           "record": args.record, "device": line["device"]["kind"],
-           "correct": line["correct"],
-           "convert_s": line["metrics"]["convert_s"]["value"],
-           "span_ns": span_ns()}
-    if rec is not None:
-        for name, calls, total, own in span_table(rec):
-            attrs = rec.find(name)[-1].attrs
-            print(f"span {name}: {calls} calls, {total:.6f} s, self "
-                  f"{own:.6f} s" + (f", last {attrs}" if attrs else ""),
-                  flush=True)
-        root, cover = root_cover(rec)
-        out.update(convert_split(rec), root_s=root, root_cover=cover,
-                   spans=len(rec.spans),
-                   format=rec.find("formats.auto_from_coo")[-1]
-                   .attrs["choice"])
+           "device": line["device"]["kind"], "correct": line["correct"],
+           "convert_s": metrics["convert_s"]["value"]}
+    out.update({k: metrics[k]["value"] for k in READINGS if k in metrics})
+    for name, calls, total, own in span_table(trees):
+        attrs = next(t.find(name)[-1] for t in reversed(trees)
+                     if t.find(name)).attrs
+        print(f"span {name}: {calls} calls, {total:.6f} s, self "
+              f"{own:.6f} s" + (f", last {attrs}" if attrs else ""),
+              flush=True)
+    chooser = next((t for t in trees if t.spans
+                    and t.spans[0].name == setup_split.ROOT), None)
+    if chooser is not None:
+        root = chooser.spans[0]
+        out.update(root_s=root.seconds, root_cover=sum(
+            c.seconds for c in chooser.children(0)) / root.seconds,
+            format=root.attrs["choice"])
+    out.update(trees=[t.spans[0].name for t in trees if t.spans],
+               trees_s=sum(t.spans[0].seconds for t in trees if t.spans),
+               spans=sum(len(t.spans) for t in trees), covers=covers(trees),
+               span_ns=span_ns())
     print(json.dumps(out), flush=True)
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1111,3 +1111,40 @@ def test_npb_class_a_through_the_captured_step_on_card():
     assert int(s.steps) == p["niter"]
     gap = abs(float(s.zeta) - p["zeta_verify"]) / p["zeta_verify"]
     assert gap <= 1e-10, gap
+
+
+@pytest.mark.cuda
+def test_no_span_per_graph_replay_on_card():
+    """The set-up log on a card: the chooser's tree holds the copy to the
+    card, and NPB's capture keeps a tree of its own; the chained blocks'
+    replays and the captured step's replays keep no span, in a recording
+    or in the log."""
+    _needs_card()
+    from ellspmv_tpu_torch.formats.auto import auto_from_coo
+    from ellspmv_tpu_torch.models import solvers
+    from ellspmv_tpu_torch.utils import timing
+    matrix = auto_from_coo(banded_random(20_000, 8, 500, seed=3),
+                           value_dtype="float64", device="cuda")
+    chooser = timing.setup_log()[-1]
+    assert chooser.spans[0].name == "formats.auto_from_coo"
+    (up,) = chooser.find("formats.upload")
+    assert up.attrs["bytes"] > 0 and up.seconds > 0
+    operand, fn = traceable_spmv(matrix)
+    s = solvers.power_state(matrix.num_rows, 5, torch.float64, "cuda")
+    step, graph = solvers.power_stepper(s, fn, 10.0, operand=operand)
+    assert timing.setup_log()[-1].spans[0].name == \
+        "solvers.power_step.capture"
+    x = torch.ones(matrix.num_rows, dtype=torch.float64, device="cuda")
+    before = timing.setup_log()
+    try:
+        with _block_loop(fn, operand, x, torch.zeros_like(x)) as (start,
+                                                                  run):
+            start()
+            with timing.recording() as rec:
+                run(2 * CHAINED_BLOCK + 3)
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+    finally:
+        graph.close()
+    assert rec.spans == [] and timing.setup_log() == before

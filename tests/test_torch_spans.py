@@ -1,8 +1,9 @@
 """The port's span recorder (``ellspmv_tpu_torch/utils/timing.py``) and the
 spans of its set-up, on the CPU: what is kept with recording on and off,
-nesting and self time, the profiler's clock, the chooser's candidates, the
-copies to a device (the meta device stands in for a card), the first
-call, and the programs' phase lines."""
+nesting and self time, the profiler's clock, the chooser's candidates and
+their split (``spmv_bench/setup_split.py``), the copies to a device (the
+meta device stands in for a card), the first call, and the programs'
+phase lines. The set-up log itself: ``tests/test_torch_setup_log.py``."""
 
 import importlib.util
 import json
@@ -24,6 +25,7 @@ from ellspmv_tpu_torch.models.generators import (banded_random, poisson2d,
                                                  power_law)
 from ellspmv_tpu_torch.ops.dispatch import spmv, traceable_spmv
 from ellspmv_tpu_torch.utils import timing
+from spmv_bench import setup_split
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -154,7 +156,10 @@ def test_skewed_matrix_records_both_candidates(skewed):
                  "stream.position_order"):
         (s,) = rec.find(name)
         assert rec.spans[s.parent].name == "formats.build.stream"
-    split = _script().convert_split(rec)
+    tree, first = timing.setup_log()[-2:]
+    assert [s.name for s in tree.spans] == [
+        s.name for s in rec.spans if s.name != "dispatch.first_call"]
+    split = setup_split.convert_split(tree)
     other = "sell" if choice == "stream" else "stream"
     assert split["convert_discarded_s"] == pytest.approx(
         rec.total_s(f"formats.build.{other}")
@@ -163,7 +168,7 @@ def test_skewed_matrix_records_both_candidates(skewed):
         # what is discarded is the SELL price alone
         assert split["convert_discarded_s"] == pytest.approx(price.seconds)
     assert split["convert_build_s"] > 0 and split["upload_s"] == 0.0
-    assert split["first_call_s"] == rec.find("dispatch.first_call")[0].seconds
+    assert first.spans[0].seconds == rec.find("dispatch.first_call")[0].seconds
     children = sum(c.seconds for c in rec.children(0))
     assert children <= root.seconds
 
@@ -177,7 +182,7 @@ def test_banded_matrix_records_the_dia_build_and_the_ell_price():
             "formats.price.dia"} <= _names(rec)
     assert not any(s.name.startswith("formats.build.")
                    and s.name != "formats.build.dia" for s in rec.spans)
-    split = _script().convert_split(rec)
+    split = setup_split.convert_split(timing.setup_log()[-1])
     assert split["convert_discarded_s"] == pytest.approx(
         rec.total_s("formats.price.ell") + rec.total_s("formats.price.stream"))
 
@@ -211,15 +216,18 @@ def test_moving_a_built_format_is_an_upload():
 
 
 def test_no_bytes_are_counted_outside_a_recording(monkeypatch):
+    """Nor outside a set-up entry: a format moved, or built on a device,
+    with no span kept counts nothing."""
     import ellspmv_tpu_torch.formats as formats
 
     def counted(obj):
-        raise AssertionError("bytes counted with recording off")
+        raise AssertionError("bytes counted with no span kept")
     sell = sell_from_coo(power_law(3000, 8, seed=2), length_sort=True)
     monkeypatch.setattr(formats, "tensor_bytes", counted)
     assert timing.open_spans() is None
     sell.to("meta")
-    auto_from_coo(poisson2d(30), value_dtype="float64", device="meta")
+    dia_from_coo(poisson2d(30), value_dtype="float64", device="meta")
+    ell_from_coo(poisson2d(30), device="meta")
 
 
 def _tensors(obj, prefix=""):
@@ -246,27 +254,54 @@ def _tensors(obj, prefix=""):
                             separate_diagonal=True),
 ], ids=["auto-dia", "auto-skewed", "auto-ell-f32", "dia-bf16", "ell",
         "sell", "stream-diagonal"])
-def test_formats_are_the_same_with_recording_on_and_off(build):
-    off = build()
+def test_formats_are_the_same_with_recording_on_and_off(build, monkeypatch):
+    """And with the set-up log on and off: no entry keeps a tree where
+    `timing.ENTRIES` is empty."""
+    logged = build()
     with timing.recording() as rec:
         on = build()
     assert rec.spans
-    a, b = dict(_tensors(off)), dict(_tensors(on))
-    assert a.keys() == b.keys() and a
-    for path in a:
-        assert a[path].dtype == b[path].dtype, path
-        assert torch.equal(a[path], b[path]), path
+    monkeypatch.setattr(timing, "ENTRIES", frozenset())
+    before = timing.setup_log()
+    off = build()
+    assert timing.setup_log() == before
+    a = dict(_tensors(off))
+    assert a
+    for other in (on, logged):
+        b = dict(_tensors(other))
+        assert a.keys() == b.keys()
+        for path in a:
+            assert a[path].dtype == b[path].dtype, path
+            assert torch.equal(a[path], b[path]), path
+
+
+class _Replayed:
+    """A captured graph's stand-in off a card: a replay runs the body."""
+
+    def __init__(self, body):
+        self.replay = body
 
 
 def test_no_span_per_multiply():
+    """Nor per graph replay, nor per step of the solvers' loops, in a
+    recording or in the log."""
+    from ellspmv_tpu_torch.models import solvers
+    from ellspmv_tpu_torch.utils.graphs import Graph
     matrix = auto_from_coo(poisson2d(10), value_dtype="float64")
     operand, fn = traceable_spmv(matrix)
     x = torch.ones(100, dtype=torch.float64)
+    graph = object.__new__(Graph)
+    graph.graph, graph.launches = _Replayed(lambda: fn(operand, x)), []
+    s = solvers.power_state(100, 5)
+    step, _ = solvers.power_stepper(s, fn, 10.0, operand=operand)
+    before = timing.setup_log()
     with timing.recording() as rec:
         for _ in range(3):
             fn(operand, x)
             spmv(operand, x, x)
-    assert rec.spans == []
+            graph.replay()
+            step()
+    assert rec.spans == [] and timing.setup_log() == before
 
 
 def test_the_first_call_is_a_span():
@@ -278,31 +313,37 @@ def test_the_first_call_is_a_span():
 
 
 def test_the_script_splits_a_run_of_the_harness(capsys):
-    """`scripts/setup_spans.py` on a small lynx68 cell: with recording on,
-    the split of the set-up and the root span inside `convert_s`; with it
-    off, the run alone. Either way the cost of a span."""
+    """`scripts/setup_spans.py` on a small lynx68 cell: the run's trees
+    from the set-up log, their span table, the split of the set-up as the
+    benchmark reads it, the root span inside `convert_s`, the children's
+    cover, and the cost of a span kept nowhere, in the log, in a
+    recording and in both."""
     keys = {"convert_discarded_s", "convert_build_s", "upload_s",
-            "first_call_s", "root_s", "root_cover", "spans", "format"}
-    for record in (1, 0):
-        assert _script().main([
-            "--workload", "lynx68.spmv", "--seed", str(2**35 + record),
-            "--record", str(record), "--seconds", "0.2", "--device", "cpu",
-            "--params", '{"nx": 16, "extras": 5, "diagonal": 24.0}']) == 0
-        lines = capsys.readouterr().out.splitlines()
-        out = json.loads(lines[-1])
-        assert out["correct"] and out["device"] == "cpu"
-        assert out["span_ns"]["on"] > 0 and out["span_ns"]["off"] < 10**5
-        tabled = any(line.startswith("span formats.auto_from_coo: 1 calls")
-                     for line in lines)
-        if record:
-            assert keys <= out.keys() and tabled
-            assert any(line.startswith("span formats.price.ell: 1 calls")
-                       and "'narrow': True" in line for line in lines)
-            assert out["format"] == "dia" and out["spans"] >= 5
-            assert 0 < out["root_s"] <= out["convert_s"]
-            assert out["convert_build_s"] > 0 and out["upload_s"] == 0.0
-        else:
-            assert not keys & out.keys() and not tabled
+            "first_call_s", "setup_unspanned_s", "root_s", "root_cover",
+            "spans", "format", "trees", "trees_s", "covers"}
+    assert _script().main([
+        "--workload", "lynx68.spmv", "--seed", str(2**35 + 1),
+        "--seconds", "0.2", "--device", "cpu",
+        "--params", '{"nx": 16, "extras": 5, "diagonal": 24.0}']) == 0
+    lines = capsys.readouterr().out.splitlines()
+    out = json.loads(lines[-1])
+    assert out["correct"] and out["device"] == "cpu"
+    assert set(out["span_ns"]) == {"off", "log", "on", "both"}
+    assert out["span_ns"]["on"] > 0 and out["span_ns"]["off"] < 10**5
+    assert keys <= out.keys()
+    assert any(line.startswith("span formats.auto_from_coo: 1 calls")
+               for line in lines)
+    assert any(line.startswith("span formats.price.ell: 1 calls")
+               and "'narrow': True" in line for line in lines)
+    assert any(line.startswith("span dia.scatter: 1 calls")
+               for line in lines)
+    assert out["trees"] == ["formats.auto_from_coo", "dispatch.first_call"]
+    assert out["format"] == "dia" and out["spans"] >= 5
+    assert 0 < out["root_s"] <= out["convert_s"]
+    assert out["convert_build_s"] > 0 and out["upload_s"] == 0.0
+    assert out["convert_build_s"] + out["convert_discarded_s"] \
+        <= out["root_s"]
+    assert 0 < out["covers"]["formats.build.dia"]["cover"] <= 1
 
 
 def _phase_lines(err):
